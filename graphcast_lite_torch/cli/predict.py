@@ -1,0 +1,112 @@
+"""Inference/evaluation CLI: ``python -m graphcast_lite_torch.cli.predict``.
+
+AR rollout over the test split on the card, with persistence-skill
+streaming metrics, per-horizon / per-channel (physical units) tables,
+region metrics and raw predictions export.
+
+Examples:
+  predict <exp_dir> --data-dir D --ar-steps 4 --per-channel
+  predict <exp_dir> --data-dir D --dtype bf16 --region 50 60 80 100
+  predict <exp_dir> --data-dir D --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("exp_dir")
+    parser.add_argument("--data-dir", default=None)
+    parser.add_argument("--checkpoint", default=None,
+                        help="torch state dict saved with torch.save "
+                        "(default <exp_dir>/best_model.pt)")
+    parser.add_argument("--ar-steps", type=int, default=None)
+    parser.add_argument("--split", default="test_only",
+                        choices=["test_only", "val", "test", "train", "all"])
+    parser.add_argument("--max-samples", type=int, default=None)
+    parser.add_argument("--region", type=float, nargs=4, default=None,
+                        metavar=("LAT_MIN", "LAT_MAX", "LON_MIN", "LON_MAX"))
+    parser.add_argument("--boundary-width", type=int, default=0)
+    parser.add_argument("--per-channel", action="store_true")
+    parser.add_argument("--save-preds", default=None)
+    parser.add_argument("--report-json", default=None)
+    parser.add_argument("--rollouts-per-dispatch", type=int, default=1,
+                        help="amortized serve (not ported yet: only 1)")
+    parser.add_argument("--da", choices=["none", "nudging", "oi"],
+                        default="none",
+                        help="data assimilation (not ported yet: only none)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                        "kernels' plain versions)")
+    parser.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
+                        help="params and float graph arrays in this dtype")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="random-init seed when there is no checkpoint")
+    args = parser.parse_args(argv)
+    if args.da != "none":
+        parser.error("--da is not ported yet (ROADMAP A11: DA and the "
+                     "remaining model-calling entry points)")
+    if args.rollouts_per_dispatch > 1:
+        parser.error("--rollouts-per-dispatch > 1 is not ported yet "
+                     "(ROADMAP: rollouts_per_dispatch > 1)")
+
+    import torch
+
+    from ..build import build_weather_model, config_direct_steps
+    from ..config import load_experiment_config
+    from ..data.dataset import load_chunked_datasets
+    from ..inference.predict import evaluate_model
+
+    cfg = load_experiment_config(os.path.join(args.exp_dir, "config.json"))
+    data_dir = args.data_dir or cfg.data_dir
+    ar_steps = args.ar_steps or cfg.max_ar_steps
+
+    _, _, test_ds, meta = load_chunked_datasets(
+        data_dir,
+        obs_window=cfg.data.obs_window_used,
+        pred_steps=max(cfg.data.pred_window_used, ar_steps),
+        n_features=cfg.data.num_features_used,
+        test_split=args.split,
+    )
+    model, graphs, _ = build_weather_model(cfg, meta, device=args.device,
+                                           seed=args.seed)
+    ckpt = args.checkpoint or os.path.join(args.exp_dir, "best_model.pt")
+    if os.path.exists(ckpt):
+        state = torch.load(ckpt, map_location="cpu", weights_only=True)
+        model.load_state_dict(state)
+        print(f"[predict] loaded {ckpt}")
+    else:
+        print(f"[predict] WARNING: no checkpoint at {ckpt}; "
+              f"evaluating random init (seed {args.seed})")
+
+    scalers = np.load(os.path.join(data_dir, "scalers.npz"))
+    report = evaluate_model(
+        model, graphs, test_ds, meta,
+        ar_steps=ar_steps,
+        use_residual=cfg.use_residual,
+        static_channels=tuple(cfg.static_channels),
+        forcing_channels=tuple(cfg.forcing_channels),
+        max_samples=args.max_samples,
+        region=tuple(args.region) if args.region else None,
+        boundary_width=args.boundary_width or cfg.boundary_mask_width,
+        scalers_std=scalers["std"] if args.per_channel else None,
+        save_predictions=args.save_preds,
+        direct_steps=config_direct_steps(cfg),
+        device=args.device,
+        dtype=args.dtype,
+    )
+    print(report.summary())
+    if args.report_json:
+        with open(args.report_json, "w") as f:
+            json.dump(report.to_json(), f, indent=1)
+        print(f"[predict] report -> {args.report_json}")
+
+
+if __name__ == "__main__":
+    main()
