@@ -8,8 +8,10 @@
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
    synthetic 512x256 dataset with seeded random weights, and checks that
    every rollout launched the kernel exactly 8 times (2 encoder GCNConv
-   aggregations x 4 AR steps).  Then times the kernel at the flagship
-   encoder shape against its bound, its plain version and one PyTorch call.
+   aggregations x 4 AR steps), and holds one request's bf16 rollout against
+   the fp32 rollout of the same weights.  Then times the kernel at the
+   flagship encoder shape against its bound, its plain version and one
+   PyTorch call.
 3. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
    AR-4, and compares them.
@@ -44,6 +46,12 @@ BF16_TOL = dict(atol=1e-5, rtol=1e-2)
 ORDER_RTOL = 1e-5
 # The 64x32 model on the card against the CPU, fp32 with TF32 off.
 E2E_TOL = dict(atol=1e-3, rtol=1e-3)
+# The flagship bf16 serve against fp32 (TF32 off), same weights and request:
+# per AR step, RMS(bf16 - fp32) <= BF16_SERVE_RTOL * RMS(fp32).  bf16 keeps
+# 8 significant bits (a rounding is within 2^-9 relative); the bound allows
+# about 16 such roundings' worth of drift.  The CPU tests hold the same
+# serve at a small size to the JAX package's own bf16 error.
+BF16_SERVE_RTOL = 2.0 ** -5
 # H100 SXM data-sheet rates: HBM3 bytes/s and fp32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -75,7 +83,7 @@ def _sorted_case(gen, num_edges, num_receivers, f, dtype, batch=None,
     """Receiver-sorted messages padded to a multiple of 128 rows; padding
     rows are zero and belong to the last receiver.  Returns
     (msgs, indptr) on the card."""
-    from graphcast_lite_torch.ops import cuda_segment
+    from graphcast_lite_torch.graphs.structure import indptr_from_receivers
 
     if recv is None:
         recv = torch.sort(torch.randint(0, num_receivers, (num_edges,),
@@ -87,7 +95,7 @@ def _sorted_case(gen, num_edges, num_receivers, f, dtype, batch=None,
     shape = ((batch,) if batch else ()) + (e_pad, f)
     msgs = torch.randn(shape, generator=gen)
     msgs[..., e:, :] = 0.0
-    indptr = cuda_segment.indptr_from_receivers(full, num_receivers)
+    indptr = indptr_from_receivers(full, num_receivers)
     return msgs.to("cuda", dtype), indptr.to("cuda")
 
 
@@ -242,6 +250,7 @@ def phase_serve(workdir):
     rollout_ms = _time_ms(rollout, iters=5, warmup=1)
     stages = _stage_ms(smodel, rollout)
     busy_ms, wall_ms, top = _profile(rollout)
+    bf16_rel_rms = _bf16_against_fp32(model, graphs, spec, x, y, rollout)
     serve = {
         "rollout_ms": rollout_ms,
         "grid_points_per_s": g * AR_STEPS / (rollout_ms / 1e3),
@@ -252,6 +261,7 @@ def phase_serve(workdir):
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "bf16_vs_fp32_rel_rms": bf16_rel_rms,
     }
     _log(f"  AR-4 rollout (CUDA events, mean of 5): {rollout_ms:.2f} ms; "
          f"{serve['grid_points_per_s']:.4g} grid-points/s "
@@ -266,6 +276,40 @@ def phase_serve(workdir):
     for name, n, ms in top:
         _log(f"    {ms:9.3f} ms  {n:5d} calls  {name[:90]}")
     return gs, serve
+
+
+def _bf16_against_fp32(model, graphs, spec, x, y, rollout_bf16):
+    """Relative RMS distance, per AR step, of the bf16 serve's rollout from
+    the fp32 rollout of the same weights on the same request."""
+    from graphcast_lite_torch.inference.predict import serving_copy
+    from graphcast_lite_torch.training.rollout import rollout_predict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m32, g32 = serving_copy(model, graphs, torch.device("cuda"),
+                            torch.float32)
+    g, obs, c = x.shape[0], spec.obs_window, spec.num_features
+    window = torch.from_numpy(x.reshape(g, obs, c)).to("cuda", torch.float32)
+    forcing = torch.from_numpy(y.reshape(g, AR_STEPS, c)).to(
+        "cuda", torch.float32)
+
+    def model_fn(inp, m, t, p):
+        return m32(inp, g32)[0], None
+
+    with torch.inference_mode():
+        p32 = rollout_predict(model_fn, window, AR_STEPS, spec,
+                              forcing=forcing)
+    p16 = rollout_bf16().float()
+    rel = [(torch.linalg.vector_norm(p16[:, s] - p32[:, s])
+            / torch.linalg.vector_norm(p32[:, s])).item()
+           for s in range(AR_STEPS)]
+    _log("  bf16 against fp32 (TF32 off), same weights and request, "
+         "RMS(bf16 - fp32) / RMS(fp32) per AR step: "
+         + ", ".join(f"{r:.4e}" for r in rel)
+         + f" (tolerance {BF16_SERVE_RTOL:.4e})")
+    if not all(np.isfinite(rel)) or max(rel) > BF16_SERVE_RTOL:
+        raise AssertionError(f"bf16 serve off its fp32 rollout: {rel}")
+    return rel
 
 
 def _stage_ms(model, run):

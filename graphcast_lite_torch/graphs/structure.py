@@ -29,16 +29,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.cuda_segment import indptr_from_receivers
-
-__all__ = ["Graph", "RegularBlocks", "pad_to_multiple", "build_graph",
-           "build_regular_blocks"]
+__all__ = ["Graph", "RegularBlocks", "pad_to_multiple",
+           "indptr_from_receivers", "build_graph", "build_regular_blocks"]
 
 _LANE = 128  # edge-count padding multiple (same as the JAX package)
 
 
 def pad_to_multiple(n: int, m: int = _LANE) -> int:
     return ((n + m - 1) // m) * m
+
+
+def indptr_from_receivers(receivers: torch.Tensor,
+                          num_receivers: int) -> torch.Tensor:
+    """[R + 1] int32 CSR offsets of a sorted receiver array."""
+    bounds = torch.arange(num_receivers + 1, device=receivers.device,
+                          dtype=receivers.dtype)
+    return torch.searchsorted(receivers, bounds).to(torch.int32)
 
 
 def _move(t: Optional[torch.Tensor], device, float_dtype):

@@ -150,7 +150,6 @@ def evaluate_model(
     use_residual: bool = True,
     static_channels: Tuple[int, ...] = (),
     forcing_channels: Tuple[int, ...] = (),
-    edge_mask: Optional[torch.Tensor] = None,
     max_samples: Optional[int] = None,
     region: Optional[Tuple[float, float, float, float]] = None,
     boundary_width: int = 0,
@@ -158,8 +157,6 @@ def evaluate_model(
     scalers_std: Optional[np.ndarray] = None,
     save_predictions: Optional[str] = None,
     horizon_hours: int = 6,
-    postprocess=None,
-    skip_samples: int = 0,
     direct_steps: int = 1,
     rollouts_per_dispatch: int = 1,
     device: Union[str, torch.device, None] = None,
@@ -169,12 +166,7 @@ def evaluate_model(
 
     Each sample is one whole-trajectory rollout on ``device`` (default
     ``cuda``; raises without a card unless ``device='cpu'``) with the
-    params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``).
-
-    ``postprocess(pred_flat [G, steps·C], sample_idx) -> pred_flat``
-    applies a correction to the finished trajectory before metrics (it is
-    not fed back into the AR window).  ``skip_samples`` drops the first
-    samples."""
+    params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``)."""
     if assimilator is not None:
         raise NotImplementedError(
             "data-assimilation hooks are not ported yet (ROADMAP A11)"
@@ -223,8 +215,8 @@ def evaluate_model(
 
     n = len(dataset)
     if max_samples is not None:
-        n = min(n, skip_samples + max_samples)
-    for i in range(skip_samples, n):
+        n = min(n, max_samples)
+    for i in range(n):
         x, y = dataset.get(i)
         p_avail = y.shape[-1] // c
         steps = min(ar_steps, p_avail)
@@ -234,13 +226,11 @@ def evaluate_model(
         window = torch.from_numpy(x.reshape(g, obs, c)).to(dev, fdt)
         with torch.inference_mode():
             out = rollout_predict(
-                model_fn, window, steps, spec, edge_mask,
+                model_fn, window, steps, spec,
                 forcing=torch.from_numpy(targets).to(dev, fdt),
             )
             out = out.float().cpu().numpy()               # [G, steps, C]
         pred_flat = out.reshape(g, steps * c)
-        if postprocess is not None:
-            pred_flat = postprocess(pred_flat, i)
         gt_flat = targets[:, :steps, :].reshape(g, steps * c)
         base_flat = np.tile(persistence, (1, steps))
 

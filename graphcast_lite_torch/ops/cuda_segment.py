@@ -11,7 +11,8 @@ CSR offsets (``graphs.structure.Graph.indptr``).
   torch version (fp32 ``index_add_``, then a cast).
 * On a CUDA tensor it launches ``csrc/segment_sum.cu`` or raises; it never
   falls back.  The kernel is built with nvcc for ``sm_90a`` at first use
-  into the package's ``_build/`` directory and bound with ctypes.
+  into the package's ``_build/`` directory, under a name that hashes the
+  source and the nvcc flags, and bound with ctypes.
 
 ``launches`` counts kernel launches (never plain-version calls).
 """
@@ -19,6 +20,7 @@ CSR offsets (``graphs.structure.Graph.indptr``).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -31,14 +33,15 @@ __all__ = [
     "build",
     "segment_sum",
     "segment_sum_reference",
-    "indptr_from_receivers",
 ]
 
 launches = 0
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "segment_sum.cu")
-_LIB_PATH = os.path.join(_PKG, "_build", "libgclt_segment_sum.so")
+_BUILD = os.path.join(_PKG, "_build")
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
 
@@ -52,25 +55,35 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _lib_path() -> str:
+    """The library's path, named after a hash of the source text and the
+    nvcc flags: a library built from another source or with other flags is
+    never loaded."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return os.path.join(_BUILD,
+                        f"libgclt_segment_sum-{h.hexdigest()[:8]}.so")
+
+
 def build() -> str:
-    """Compile the kernel library if it is missing or older than its
-    source; returns the library path."""
-    if os.path.exists(_LIB_PATH) \
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
-        return _LIB_PATH
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, _SRC]
+    """Compile the kernel library unless this source's build exists;
+    returns the library path."""
+    path = _lib_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+    os.replace(tmp, path)
+    return path
 
 
 def _library() -> ctypes.CDLL:
@@ -86,14 +99,6 @@ def _library() -> ctypes.CDLL:
         ]
         _lib = lib
     return _lib
-
-
-def indptr_from_receivers(receivers: torch.Tensor,
-                          num_receivers: int) -> torch.Tensor:
-    """[R + 1] int32 CSR offsets of a sorted receiver array."""
-    bounds = torch.arange(num_receivers + 1, device=receivers.device,
-                          dtype=receivers.dtype)
-    return torch.searchsorted(receivers, bounds).to(torch.int32)
 
 
 def segment_sum_reference(msgs: torch.Tensor, indptr: torch.Tensor,

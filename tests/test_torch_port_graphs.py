@@ -76,19 +76,49 @@ def test_static_features_equal_jax(levels):
     assert tgs.num_mesh_nodes == jgs.num_mesh_nodes
 
 
-def test_to_casts_float_arrays_only():
+def _eq_bf16(port_t, jax_a):
+    """A port array cast to bf16 equals the JAX array cast as the bf16
+    serve casts it (``bench.py``: every fp32 graph array to bf16)."""
+    import jax.numpy as jnp
     import torch
 
-    _, tgs = _pair([1, 2])
+    assert port_t.dtype == torch.bfloat16
+    expect = np.asarray(jnp.asarray(jax_a).astype(jnp.bfloat16)
+                        .astype(jnp.float32))
+    np.testing.assert_array_equal(port_t.float().numpy(), expect)
+
+
+def test_to_casts_float_arrays_only():
+    """``.to(device, bf16)`` casts the float arrays, degrees and norms
+    included, and rounds them where the JAX package's bf16 cast does; the
+    index arrays stay int32."""
+    import torch
+
+    from graphcast_lite_tpu.graphs.structure import build_graph as jax_graph
+    from graphcast_lite_torch.graphs.structure import build_graph
+
+    jgs, tgs = _pair([1, 2])
     g = tgs.encoding.to("cpu", torch.bfloat16)
-    assert g.edge_mask.dtype == torch.bfloat16
-    assert g.gcn_norm.dtype == torch.bfloat16
-    assert g.static_in_degree.dtype == torch.bfloat16
+    for name in ("edge_mask", "gcn_norm", "static_in_degree"):
+        _eq_bf16(getattr(g, name), getattr(jgs.encoding, name))
     assert g.senders.dtype == torch.int32 and g.indptr.dtype == torch.int32
-    rb = tgs.processing.to("cpu", torch.bfloat16).reg_blocks
-    assert rb.mask.dtype == torch.bfloat16
-    assert rb.edge_attr.dtype == torch.bfloat16
+    proc = tgs.processing.to("cpu", torch.bfloat16)
+    _eq_bf16(proc.edge_attr, jgs.processing.edge_attr)
+    rb = proc.reg_blocks
+    for name in ("mask", "edge_attr"):
+        _eq_bf16(getattr(rb, name), getattr(jgs.processing.reg_blocks, name))
     assert rb.senders.dtype == torch.int32
+
+    # A hub of in-degree 347, which bf16 cannot hold exactly (it rounds to
+    # 348).  The flagship encoder's busiest node has 346 edges, so 347 with
+    # its self loop.
+    snd = np.arange(1, 348)
+    rcv = np.zeros(347, np.int64)
+    hub = build_graph(snd, rcv, 400).to("cpu", torch.bfloat16)
+    jhub = jax_graph(snd, rcv, 400)
+    assert float(hub.static_in_degree[0]) == 348.0
+    for name in ("static_in_degree", "gcn_norm"):
+        _eq_bf16(getattr(hub, name), getattr(jhub, name))
 
 
 def test_regional_and_flat_grids_raise():

@@ -1,8 +1,9 @@
-"""The port's model layers against the JAX package, fp32 on the CPU, with
-the JAX parameters bridged by ``utils.params.from_flax_params``.
+"""The port's model layers against the JAX package on the CPU, with the
+JAX parameters bridged by ``utils.params.from_flax_params``.
 
-Tolerance atol 5e-5 / rtol 1e-4 (tests/test_torch_parity.py's): both sides
-compute in fp32 and differ in summation order only.
+In fp32 the tolerance is atol 5e-5 / rtol 1e-4 (tests/test_torch_parity.py's):
+both sides differ in summation order only.  The bf16 serve is held to the
+reference's own bf16 error (``_bf16_close``).
 """
 
 import jax
@@ -164,6 +165,104 @@ def test_rollout_predict_ar4(lazy_edge):
     np.testing.assert_array_equal(out[:, :, 1].numpy(),
                                   np.repeat(window[:, -1:, 1], 4, axis=1))
     np.testing.assert_array_equal(out[:, :, 3].numpy(), forcing[:, :, 3])
+
+
+def _jax_bf16(params, graphs):
+    """Params and float graph arrays cast to bf16 as ``bench.py`` does."""
+    def cast(a):
+        if hasattr(a, "dtype") and a.dtype == jnp.float32:
+            return a.astype(jnp.bfloat16)
+        return a
+
+    return jax.tree.map(cast, params), jax.tree.map(cast, graphs)
+
+
+def _bf16_close(port16, jax16, jax32):
+    """The port in bf16 rounds in other places than XLA's fused CPU
+    kernels, so it is held to the reference's own bf16 error rather than
+    to the reference: its RMS distance from JAX fp32 stays within 1.25x
+    JAX bf16's, and its largest distance from JAX bf16 within 2x JAX
+    bf16's largest distance from JAX fp32.  The two ratios are printed
+    (``pytest -k bf16 -rP``); at this size they read 0.91-1.01 and
+    0.72-1.05 over the forward and the four AR steps."""
+    port16, jax16, jax32 = (np.asarray(a, np.float32)
+                            for a in (port16, jax16, jax32))
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a))))
+
+    rms_ratio = rms(port16 - jax32) / rms(jax16 - jax32)
+    max_ratio = np.abs(port16 - jax16).max() / np.abs(jax16 - jax32).max()
+    print(f"bf16: RMS ratio {rms_ratio:.3f}, largest-distance ratio "
+          f"{max_ratio:.3f}; JAX bf16 vs fp32 RMS {rms(jax16 - jax32):.3e}, "
+          f"largest {np.abs(jax16 - jax32).max():.3e}")
+    assert np.isfinite(port16).all()
+    assert rms_ratio <= 1.25
+    assert max_ratio <= 2.0
+
+
+def test_weather_model_forward_bf16(lazy_edge):
+    """One forward of the bf16 serve: params and graph arrays cast by the
+    port's ``serving_copy`` (what ``evaluate_model`` runs) and by
+    ``bench.py``'s cast on the JAX side."""
+    from graphcast_lite_torch.inference.predict import serving_copy
+
+    jmodel, params, jgraphs, tmodel, tgraphs = model_pair()
+    g = tgraphs.num_grid_nodes
+    x = np.random.RandomState(3).randn(g, 2 * N_FEAT).astype(np.float32)
+    expect32, _ = jmodel.apply(params, jnp.asarray(x), jgraphs)
+    p16, g16 = _jax_bf16(params, jgraphs)
+    expect16, _ = jmodel.apply(p16, jnp.asarray(x, jnp.bfloat16), g16)
+    m16, tg16 = serving_copy(tmodel, tgraphs, torch.device("cpu"),
+                             torch.bfloat16)
+    with torch.no_grad():
+        out, _ = m16(to_torch(x).to(torch.bfloat16), tg16)
+    assert out.dtype == torch.bfloat16 and out.shape == (g, N_FEAT)
+    _bf16_close(out.float(), expect16.astype(jnp.float32), expect32)
+
+
+def test_rollout_predict_ar4_bf16(lazy_edge):
+    """AR-4 bf16 rollout, each step held as in the forward test."""
+    from graphcast_lite_tpu.training.rollout import RolloutSpec as JSpec
+    from graphcast_lite_tpu.training.rollout import rollout_predict as jroll
+    from graphcast_lite_torch.inference.predict import serving_copy
+    from graphcast_lite_torch.training.rollout import (
+        RolloutSpec,
+        rollout_predict,
+    )
+
+    jmodel, params, jgraphs, tmodel, tgraphs = model_pair()
+    g = tgraphs.num_grid_nodes
+    rng = np.random.RandomState(4)
+    window = rng.randn(g, 2, N_FEAT).astype(np.float32)
+    forcing = rng.randn(g, 4, N_FEAT).astype(np.float32)
+    kw = dict(obs_window=2, num_features=N_FEAT, use_residual=True,
+              remat=False, static_channels=(1,), forcing_channels=(3,))
+
+    def jax_rollout(p, gr, dtype):
+        def fn(inp, m, t, pr):
+            return jmodel.apply(p, inp, gr)[0], None
+
+        out = jroll(fn, jnp.asarray(window, dtype), 4, JSpec(**kw),
+                    forcing=jnp.asarray(forcing, dtype))
+        return np.asarray(out.astype(jnp.float32))
+
+    expect32 = jax_rollout(params, jgraphs, jnp.float32)
+    expect16 = jax_rollout(*_jax_bf16(params, jgraphs), jnp.bfloat16)
+    m16, tg16 = serving_copy(tmodel, tgraphs, torch.device("cpu"),
+                             torch.bfloat16)
+
+    def tfn(inp, m, t, p):
+        return m16(inp, tg16)[0], None
+
+    with torch.no_grad():
+        out = rollout_predict(tfn, to_torch(window).to(torch.bfloat16), 4,
+                              RolloutSpec(**kw),
+                              forcing=to_torch(forcing).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16 and out.shape == (g, 4, N_FEAT)
+    out = out.float().numpy()
+    for s in range(4):
+        _bf16_close(out[:, s], expect16[:, s], expect32[:, s])
 
 
 def test_unported_paths_raise():

@@ -10,6 +10,8 @@ sides accumulate in fp32 and differ only in order (1e-5).  The CUDA kernel
 itself is held against the plain version on the card by chip_smoke.py.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from graphcast_lite_tpu.ops.pallas_segment import (
     build_schedule_clipped,
     segment_sum_sorted,
 )
+from graphcast_lite_torch.graphs.structure import indptr_from_receivers
 from graphcast_lite_torch.ops import cuda_segment
 
 
@@ -39,7 +42,7 @@ def _sorted_case(rng, e, r, f, recv=None, pad_recv=None):
 
 def _port(m, r1, r):
     recv = torch.from_numpy(r1)
-    indptr = cuda_segment.indptr_from_receivers(recv, r)
+    indptr = indptr_from_receivers(recv, r)
     return cuda_segment.segment_sum(torch.from_numpy(m), indptr, r).numpy()
 
 
@@ -134,7 +137,7 @@ def test_bf16_rounds_once_from_fp32():
     rng = np.random.RandomState(4)
     m, r1 = _sorted_case(rng, 2000, 300, 64)
     mb = torch.from_numpy(m).to(torch.bfloat16)
-    indptr = cuda_segment.indptr_from_receivers(torch.from_numpy(r1), 300)
+    indptr = indptr_from_receivers(torch.from_numpy(r1), 300)
     out = cuda_segment.segment_sum(mb, indptr, 300)
     assert out.dtype == torch.bfloat16
     exact = cuda_segment.segment_sum(mb.float(), indptr, 300)
@@ -146,7 +149,7 @@ def test_indptr_and_wrapper_contract():
     version without counting a launch; other devices raise."""
     rng = np.random.RandomState(5)
     m, r1 = _sorted_case(rng, 500, 80, 8)
-    indptr = cuda_segment.indptr_from_receivers(torch.from_numpy(r1), 80)
+    indptr = indptr_from_receivers(torch.from_numpy(r1), 80)
     ip = indptr.numpy()
     assert ip.dtype == np.int32 and ip[0] == 0 and ip[-1] == len(r1)
     for e_i, rv in enumerate(r1):
@@ -157,6 +160,33 @@ def test_indptr_and_wrapper_contract():
     with pytest.raises(ValueError):
         cuda_segment.segment_sum(torch.empty(len(r1), 8, device="meta"),
                                  indptr.to("meta"), 80)
+
+
+def test_library_named_after_source_and_flags(monkeypatch, tmp_path):
+    """The kernel library's file name hashes the source text and the nvcc
+    flags, so a build of another source or with other flags is never
+    loaded; an existing build of this source is reused without nvcc."""
+    src = tmp_path / "segment_sum.cu"
+    src.write_text("// version 1\n")
+    monkeypatch.setattr(cuda_segment, "_SRC", str(src))
+    monkeypatch.setattr(cuda_segment, "_BUILD", str(tmp_path / "_build"))
+    first = cuda_segment._lib_path()
+    assert first.startswith(str(tmp_path / "_build"))
+    src.write_text("// version 2\n")
+    second = cuda_segment._lib_path()
+    monkeypatch.setattr(cuda_segment, "_NVCC_FLAGS",
+                        cuda_segment._NVCC_FLAGS + ("-lineinfo",))
+    third = cuda_segment._lib_path()
+    assert len({first, second, third}) == 3
+
+    os.makedirs(os.path.dirname(third))
+    open(third, "wb").close()
+
+    def no_nvcc(*args, **kwargs):
+        raise AssertionError("nvcc ran for an existing build")
+
+    monkeypatch.setattr(cuda_segment.subprocess, "run", no_nvcc)
+    assert cuda_segment.build() == third
 
 
 @pytest.mark.parametrize("which", ["encoding", "decoding"])
