@@ -1,20 +1,32 @@
 """Smoke run of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
-1. Builds the hand-written CUDA segment-sum kernel (nvcc, sm_90a) from
-   ``graphcast_lite_torch/csrc/segment_sum.cu`` and holds it against its
-   plain PyTorch version on the card, in fp32 and bf16.
+Builds the port's three hand-written CUDA kernels (nvcc, sm_90a, one nvcc
+per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
+
+1. Holds each kernel against its plain PyTorch version on the card, in
+   fp32 and bf16: the segment sum (``segment_sum.cu``), the edge-MLP tail
+   fused with its aggregation (``edge_mlp.cu``) and the fused lazy-LN edge
+   step (``edge_step.cu``), on empty receivers, padding rows, pruned edges,
+   a receiver with thousands of edges and receiver counts that are not a
+   multiple of the kernels' receiver tile.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
-   synthetic 512x256 dataset with seeded random weights, and checks that
-   every rollout launched the kernel exactly 8 times (2 encoder GCNConv
-   aggregations x 4 AR steps), and holds one request's bf16 rollout against
-   the fp32 rollout of the same weights.  Then times the kernel at the
-   flagship encoder shape against its bound, its plain version and one
+   synthetic 512x256 dataset with seeded random weights, on the default
+   reg-block route, checks that every rollout launched the segment sum
+   exactly 8 times (2 encoder GCNConv aggregations x 4 AR steps), and holds
+   one request's bf16 rollout against the fp32 rollout of the same weights.
+2b. Serves one request on each of the three COO routes (``GCLT_REG_EDGE=0``;
+   plus ``GCLT_EDGE_STEP=1`` or ``GCLT_MEGA_EDGE=1``), checks each route's
+   exact launch counts per rollout, and holds its bf16 rollout against the
+   fp32 reg-block rollout; times each route.
+3. Times each kernel at the flagship shapes (the segment sum at the encoder
+   and the processor shape, the two fused kernels at the processor shape)
+   against its bound, its plain version and, where there is one, one
    PyTorch call.
-3. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
+4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
-   AR-4, and compares them.
+   AR-4, on the reg-block route and on each COO route, and compares them.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -24,6 +36,7 @@ card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,7 +47,8 @@ import time
 import numpy as np
 import torch
 
-# Stated tolerance of the kernel against its plain version, per element:
+# Stated tolerance of the segment sum against its plain version, per
+# element:
 #   |kernel - plain| <= atol + rtol * |plain| + ORDER_RTOL * sum_e |msgs_e|.
 # Both accumulate in fp32 and differ only in the order of the additions;
 # that difference grows with the sum of magnitudes, not with the result,
@@ -44,6 +58,20 @@ import torch
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-5, rtol=1e-2)
 ORDER_RTOL = 1e-5
+# The fused kernels (edge_mlp, edge_step) against their plain versions.
+# Per output element, atol + rtol * |plain|; the aggregates add the order
+# term above over their rows' |u|.  fp32: both accumulate products of up to
+# 256 terms (magnitudes up to about 4) in fp32 in other orders, a few fp32
+# roundings of the partial sums.  bf16: both round at the same points, but
+# where the two fp32 accumulations fall on either side of a bf16 rounding
+# boundary an intermediate differs by one bf16 ulp (2^-6 at magnitude 2-4),
+# and the output by up to about two.
+FUSED_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+FUSED_BF16_TOL = dict(atol=2.0 ** -5, rtol=2.0 ** -6)
+# The edge step's statistics are fp32 sums over up to 67M elements, in
+# other orders: |kernel - plain| <= STATS_RTOL * (sum of the terms'
+# magnitudes); the row count (sum of the mask) is exact.
+STATS_RTOL = 1e-5
 # The 64x32 model on the card against the CPU, fp32 with TF32 off.
 E2E_TOL = dict(atol=1e-3, rtol=1e-3)
 # The flagship bf16 serve against fp32 (TF32 off), same weights and request:
@@ -52,11 +80,23 @@ E2E_TOL = dict(atol=1e-3, rtol=1e-3)
 # about 16 such roundings' worth of drift.  The CPU tests hold the same
 # serve at a small size to the JAX package's own bf16 error.
 BF16_SERVE_RTOL = 2.0 ** -5
-# H100 SXM data-sheet rates: HBM3 bytes/s and fp32 (non-tensor) FLOP/s.
+# H100 SXM data-sheet rates: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 REQUESTS = 3
 AR_STEPS = 4
+# The COO routes of the processor, the switches that pick them (the JAX
+# package's own), and their exact kernel launches per AR-4 rollout
+# (48 = 12 processor steps x 4 AR steps; 8 = 2 encoder GCNConv x 4).
+COO_ROUTES = {
+    "composed": ({"GCLT_REG_EDGE": "0"},
+                 {"segment_sum": 8 + 48, "edge_mlp": 0, "edge_step": 0}),
+    "edge_step": ({"GCLT_REG_EDGE": "0", "GCLT_EDGE_STEP": "1"},
+                  {"segment_sum": 8, "edge_mlp": 0, "edge_step": 48}),
+    "mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
+             {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0}),
+}
+_SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE")
 
 
 def _log(*args):
@@ -76,6 +116,48 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, flops: float):
+    """(least ms, "bytes" | "operations"): the larger of the bytes over the
+    HBM rate and the operations over the bf16 tensor-core rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TC_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _kernel_modules():
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step
+
+    return {"segment_sum": cuda_segment, "edge_mlp": edge_mlp,
+            "edge_step": edge_step}
+
+
+def _reset_launches():
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def _launches():
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+@contextlib.contextmanager
+def _route(env):
+    """Set the processor's route switches for the block; restore after."""
+    saved = {k: os.environ.get(k) for k in _SWITCHES}
+    for k in _SWITCHES:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _sorted_case(gen, num_edges, num_receivers, f, dtype, batch=None,
@@ -100,28 +182,17 @@ def _sorted_case(gen, num_edges, num_receivers, f, dtype, batch=None,
 
 
 def _check_kernel(label, msgs, indptr, num_receivers) -> float:
-    """Kernel against the plain version on the same card inputs; returns
-    the max abs error."""
+    """Segment-sum kernel against the plain version on the same card inputs;
+    returns the max abs error."""
     from graphcast_lite_torch.ops import cuda_segment
 
-    out = cuda_segment.segment_sum(msgs, indptr, num_receivers).float()
-    ref = cuda_segment.segment_sum_reference(msgs, indptr,
-                                             num_receivers).float()
+    out = cuda_segment.segment_sum(msgs, indptr, num_receivers)
+    ref = cuda_segment.segment_sum_reference(msgs, indptr, num_receivers)
     mag = cuda_segment.segment_sum_reference(msgs.float().abs(), indptr,
                                              num_receivers)
     torch.cuda.synchronize()
     tol = FP32_TOL if msgs.dtype == torch.float32 else BF16_TOL
-    diff = (out - ref).abs()
-    allowed = tol["atol"] + tol["rtol"] * ref.abs() + ORDER_RTOL * mag
-    err = diff.max().item()
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{label}: non-finite kernel output")
-    if (diff > allowed).any():
-        worst = int(torch.argmax(diff - allowed))
-        raise AssertionError(
-            f"{label} {msgs.dtype}: {int((diff > allowed).sum())} elements "
-            f"out of tolerance; worst |err| {diff.flatten()[worst]:.3e} > "
-            f"{allowed.flatten()[worst]:.3e}")
+    err = _close(f"{label} {msgs.dtype}", out, ref, tol, ORDER_RTOL * mag)
     _log(f"  {label:<44s} {str(msgs.dtype):<15s} max|err| {err:.3e} ok")
     return err
 
@@ -150,20 +221,146 @@ def phase_kernel_cases():
         _check_kernel("receiver with 2500 edges, F=256", m, ip, 4_000)
 
 
+def _fused_case(gen, num_edges, num_receivers, hid, de, dtype, recv=None):
+    """Inputs of both fused kernels on the card: receiver-sorted rows padded
+    to a multiple of 128 onto receiver R-1 (mask 0), every 7th real edge
+    pruned (mask 0); a and c in fp32."""
+    from graphcast_lite_torch.graphs.structure import indptr_from_receivers
+
+    if recv is None:
+        recv = torch.sort(torch.randint(0, num_receivers, (num_edges,),
+                                        generator=gen)).values
+    e = recv.numel()
+    e_pad = ((e + 127) // 128) * 128
+    full = torch.full((e_pad,), num_receivers - 1, dtype=torch.int64)
+    full[:e] = recv
+    mask = torch.zeros(e_pad)
+    mask[:e] = 1.0
+    mask[:e:7] = 0.0
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    t = dict(h_pre=randn(e_pad, hid, scale=2.0), xsg=randn(e_pad, hid),
+             v=randn(e_pad, de), xr=randn(num_receivers, hid),
+             w1e=randn(de, hid, scale=0.1), b_eff=randn(hid, scale=0.1),
+             w2=randn(hid, de, scale=0.1), b2=randn(de, scale=0.1),
+             mask=mask)
+    out = {k: x.to("cuda", dtype) for k, x in t.items()}
+    out["a"] = (1.0 + randn(de, scale=0.1)).cuda()
+    out["c"] = randn(de, scale=0.1).cuda()
+    out["indptr"] = indptr_from_receivers(full, num_receivers).cuda()
+    return out
+
+
+def _close(label, out, ref, tol, extra=None) -> float:
+    """Raise unless |out - ref| <= atol + rtol |ref| (+ extra) everywhere
+    and out is finite; returns the max abs error."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    diff = (out - ref).abs()
+    allowed = tol["atol"] + tol["rtol"] * ref.abs()
+    if extra is not None:
+        allowed = allowed + extra
+    if (diff > allowed).any():
+        worst = int(torch.argmax(diff - allowed))
+        raise AssertionError(
+            f"{label}: {int((diff > allowed).sum())} elements out of "
+            f"tolerance; worst |err| {diff.flatten()[worst]:.3e} > "
+            f"{allowed.flatten()[worst]:.3e}")
+    return diff.max().item()
+
+
+def _check_edge_mlp(label, t, r, act="swish"):
+    """edge_mlp kernel against its plain version; returns the max abs
+    error over u and agg."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+
+    args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r, act)
+    u, agg = edge_mlp.edge_mlp(*args)
+    u_ref, agg_ref = edge_mlp.edge_mlp_reference(*args)
+    mag = cuda_segment.segment_sum_reference(
+        u_ref.float().abs() * t["mask"].float()[:, None], t["indptr"], r)
+    torch.cuda.synchronize()
+    tol = FUSED_FP32_TOL if u.dtype == torch.float32 else FUSED_BF16_TOL
+    err = max(_close(f"edge_mlp {label} u", u, u_ref, tol),
+              _close(f"edge_mlp {label} agg", agg, agg_ref, tol,
+                     ORDER_RTOL * mag))
+    _log(f"  edge_mlp  {label:<46s} {str(u.dtype):<15s} max|err| "
+         f"{err:.3e} ok")
+    return err
+
+
+def _check_edge_step(label, t, r, act="swish"):
+    """edge_step kernel against its plain version; returns the max abs
+    error over v_new and agg, and that of the stats."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_step
+
+    args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
+            t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r, act)
+    v_new, agg, stats = edge_step.edge_step(*args)
+    v_ref, agg_ref, stats_ref = edge_step.edge_step_reference(*args)
+    w = t["mask"].float()[:, None]
+    u_mag = (v_ref.float() - t["a"] * t["v"].float() - t["c"]).abs() * w
+    agg_mag = cuda_segment.segment_sum_reference(u_mag, t["indptr"], r)
+    vf = v_ref.float()
+    stats_mag = torch.stack([(vf.abs() * w).sum(), (vf.square() * w).sum(),
+                             w.sum()])
+    torch.cuda.synchronize()
+    tol = FUSED_FP32_TOL if v_new.dtype == torch.float32 else FUSED_BF16_TOL
+    err = max(_close(f"edge_step {label} v_new", v_new, v_ref, tol),
+              _close(f"edge_step {label} agg", agg, agg_ref, tol,
+                     ORDER_RTOL * agg_mag))
+    stats_err = _close(f"edge_step {label} stats", stats, stats_ref,
+                       dict(atol=0.0, rtol=0.0), STATS_RTOL * stats_mag)
+    if stats.dtype != torch.float32 or stats[2].item() != stats_ref[2].item():
+        raise AssertionError(f"edge_step {label}: row count {stats[2]} "
+                             f"!= {stats_ref[2]}")
+    _log(f"  edge_step {label:<46s} {str(v_new.dtype):<15s} max|err| "
+         f"{err:.3e}, stats {stats_err:.3e} ok")
+    return err, stats_err
+
+
+def phase_fused_cases():
+    _log("phase 1b: edge_mlp and edge_step kernels vs plain versions on the "
+         f"card (fp32 {FUSED_FP32_TOL}, bf16 {FUSED_BF16_TOL}; aggregates "
+         f"+ {ORDER_RTOL} * sum|u|, stats {STATS_RTOL} * sum of magnitudes)")
+    gen = torch.Generator().manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hid, de in ((128, 128), (256, 256), (128, 256)):
+            label = f"E=60000 R=20001 H={hid} De={de}"
+            t = _fused_case(gen, 60_000, 20_001, hid, de, dtype)
+            _check_edge_mlp(label, t, 20_001)
+            _check_edge_step(label, t, 20_001)
+        t = _fused_case(gen, 0, 12_003, 256, 256, dtype,
+                        recv=torch.sort(torch.randint(
+                            5_000, 7_000, (20_001,), generator=gen)).values)
+        label = "empty receivers + padding rows, R=12003"
+        _check_edge_mlp(label, t, 12_003, "relu")
+        _check_edge_step(label, t, 12_003, "relu")
+        hog = torch.cat([torch.zeros(2_500, dtype=torch.int64),
+                         torch.sort(torch.randint(1, 4_001, (9_000,),
+                                                  generator=gen)).values])
+        t = _fused_case(gen, 0, 4_001, 256, 256, dtype, recv=hog)
+        label = "receiver with 2500 edges, R=4001"
+        _check_edge_mlp(label, t, 4_001)
+        _check_edge_step(label, t, 4_001)
+
+
 def phase_serve(workdir):
-    """The flagship bf16 AR-4 serve through the port's entry points."""
+    """The flagship bf16 AR-4 serve through the port's entry points, on the
+    default (reg-block) route.  Returns what the later phases reuse."""
     from graphcast_lite_torch import presets
     from graphcast_lite_torch.build import build_weather_model
     from graphcast_lite_torch.data.dataset import load_chunked_datasets
     from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
-    from graphcast_lite_torch.inference.predict import evaluate_model, \
-        serving_copy
-    from graphcast_lite_torch.ops import cuda_segment
-    from graphcast_lite_torch.training.rollout import RolloutSpec, \
-        rollout_predict
+    from graphcast_lite_torch.inference.predict import evaluate_model
+    from graphcast_lite_torch.training.rollout import RolloutSpec
 
     _log("phase 2: flagship 512x256 AR-4 bf16 serve "
-         "(presets.interaction_net_512x256, seeded random weights)")
+         "(presets.interaction_net_512x256, seeded random weights), "
+         "default route (reg-block)")
     cfg = presets.interaction_net_512x256()
     n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
     t0 = time.perf_counter()
@@ -180,11 +377,14 @@ def phase_serve(workdir):
     model, graphs, gs = build_weather_model(cfg, meta, device="cuda",
                                             seed=0)
     torch.cuda.synchronize()
-    enc = gs.encoding
+    enc, proc = gs.encoding, gs.processing
     _log(f"  graphs + model: {time.perf_counter() - t0:.1f} s; "
          f"G2M E={enc.num_edges} E_pad={enc.padded_num_edges} "
          f"R={enc.num_receivers} max in-degree "
-         f"{int(enc.static_in_degree.max())}; "
+         f"{int(enc.static_in_degree.max())}; multimesh E={proc.num_edges} "
+         f"E_pad={proc.padded_num_edges} R={proc.num_receivers} in-degree "
+         f"{int(proc.static_in_degree.min())}-"
+         f"{int(proc.static_in_degree.max())}; "
          f"params {sum(p.numel() for p in model.parameters())}")
     kw = dict(ar_steps=AR_STEPS, use_residual=cfg.use_residual,
               static_channels=tuple(cfg.static_channels), device="cuda",
@@ -195,12 +395,12 @@ def phase_serve(workdir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     preds_path = os.path.join(workdir, "preds.npz")
-    cuda_segment.launches = 0
+    _reset_launches()
     report = evaluate_model(model, graphs, test_ds, meta,
                             max_samples=REQUESTS,
                             save_predictions=preds_path, **kw)
     torch.cuda.synchronize()
-    launches = cuda_segment.launches
+    counts = _launches()
     peak = torch.cuda.max_memory_allocated()
     # The same requests again, timed without the compressed .npz write.
     t0 = time.perf_counter()
@@ -216,9 +416,11 @@ def phase_serve(workdir):
         raise AssertionError("non-finite predictions")
     if report.num_samples != REQUESTS or not np.isfinite(report.rmse):
         raise AssertionError(f"report {report.num_samples} {report.rmse}")
-    if launches != 8 * REQUESTS:
-        raise AssertionError(f"segment_sum launched {launches} times for "
-                             f"{REQUESTS} rollouts (expected 8 each)")
+    expected = {"segment_sum": 8 * REQUESTS, "edge_mlp": 0, "edge_step": 0}
+    if counts != expected:
+        raise AssertionError(f"launches {counts} for {REQUESTS} rollouts "
+                             f"(expected {expected})")
+    launches = counts["segment_sum"]
     _log(f"  {REQUESTS} requests: predictions {preds.shape} finite; "
          f"RMSE {report.rmse:.6f}, persistence {report.baseline_rmse:.6f}, "
          f"skill {report.skill * 100:.2f}% (random weights)")
@@ -227,30 +429,19 @@ def phase_serve(workdir):
     _log(f"  evaluate_model wall time per request (host clock, incl. data "
          f"loading and metrics): {wall_s / REQUESTS * 1e3:.1f} ms")
 
-    # Device time of one AR-4 rollout (CUDA events, after a warm-up).
-    smodel, sgraphs = serving_copy(model, graphs, torch.device("cuda"),
-                                   torch.bfloat16)
     spec = RolloutSpec(obs_window=obs, num_features=n_feat,
                        use_residual=cfg.use_residual, remat=False,
                        static_channels=tuple(cfg.static_channels))
-    x, y = test_ds.get(0)
-    window = torch.from_numpy(x.reshape(g, obs, n_feat)).to("cuda",
-                                                              torch.bfloat16)
-    forcing = torch.from_numpy(y.reshape(g, AR_STEPS, n_feat)).to(
-        "cuda", torch.bfloat16)
-
-    def model_fn(inp, m, t, p):
-        return smodel(inp, sgraphs)[0], None
-
-    def rollout():
-        with torch.inference_mode():
-            return rollout_predict(model_fn, window, AR_STEPS, spec,
-                                   forcing=forcing)
-
+    ctx = dict(model=model, graphs=graphs, gs=gs, test_ds=test_ds,
+               meta=meta, kw=kw, spec=spec, request=test_ds.get(0))
+    # Device time of one AR-4 rollout (CUDA events, after a warm-up).
+    rollout, smodel = _rollout(ctx, torch.bfloat16)
     rollout_ms = _time_ms(rollout, iters=5, warmup=1)
     stages = _stage_ms(smodel, rollout)
     busy_ms, wall_ms, top = _profile(rollout)
-    bf16_rel_rms = _bf16_against_fp32(model, graphs, spec, x, y, rollout)
+    # The fp32 rollout (TF32 off) that every route's bf16 serve is held to.
+    ctx["p32"] = _rollout(ctx, torch.float32)[0]().float()
+    bf16_rel_rms = _rel_rms(rollout().float(), ctx["p32"], "reg-block")
     serve = {
         "rollout_ms": rollout_ms,
         "grid_points_per_s": g * AR_STEPS / (rollout_ms / 1e3),
@@ -275,41 +466,97 @@ def phase_serve(workdir):
          f"{serve['device_idle_share']:.3f}); top kernels by device time:")
     for name, n, ms in top:
         _log(f"    {ms:9.3f} ms  {n:5d} calls  {name[:90]}")
-    return gs, serve
+    return ctx, serve
 
 
-def _bf16_against_fp32(model, graphs, spec, x, y, rollout_bf16):
-    """Relative RMS distance, per AR step, of the bf16 serve's rollout from
-    the fp32 rollout of the same weights on the same request."""
+def _rollout(ctx, dtype):
+    """(rollout, serving model): one AR-4 rollout of the flagship request
+    in ``dtype`` on the card, through ``rollout_predict``."""
     from graphcast_lite_torch.inference.predict import serving_copy
     from graphcast_lite_torch.training.rollout import rollout_predict
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    m32, g32 = serving_copy(model, graphs, torch.device("cuda"),
-                            torch.float32)
+    smodel, sgraphs = serving_copy(ctx["model"], ctx["graphs"],
+                                   torch.device("cuda"), dtype)
+    spec, (x, y) = ctx["spec"], ctx["request"]
     g, obs, c = x.shape[0], spec.obs_window, spec.num_features
-    window = torch.from_numpy(x.reshape(g, obs, c)).to("cuda", torch.float32)
-    forcing = torch.from_numpy(y.reshape(g, AR_STEPS, c)).to(
-        "cuda", torch.float32)
+    window = torch.from_numpy(x.reshape(g, obs, c)).to("cuda", dtype)
+    forcing = torch.from_numpy(y.reshape(g, AR_STEPS, c)).to("cuda", dtype)
 
     def model_fn(inp, m, t, p):
-        return m32(inp, g32)[0], None
+        return smodel(inp, sgraphs)[0], None
 
-    with torch.inference_mode():
-        p32 = rollout_predict(model_fn, window, AR_STEPS, spec,
-                              forcing=forcing)
-    p16 = rollout_bf16().float()
+    def rollout():
+        with torch.inference_mode():
+            return rollout_predict(model_fn, window, AR_STEPS, spec,
+                                   forcing=forcing)
+
+    return rollout, smodel
+
+
+def _rel_rms(p16, p32, label):
+    """Relative RMS distance, per AR step, of a bf16 rollout from the fp32
+    rollout of the same weights on the same request; raises above
+    BF16_SERVE_RTOL or on a non-finite value."""
+    if not torch.isfinite(p16).all():
+        raise AssertionError(f"{label}: non-finite bf16 rollout")
     rel = [(torch.linalg.vector_norm(p16[:, s] - p32[:, s])
             / torch.linalg.vector_norm(p32[:, s])).item()
            for s in range(AR_STEPS)]
-    _log("  bf16 against fp32 (TF32 off), same weights and request, "
-         "RMS(bf16 - fp32) / RMS(fp32) per AR step: "
-         + ", ".join(f"{r:.4e}" for r in rel)
+    _log(f"  {label}: bf16 against the fp32 reg-block rollout (TF32 off), "
+         "same weights and request, RMS(bf16 - fp32) / RMS(fp32) per AR "
+         "step: " + ", ".join(f"{r:.4e}" for r in rel)
          + f" (tolerance {BF16_SERVE_RTOL:.4e})")
     if not all(np.isfinite(rel)) or max(rel) > BF16_SERVE_RTOL:
-        raise AssertionError(f"bf16 serve off its fp32 rollout: {rel}")
+        raise AssertionError(f"{label}: bf16 serve off the fp32 rollout: "
+                             f"{rel}")
     return rel
+
+
+def phase_coo_serve(ctx):
+    """One flagship bf16 request through ``evaluate_model`` on each COO
+    route: exact launch counts, finite predictions, bf16 against the fp32
+    reg-block rollout, rollout time and peak memory."""
+    from graphcast_lite_torch.inference.predict import evaluate_model
+
+    _log("phase 2b: flagship 512x256 AR-4 bf16 serve on the COO routes "
+         "(one request each)")
+    g = ctx["gs"].num_grid_nodes
+    out = {}
+    for route, (env, expected) in COO_ROUTES.items():
+        with _route(env):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            report = evaluate_model(ctx["model"], ctx["graphs"],
+                                    ctx["test_ds"], ctx["meta"],
+                                    max_samples=1, **ctx["kw"])
+            torch.cuda.synchronize()
+            counts = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            # A non-finite prediction makes the RMSE non-finite.
+            if report.num_samples != 1 or not np.isfinite(report.rmse):
+                raise AssertionError(f"{route}: report {report.num_samples} "
+                                     f"{report.rmse}")
+            if counts != expected:
+                raise AssertionError(f"{route}: launches per rollout "
+                                     f"{counts}, expected {expected}")
+            rollout, smodel = _rollout(ctx, torch.bfloat16)
+            rollout_ms = _time_ms(rollout, iters=5, warmup=1)
+            stages = _stage_ms(smodel, rollout)
+            rel = _rel_rms(rollout().float(), ctx["p32"], route)
+        out[route] = {
+            "switches": env, "launches_per_rollout": counts,
+            "rollout_ms": rollout_ms,
+            "grid_points_per_s": g * AR_STEPS / (rollout_ms / 1e3),
+            "peak_mem_bytes": peak, "stage_ms": stages,
+            "bf16_vs_fp32_rel_rms": rel, "rmse": report.rmse,
+        }
+        _log(f"  {route} {env}: launches per rollout {counts}; RMSE "
+             f"{report.rmse:.6f} (finite); rollout {rollout_ms:.2f} ms, "
+             f"{out[route]['grid_points_per_s']:.4g} grid-points/s, peak "
+             f"allocated {peak / 2**30:.3f} GiB; by stage "
+             + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    return out
 
 
 def _stage_ms(model, run):
@@ -369,21 +616,18 @@ def _profile(run, top_n=12):
     return busy_ms, wall_ms, top
 
 
-def phase_kernel_flagship(gs):
-    """The kernel at the flagship encoder shape (bf16, F 256): checked
-    against the plain version, timed against its bound and one PyTorch
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _time_segment_sum(label, msgs, indptr, r):
+    """The segment sum at one flagship shape: checked against the plain
+    version, timed against its bound, the plain version and one PyTorch
     call."""
     from graphcast_lite_torch.ops import cuda_segment
 
-    enc = gs.encoding.to("cuda")
-    r, e_pad, f = enc.num_receivers, enc.padded_num_edges, 256
-    gen = torch.Generator().manual_seed(1)
-    msgs = (torch.randn(e_pad, f, generator=gen)
-            * enc.edge_mask.cpu()[:, None]).to("cuda", torch.bfloat16)
-    indptr = enc.indptr
-    err = _check_kernel(f"flagship G2M E_pad={e_pad} R={r} F={f}", msgs,
-                        indptr, r)
-
+    err = _check_kernel(f"{label} E_pad={msgs.shape[0]} R={r} "
+                        f"F={msgs.shape[1]}", msgs, indptr, r)
     ms = _time_ms(lambda: cuda_segment.segment_sum(msgs, indptr, r))
     plain_ms = _time_ms(
         lambda: cuda_segment.segment_sum_reference(msgs, indptr, r))
@@ -392,25 +636,79 @@ def phase_kernel_flagship(gs):
     library_call = "torch.segment_reduce(msgs, 'sum', lengths)"
     library_ms = _time_ms(lambda: torch.segment_reduce(
         msgs, "sum", lengths=lengths, axis=0))
+    nbytes = _nbytes(msgs, indptr) + r * msgs.shape[1] * msgs.element_size()
+    bound_ms, bound_by = _bound(nbytes, msgs.numel())
+    _log(f"  segment_sum {label}: kernel {ms * 1e3:.1f} us | bound "
+         f"{bound_ms * 1e3:.1f} us ({bound_by}; {nbytes / 1e6:.1f} MB) | "
+         f"plain {plain_ms * 1e3:.1f} us | {library_call} "
+         f"{library_ms * 1e3:.1f} us")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_call": library_call}
 
-    nbytes = (msgs.numel() * msgs.element_size() + indptr.numel() * 4
-              + r * f * msgs.element_size())
-    flops = enc.num_edges * f
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
-    _log(f"  kernel {ms * 1e3:.1f} us | bound {max(bytes_ms, ops_ms) * 1e3:.1f}"
-         f" us ({nbytes / 1e6:.1f} MB at 3.35 TB/s) | plain "
-         f"{plain_ms * 1e3:.1f} us | {library_call} {library_ms * 1e3:.1f} us")
-    return {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms, "library_call": library_call,
-    }
+
+def phase_kernel_flagship(gs):
+    """Each kernel at its flagship shapes in bf16: the segment sum at the
+    encoder shape (the default route) and at the processor shape (the COO
+    composed route), the fused kernels at the processor shape."""
+    from graphcast_lite_torch.ops import edge_mlp, edge_step
+
+    _log("phase 3: kernel times at the flagship shapes, bf16 (CUDA events; "
+         f"bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, operations / "
+         f"{BF16_TC_FLOPS:.3g} FLOP/s))")
+    gen = torch.Generator().manual_seed(1)
+    enc = gs.encoding.to("cuda")
+    msgs = (torch.randn(enc.padded_num_edges, 256, generator=gen)
+            * enc.edge_mask.cpu()[:, None]).to("cuda", torch.bfloat16)
+    seg_enc = _time_segment_sum("flagship G2M", msgs, enc.indptr,
+                                enc.num_receivers)
+
+    proc = gs.processing.to("cuda", torch.bfloat16)
+    r, e_pad, hid = proc.num_receivers, proc.padded_num_edges, 256
+    t = _fused_case(gen, 0, r, hid, hid, torch.bfloat16,
+                    recv=gs.processing.receivers.long())
+    t["mask"] = proc.edge_mask
+    mask2 = t["mask"][:, None]
+    seg_proc = _time_segment_sum("flagship multimesh", (t["v"] * mask2),
+                                 t["indptr"], r)
+
+    label = f"flagship multimesh E_pad={e_pad} R={r} H=De={hid}"
+    mlp_err = _check_edge_mlp(label, t, r)
+    mlp_args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
+                "swish")
+    mlp_bytes = _nbytes(t["h_pre"], t["w2"], t["b2"], t["mask"],
+                        t["indptr"]) + (e_pad + r) * hid * 2
+    mlp_bound, mlp_by = _bound(mlp_bytes, 2 * e_pad * hid * hid)
+    mlp = {"max_abs_err": mlp_err,
+           "ms": _time_ms(lambda: edge_mlp.edge_mlp(*mlp_args)),
+           "plain_ms": _time_ms(lambda: edge_mlp.edge_mlp_reference(
+               *mlp_args), iters=5, warmup=1),
+           "bound_ms": mlp_bound, "bound_by": mlp_by}
+
+    step_err, stats_err = _check_edge_step(label, t, r)
+    step_args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
+                 t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r,
+                 "swish")
+    step_bytes = _nbytes(*step_args[:11]) + (e_pad + r) * hid * 2 + 3 * 4
+    step_bound, step_by = _bound(step_bytes, 4 * e_pad * hid * hid)
+    step = {"max_abs_err": step_err, "stats_abs_err": stats_err,
+            "ms": _time_ms(lambda: edge_step.edge_step(*step_args)),
+            "plain_ms": _time_ms(lambda: edge_step.edge_step_reference(
+                *step_args), iters=5, warmup=1),
+            "bound_ms": step_bound, "bound_by": step_by}
+    for name, k, nbytes in (("edge_mlp", mlp, mlp_bytes),
+                            ("edge_step", step, step_bytes)):
+        k.update(library_ms=None, library_call=None)
+        _log(f"  {name}: kernel {k['ms'] * 1e3:.1f} us | bound "
+             f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}; "
+             f"{nbytes / 1e6:.1f} MB) | plain {k['plain_ms'] * 1e3:.1f} us "
+             "| no single PyTorch call computes this fused function")
+    return seg_enc, seg_proc, mlp, step
 
 
 def phase_numerics():
-    """The 64x32 flagship architecture, fp32: card against CPU."""
+    """The 64x32 flagship architecture, fp32: card against CPU, on the
+    reg-block route and on each COO route."""
     import copy
 
     from graphcast_lite_torch import presets
@@ -419,9 +717,7 @@ def phase_numerics():
     from graphcast_lite_torch.training.rollout import RolloutSpec, \
         rollout_predict
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _log("phase 3: 64x32 flagship architecture, fp32, card vs CPU, AR-4 "
+    _log("phase 4: 64x32 flagship architecture, fp32, card vs CPU, AR-4 "
          f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, {E2E_TOL})")
     cfg = presets.interaction_net_64x32()
@@ -448,13 +744,25 @@ def phase_numerics():
             out = rollout_predict(model_fn, window.to(device), AR_STEPS, spec)
         return out.cpu()
 
-    card = run("cuda")
-    cpu = run("cpu")
-    if card.shape != (g, AR_STEPS, c) or not torch.isfinite(card).all():
-        raise AssertionError(f"card output {tuple(card.shape)} not finite")
-    err = (card - cpu).abs().max().item()
-    torch.testing.assert_close(card, cpu, **E2E_TOL)
-    _log(f"  output {tuple(card.shape)}; max|card - cpu| {err:.3e} ok")
+    routes = {"reg-block": ({}, {"segment_sum": 8, "edge_mlp": 0,
+                                 "edge_step": 0})}
+    routes.update(COO_ROUTES)
+    for name, (env, expected) in routes.items():
+        with _route(env):
+            _reset_launches()
+            card = run("cuda")
+            counts = _launches()
+            cpu = run("cpu")
+        if card.shape != (g, AR_STEPS, c) or not torch.isfinite(card).all():
+            raise AssertionError(f"{name}: card output {tuple(card.shape)} "
+                                 "not finite")
+        if counts != expected:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{expected}")
+        err = (card - cpu).abs().max().item()
+        torch.testing.assert_close(card, cpu, **E2E_TOL)
+        _log(f"  {name}: output {tuple(card.shape)}; launches {counts}; "
+             f"max|card - cpu| {err:.3e} ok")
 
 
 def main() -> int:
@@ -462,8 +770,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from graphcast_lite_torch.ops import cuda_segment
+    from graphcast_lite_torch.ops import nvcc_build
 
+    # fp32 products in full fp32 everywhere (the plain versions included).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -472,33 +783,46 @@ def main() -> int:
     _log(smi)
     _log(f"python {sys.version.split()[0]} | torch {torch.__version__} | "
          f"cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    mods = _kernel_modules()
     t0 = time.perf_counter()
-    lib = cuda_segment.build()
-    _log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
-         f"{os.path.relpath(lib)}")
+    libs = nvcc_build.build(*(m.SOURCE for m in mods.values()))
+    _log(f"kernel build (one nvcc per source, in parallel): "
+         f"{time.perf_counter() - t0:.1f} s -> "
+         + ", ".join(os.path.relpath(p) for p in libs))
 
     phase_kernel_cases()
+    phase_fused_cases()
     with tempfile.TemporaryDirectory() as workdir:
-        gs, serve = phase_serve(workdir)
-    kernel = phase_kernel_flagship(gs)
+        ctx, serve = phase_serve(workdir)
+        serve["coo_routes"] = phase_coo_serve(ctx)
+    seg_enc, seg_proc, mlp, step = phase_kernel_flagship(ctx["gs"])
     phase_numerics()
 
+    coo = serve["coo_routes"]
+    seg = dict(seg_enc, launches=serve["launches"],
+               launches_per_rollout=serve["launches"] // REQUESTS,
+               at_processor_shape=dict(
+                   seg_proc, route="composed",
+                   launches_per_rollout=coo["composed"][
+                       "launches_per_rollout"]["segment_sum"]))
+    kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
+                seg)]
+    for name, src, tpu, k in (
+            ("edge_mlp", "edge_mlp.cu", "pallas_edge_mlp.py:198", mlp),
+            ("edge_step", "edge_step.cu", "pallas_edge_step.py:365", step)):
+        n = coo["mega" if name == "edge_mlp" else "edge_step"][
+            "launches_per_rollout"][name]
+        kernels.append((name, src, tpu, dict(
+            k, launches=n, launches_per_rollout=n,
+            library_note="no single PyTorch call computes this fused "
+                         "function")))
     _log(json.dumps({"serve": serve}))
-    _log(json.dumps({"kernels": [{
-        "name": "segment_sum",
+    _log(json.dumps({"kernels": [dict({
+        "name": name,
         "route": "cuda",
-        "source": "graphcast_lite_torch/csrc/segment_sum.cu",
-        "replaces": "graphcast_lite_tpu/ops/pallas_segment.py:372",
-        "launches": serve["launches"],
-        "launches_per_rollout": serve["launches"] // REQUESTS,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"],
-        "library_ms": kernel["library_ms"],
-        "library_call": kernel["library_call"],
-    }]}))
+        "source": f"graphcast_lite_torch/csrc/{src}",
+        "replaces": f"graphcast_lite_tpu/ops/{tpu}",
+    }, **k) for name, src, tpu, k in kernels]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,10 @@ __all__ = ["Graph", "RegularBlocks", "pad_to_multiple",
            "indptr_from_receivers", "build_graph", "build_regular_blocks"]
 
 _LANE = 128  # edge-count padding multiple (same as the JAX package)
+# The reference's receiver tile (its segment kernels' ``tile_receivers``).
+# The port has no tiles; it keeps the tile only to mirror the reference's
+# route conditions (``Graph.full_receiver_band``).
+_REF_TILE_RECEIVERS = 256
 
 
 def pad_to_multiple(n: int, m: int = _LANE) -> int:
@@ -195,6 +199,10 @@ class Graph:
       const_in_degree / num_const_receivers: every receiver in
         [0, num_const_receivers) has exactly const_in_degree consecutive
         edges and no padding rows interleave (0 when that does not hold).
+      full_receiver_band: real edges reach the first and the last
+        256-receiver tile, the reference's condition for its edge-MLP
+        kernel route (it clips its segment schedule to the band of tiles
+        that own edges).
     """
 
     senders: torch.Tensor
@@ -210,6 +218,7 @@ class Graph:
     num_edges: int = 0
     const_in_degree: int = 0
     num_const_receivers: int = 0
+    full_receiver_band: bool = True
 
     @property
     def padded_num_edges(self) -> int:
@@ -304,6 +313,14 @@ def build_graph(
                     and k0 * nz.size == e:
                 const_k, const_r = k0, int(nz.size)
 
+    ntiles = -(-num_receivers // _REF_TILE_RECEIVERS)
+    if e > 0:
+        band = (int(r_sorted[0]) // _REF_TILE_RECEIVERS,
+                int(r_sorted[-1]) // _REF_TILE_RECEIVERS + 1)
+    else:
+        band = (0, 1)
+    full_band = band[0] == 0 and band[1] in (0, ntiles)
+
     reg_blocks = None
     if level_sizes:
         reg_blocks = build_regular_blocks(
@@ -327,4 +344,5 @@ def build_graph(
         num_edges=e,
         const_in_degree=const_k,
         num_const_receivers=const_r,
+        full_receiver_band=full_band,
     )

@@ -10,9 +10,7 @@ CSR offsets (``graphs.structure.Graph.indptr``).
 * On a CPU tensor the wrapper runs ``segment_sum_reference``, the plain
   torch version (fp32 ``index_add_``, then a cast).
 * On a CUDA tensor it launches ``csrc/segment_sum.cu`` or raises; it never
-  falls back.  The kernel is built with nvcc for ``sm_90a`` at first use
-  into the package's ``_build/`` directory, under a name that hashes the
-  source and the nvcc flags, and bound with ctypes.
+  falls back.  The kernel is built by ``ops.nvcc_build`` at first use.
 
 ``launches`` counts kernel launches (never plain-version calls).
 """
@@ -20,85 +18,30 @@ CSR offsets (``graphs.structure.Graph.indptr``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-from typing import Optional
 
 import torch
 
+from . import nvcc_build
+
 __all__ = [
+    "SOURCE",
     "launches",
-    "build",
     "segment_sum",
     "segment_sum_reference",
 ]
 
+SOURCE = os.path.join(nvcc_build.CSRC, "segment_sum.cu")
 launches = 0
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "segment_sum.cu")
-_BUILD = os.path.join(_PKG, "_build")
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def _lib_path() -> str:
-    """The library's path, named after a hash of the source text and the
-    nvcc flags: a library built from another source or with other flags is
-    never loaded."""
-    h = hashlib.sha256()
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return os.path.join(_BUILD,
-                        f"libgclt_segment_sum-{h.hexdigest()[:8]}.so")
-
-
-def build() -> str:
-    """Compile the kernel library unless this source's build exists;
-    returns the library path."""
-    path = _lib_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.gclt_segment_sum.restype = ctypes.c_int
-        lib.gclt_segment_sum.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # msgs, indptr, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, R, F, B
-            ctypes.c_longlong, ctypes.c_longlong,                # batch strides
-            ctypes.c_void_p,                                     # stream
-        ]
-        _lib = lib
-    return _lib
+_SIGNATURES = {
+    "gclt_segment_sum": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # msgs, indptr, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, R, F, B
+        ctypes.c_longlong, ctypes.c_longlong,                # batch strides
+        ctypes.c_void_p,                                     # stream
+    ]),
+}
 
 
 def segment_sum_reference(msgs: torch.Tensor, indptr: torch.Tensor,
@@ -125,7 +68,7 @@ def segment_sum(msgs: torch.Tensor, indptr: torch.Tensor,
         raise ValueError(f"segment_sum: unsupported device {msgs.device}")
     if indptr.device != msgs.device:
         raise ValueError("segment_sum: msgs and indptr on different devices")
-    if msgs.dtype not in _DTYPE_CODES:
+    if msgs.dtype not in nvcc_build.DTYPE_CODES:
         raise TypeError(f"segment_sum: dtype {msgs.dtype} (fp32/bf16 only)")
     if indptr.dtype != torch.int32:
         raise TypeError("segment_sum: indptr must be int32")
@@ -145,12 +88,12 @@ def segment_sum(msgs: torch.Tensor, indptr: torch.Tensor,
         return out
     if batch > 65535:
         raise ValueError(f"segment_sum: batch {batch} > 65535")
-    lib = _library()
+    lib = nvcc_build.load(SOURCE, _SIGNATURES)
     with torch.cuda.device(msgs.device):
         stream = torch.cuda.current_stream(msgs.device).cuda_stream
         err = lib.gclt_segment_sum(
             msgs.data_ptr(), indptr.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[msgs.dtype], num_receivers, f, batch,
+            nvcc_build.DTYPE_CODES[msgs.dtype], num_receivers, f, batch,
             e * f, num_receivers * f, stream,
         )
     if err != 0:

@@ -43,7 +43,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 25, proc.stdout
+    # 35 since the COO routes: ops.edge_mlp, ops.edge_step, ops.gather and
+    # ops.nvcc_build joined the walk.
+    assert int(proc.stdout.split()[0]) >= 35, proc.stdout
 
 
 @pytest.fixture(scope="module")

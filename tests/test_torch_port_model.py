@@ -3,7 +3,7 @@ JAX parameters bridged by ``utils.params.from_flax_params``.
 
 In fp32 the tolerance is atol 5e-5 / rtol 1e-4 (tests/test_torch_parity.py's):
 both sides differ in summation order only.  The bf16 serve is held to the
-reference's own bf16 error (``_bf16_close``).
+reference's own bf16 error (``torch_port_common.bf16_close``).
 """
 
 import jax
@@ -18,6 +18,7 @@ from torch_port_common import (
     HIDDEN,
     N_FEAT,
     RTOL,
+    bf16_close,
     flax_numpy,
     graph_sets,
     model_pair,
@@ -177,30 +178,6 @@ def _jax_bf16(params, graphs):
     return jax.tree.map(cast, params), jax.tree.map(cast, graphs)
 
 
-def _bf16_close(port16, jax16, jax32):
-    """The port in bf16 rounds in other places than XLA's fused CPU
-    kernels, so it is held to the reference's own bf16 error rather than
-    to the reference: its RMS distance from JAX fp32 stays within 1.25x
-    JAX bf16's, and its largest distance from JAX bf16 within 2x JAX
-    bf16's largest distance from JAX fp32.  The two ratios are printed
-    (``pytest -k bf16 -rP``); at this size they read 0.91-1.01 and
-    0.72-1.05 over the forward and the four AR steps."""
-    port16, jax16, jax32 = (np.asarray(a, np.float32)
-                            for a in (port16, jax16, jax32))
-
-    def rms(a):
-        return float(np.sqrt(np.mean(np.square(a))))
-
-    rms_ratio = rms(port16 - jax32) / rms(jax16 - jax32)
-    max_ratio = np.abs(port16 - jax16).max() / np.abs(jax16 - jax32).max()
-    print(f"bf16: RMS ratio {rms_ratio:.3f}, largest-distance ratio "
-          f"{max_ratio:.3f}; JAX bf16 vs fp32 RMS {rms(jax16 - jax32):.3e}, "
-          f"largest {np.abs(jax16 - jax32).max():.3e}")
-    assert np.isfinite(port16).all()
-    assert rms_ratio <= 1.25
-    assert max_ratio <= 2.0
-
-
 def test_weather_model_forward_bf16(lazy_edge):
     """One forward of the bf16 serve: params and graph arrays cast by the
     port's ``serving_copy`` (what ``evaluate_model`` runs) and by
@@ -218,7 +195,7 @@ def test_weather_model_forward_bf16(lazy_edge):
     with torch.no_grad():
         out, _ = m16(to_torch(x).to(torch.bfloat16), tg16)
     assert out.dtype == torch.bfloat16 and out.shape == (g, N_FEAT)
-    _bf16_close(out.float(), expect16.astype(jnp.float32), expect32)
+    bf16_close(out.float(), expect16.astype(jnp.float32), expect32)
 
 
 def test_rollout_predict_ar4_bf16(lazy_edge):
@@ -262,7 +239,7 @@ def test_rollout_predict_ar4_bf16(lazy_edge):
     assert out.dtype == torch.bfloat16 and out.shape == (g, 4, N_FEAT)
     out = out.float().numpy()
     for s in range(4):
-        _bf16_close(out[:, s], expect16[:, s], expect32[:, s])
+        bf16_close(out[:, s], expect16[:, s], expect32[:, s])
 
 
 def test_unported_paths_raise():
@@ -277,5 +254,7 @@ def test_unported_paths_raise():
         InteractionNetProcessor(8, 4, 8, 8, 2, activation="prelu")
     proc = InteractionNetProcessor(8, 4, 8, 8, 1)
     _, tgs = graph_sets()
-    with pytest.raises(NotImplementedError, match="COO"):
-        proc(torch.zeros(tgs.num_mesh_nodes, 8), tgs.encoding)
+    pg = tgs.processing
+    with pytest.raises(NotImplementedError, match="A8"):
+        proc(torch.zeros(tgs.num_mesh_nodes, 8), pg,
+             edge_mask=torch.ones(pg.padded_num_edges))

@@ -24,7 +24,7 @@ from graphcast_lite_tpu.ops.pallas_segment import (
     segment_sum_sorted,
 )
 from graphcast_lite_torch.graphs.structure import indptr_from_receivers
-from graphcast_lite_torch.ops import cuda_segment
+from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step
 
 
 def _sorted_case(rng, e, r, f, recv=None, pad_recv=None):
@@ -163,21 +163,30 @@ def test_indptr_and_wrapper_contract():
 
 
 def test_library_named_after_source_and_flags(monkeypatch, tmp_path):
-    """The kernel library's file name hashes the source text and the nvcc
-    flags, so a build of another source or with other flags is never
-    loaded; an existing build of this source is reused without nvcc."""
+    """The kernel library's file name hashes the source text, the headers
+    beside it and the nvcc flags, so a build of another source or with
+    other flags is never loaded; an existing build of this source is reused
+    without nvcc."""
+    from graphcast_lite_torch.ops import nvcc_build
+
     src = tmp_path / "segment_sum.cu"
     src.write_text("// version 1\n")
-    monkeypatch.setattr(cuda_segment, "_SRC", str(src))
-    monkeypatch.setattr(cuda_segment, "_BUILD", str(tmp_path / "_build"))
-    first = cuda_segment._lib_path()
+    monkeypatch.setattr(nvcc_build, "_BUILD", str(tmp_path / "_build"))
+    first = nvcc_build.lib_path(str(src))
     assert first.startswith(str(tmp_path / "_build"))
+    assert os.path.basename(first).startswith("libgclt_segment_sum-")
     src.write_text("// version 2\n")
-    second = cuda_segment._lib_path()
-    monkeypatch.setattr(cuda_segment, "_NVCC_FLAGS",
-                        cuda_segment._NVCC_FLAGS + ("-lineinfo",))
-    third = cuda_segment._lib_path()
-    assert len({first, second, third}) == 3
+    second = nvcc_build.lib_path(str(src))
+    (tmp_path / "tile.cuh").write_text("// a header beside the source\n")
+    with_header = nvcc_build.lib_path(str(src))
+    monkeypatch.setattr(nvcc_build, "NVCC_FLAGS",
+                        nvcc_build.NVCC_FLAGS + ("-lineinfo",))
+    third = nvcc_build.lib_path(str(src))
+    assert len({first, second, with_header, third}) == 4
+    # Every kernel of the package goes through the one helper.
+    for mod in (cuda_segment, edge_mlp, edge_step):
+        assert os.path.dirname(mod.SOURCE) == nvcc_build.CSRC
+        assert os.path.exists(mod.SOURCE)
 
     os.makedirs(os.path.dirname(third))
     open(third, "wb").close()
@@ -185,8 +194,8 @@ def test_library_named_after_source_and_flags(monkeypatch, tmp_path):
     def no_nvcc(*args, **kwargs):
         raise AssertionError("nvcc ran for an existing build")
 
-    monkeypatch.setattr(cuda_segment.subprocess, "run", no_nvcc)
-    assert cuda_segment.build() == third
+    monkeypatch.setattr(nvcc_build.subprocess, "Popen", no_nvcc)
+    assert nvcc_build.build(str(src)) == (third,)
 
 
 @pytest.mark.parametrize("which", ["encoding", "decoding"])
