@@ -8,7 +8,10 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    fused with its aggregation (``edge_mlp.cu``) and the fused lazy-LN edge
    step (``edge_step.cu``), on empty receivers, padding rows, pruned edges,
    a receiver with thousands of edges and receiver counts that are not a
-   multiple of the kernels' receiver tile.
+   multiple of the kernels' receiver tile; the edge step also on the
+   tilings its bf16 kernel meets (in-degree 1, alternating in-degrees 0 and
+   13, receivers of exactly 64 and 128 rows, one receiver) and on bf16 rows
+   wider than that kernel takes (H = 384).
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
@@ -19,11 +22,12 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
 2b. Serves one request on each of the three COO routes (``GCLT_REG_EDGE=0``;
    plus ``GCLT_EDGE_STEP=1`` or ``GCLT_MEGA_EDGE=1``), checks each route's
    exact launch counts per rollout, and holds its bf16 rollout against the
-   fp32 reg-block rollout; times each route.
+   fp32 reg-block rollout; times each route and profiles one rollout of it
+   (device busy time and idle share).
 3. Times each kernel at the flagship shapes (the segment sum at the encoder
    and the processor shape, the two fused kernels at the processor shape)
    against its bound, its plain version and, where there is one, one
-   PyTorch call.
+   PyTorch call; the edge step also against its earlier (wmma) time.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
    AR-4, on the reg-block route and on each COO route, and compares them.
@@ -83,6 +87,9 @@ BF16_SERVE_RTOL = 2.0 ** -5
 # H100 SXM data-sheet rates: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
+# edge_step at the flagship processor shape before its Hopper redesign:
+# the wmma kernel of commit c6b0bb6, H100 80GB HBM3 at 700 W.
+EDGE_STEP_EARLIER_MS = 2.1121
 REQUESTS = 3
 AR_STEPS = 4
 # The COO routes of the processor, the switches that pick them (the JAX
@@ -268,7 +275,8 @@ def _close(label, out, ref, tol, extra=None) -> float:
         raise AssertionError(
             f"{label}: {int((diff > allowed).sum())} elements out of "
             f"tolerance; worst |err| {diff.flatten()[worst]:.3e} > "
-            f"{allowed.flatten()[worst]:.3e}")
+            f"{allowed.flatten()[worst]:.3e} at flat index {worst} (kernel "
+            f"{out.flatten()[worst]:.6e}, plain {ref.flatten()[worst]:.6e})")
     return diff.max().item()
 
 
@@ -346,6 +354,35 @@ def phase_fused_cases():
         label = "receiver with 2500 edges, R=4001"
         _check_edge_mlp(label, t, 4_001)
         _check_edge_step(label, t, 4_001)
+        for label, r, recv in _tiling_cases(gen):
+            t = _fused_case(gen, 0, r, 256, 256, dtype, recv=recv)
+            _check_edge_step(label, t, r)
+    # bf16 rows wider than the Hopper kernel's shared memory holds take the
+    # 16-receiver wmma design (fp32 at these widths needs more than a block
+    # may have).
+    for hid, de in ((384, 384), (384, 128)):
+        t = _fused_case(gen, 20_000, 6_001, hid, de, torch.bfloat16)
+        _check_edge_step(f"E=20000 R=6001 H={hid} De={de}", t, 6_001)
+
+
+def _tiling_cases(gen):
+    """(label, R, sorted receivers) that put receiver runs on and across
+    the edge step's 64-row sub-tiles and receiver groups."""
+    def seq(*runs):
+        return torch.cat([torch.full((n,), r, dtype=torch.int64)
+                          for r, n in runs])
+
+    rand = torch.sort(torch.randint(4, 50, (300,), generator=gen)).values
+    return [
+        ("in-degree 1, R=4096", 4_096, torch.arange(4_096)),
+        ("in-degrees 0 / 13 alternating, R=4001", 4_001,
+         torch.arange(0, 4_001, 2).repeat_interleave(13)),
+        ("receivers of exactly 64 and 128 rows, R=50", 50,
+         torch.cat([seq((0, 64), (1, 128), (2, 5), (3, 64)), rand])),
+        ("one receiver, R=1", 1, torch.zeros(300, dtype=torch.int64)),
+        ("R=33", 33, torch.sort(torch.randint(0, 33, (700,),
+                                              generator=gen)).values),
+    ]
 
 
 def phase_serve(workdir):
@@ -543,12 +580,15 @@ def phase_coo_serve(ctx):
             rollout, smodel = _rollout(ctx, torch.bfloat16)
             rollout_ms = _time_ms(rollout, iters=5, warmup=1)
             stages = _stage_ms(smodel, rollout)
+            busy_ms, wall_ms, top = _profile(rollout, top_n=3)
             rel = _rel_rms(rollout().float(), ctx["p32"], route)
         out[route] = {
             "switches": env, "launches_per_rollout": counts,
             "rollout_ms": rollout_ms,
             "grid_points_per_s": g * AR_STEPS / (rollout_ms / 1e3),
             "peak_mem_bytes": peak, "stage_ms": stages,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
             "bf16_vs_fp32_rel_rms": rel, "rmse": report.rmse,
         }
         _log(f"  {route} {env}: launches per rollout {counts}; RMSE "
@@ -556,6 +596,11 @@ def phase_coo_serve(ctx):
              f"{out[route]['grid_points_per_s']:.4g} grid-points/s, peak "
              f"allocated {peak / 2**30:.3f} GiB; by stage "
              + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+        _log(f"    torch.profiler, one rollout: device busy {busy_ms:.2f} ms "
+             f"of {wall_ms:.2f} ms wall (idle share "
+             f"{out[route]['device_idle_share']:.3f}); top kernels: "
+             + "; ".join(f"{name[:40]} {n} calls {ms:.2f} ms"
+                         for name, n, ms in top))
     return out
 
 
@@ -696,6 +741,7 @@ def phase_kernel_flagship(gs):
             "plain_ms": _time_ms(lambda: edge_step.edge_step_reference(
                 *step_args), iters=5, warmup=1),
             "bound_ms": step_bound, "bound_by": step_by}
+    step["fraction_of_bound"] = step["bound_ms"] / step["ms"]
     for name, k, nbytes in (("edge_mlp", mlp, mlp_bytes),
                             ("edge_step", step, step_bytes)):
         k.update(library_ms=None, library_call=None)
@@ -703,6 +749,8 @@ def phase_kernel_flagship(gs):
              f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}; "
              f"{nbytes / 1e6:.1f} MB) | plain {k['plain_ms'] * 1e3:.1f} us "
              "| no single PyTorch call computes this fused function")
+    _log(f"  edge_step: bound / kernel = {step['fraction_of_bound']:.4f}; "
+         f"earlier (wmma) kernel {EDGE_STEP_EARLIER_MS * 1e3:.1f} us")
     return seg_enc, seg_proc, mlp, step
 
 

@@ -21,7 +21,12 @@ ranges.
 * On a CPU tensor the wrapper runs ``edge_step_reference``.
 * On a CUDA tensor it launches ``csrc/edge_step.cu`` (the step, then a
   fixed-order reduction of its per-block statistics) or raises; it never
-  falls back.
+  falls back.  In bf16 at H and De in {128, 256} (the flagship's widths)
+  the kernel runs its products on Hopper's ``wgmma``, and the wrapper hands
+  it W1e and W2 as ``wgmma_b_image``s, the layout in which it streams them
+  into shared memory.  Wider bf16 rows, which that kernel's shared memory
+  does not hold, and fp32 run the 16-receiver design of ``edge_tile.cuh``
+  on row-major weights.
 
 ``launches`` counts wrapper calls that launched the kernel (never
 plain-version calls).  There is no backward, as in the reference.
@@ -30,6 +35,7 @@ plain-version calls).  There is no backward, as in the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Tuple
 
@@ -39,8 +45,9 @@ from . import cuda_segment, nvcc_build
 from .edge_mlp import ACTIVATIONS, MAX_SMEM, act_fn, check_inputs, \
     supports
 
-__all__ = ["SOURCE", "MIN_PADDED_EDGES", "launches", "eligible",
-           "edge_step", "edge_step_reference"]
+__all__ = ["SOURCE", "SIGNATURES", "MIN_PADDED_EDGES", "launches",
+           "eligible", "wgmma_b_image", "launch_geometry", "edge_step",
+           "edge_step_reference"]
 
 SOURCE = os.path.join(nvcc_build.CSRC, "edge_step.cu")
 launches = 0
@@ -50,9 +57,11 @@ launches = 0
 # the same condition so that both packages take the same route.
 MIN_PADDED_EDGES = 1024
 
-_SIGNATURES = {
+# The C interface of csrc/edge_step.cu.
+SIGNATURES = {
     "gclt_edge_step_smem": (ctypes.c_int, [ctypes.c_int] * 3),
-    "gclt_edge_step_tile_receivers": (ctypes.c_int, []),
+    "gclt_edge_step_tile_receivers": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gclt_edge_step_wgmma": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_step": (ctypes.c_int, [ctypes.c_void_p] * 15
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
@@ -64,6 +73,42 @@ def eligible(padded_num_edges: int, hidden_dim: int, edge_dim: int,
     of its schedule (the span limit cannot arise: see the kernel source)."""
     return (supports(hidden_dim, edge_dim, activation)
             and padded_num_edges >= MIN_PADDED_EDGES)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_order(k: int, n: int, device: torch.device) -> torch.Tensor:
+    """Flat index into a row-major [K, N] matrix of each place of its
+    image (see ``wgmma_b_image``)."""
+    cb, kb, nl, q, e = torch.meshgrid(
+        torch.arange(n // 64), torch.arange(k // 64), torch.arange(64),
+        torch.arange(8), torch.arange(8), indexing="ij")
+    rows = 64 * kb + 8 * (q ^ (nl % 8)) + e
+    return (rows * n + 64 * cb + nl).reshape(-1).to(device)
+
+
+def wgmma_b_image(w: torch.Tensor) -> torch.Tensor:
+    """``w`` [K, N] as the bf16 kernel's weight slabs: [N / 64, K / 64, 64,
+    64].
+
+    Slab ``cb`` is the shared-memory image of the column block
+    ``w[:, 64 cb : 64 cb + 64]`` as wgmma's B operand in the
+    128-byte-swizzled K-major layout: K blocks of 64, in each of them row
+    ``n`` holds ``w[64 kb : 64 kb + 64, 64 cb + n]`` in 8 chunks of 8, chunk
+    ``q`` stored at place ``q ^ (n % 8)``.  K and N are multiples of 64.
+    One gather with a cached order: it runs on every call, since the
+    caller folds the LayerNorm scale into W1e per step."""
+    k, n = w.shape
+    order = _image_order(k, n, w.device)
+    return w.reshape(-1).index_select(0, order).view(n // 64, k // 64, 64, 64)
+
+
+def launch_geometry(num_receivers: int, tile: int) -> Tuple[int, tuple]:
+    """(groups, shape of the per-group statistics scratch): group ``g``
+    owns receivers ``[g * tile, min((g + 1) * tile, num_receivers))``; the
+    16-receiver design runs a block per group, the Hopper bf16 kernel a
+    persistent block per SM over them."""
+    groups = -(-num_receivers // tile)
+    return groups, (groups, 3)
 
 
 def _receivers(indptr: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -128,18 +173,20 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
                  v.dtype, v.device)
     check_inputs("edge_step", (a, c), torch.float32, v.device)
     check_inputs("edge_step", (indptr,), torch.int32, v.device)
-    lib = nvcc_build.load(SOURCE, _SIGNATURES)
+    lib = nvcc_build.load(SOURCE, SIGNATURES)
     code = nvcc_build.DTYPE_CODES[v.dtype]
     smem = lib.gclt_edge_step_smem(code, hid, de)
     if smem > MAX_SMEM:
         raise ValueError(f"edge_step: H {hid} / De {de} need {smem} bytes "
                          "of shared memory per block")
-    tile = lib.gclt_edge_step_tile_receivers()
-    blocks = (num_receivers + tile - 1) // tile
+    _, partials_shape = launch_geometry(
+        num_receivers, lib.gclt_edge_step_tile_receivers(code, hid, de))
     dev = v.device
+    if lib.gclt_edge_step_wgmma(code, hid, de):
+        w1e, w2 = wgmma_b_image(w1e), wgmma_b_image(w2)
     v_new = torch.empty((e_pad, de), dtype=v.dtype, device=dev)
     agg = torch.empty((num_receivers, de), dtype=v.dtype, device=dev)
-    partials = torch.empty((blocks, 3), dtype=torch.float32, device=dev)
+    partials = torch.empty(partials_shape, dtype=torch.float32, device=dev)
     stats = torch.empty((3,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -120,6 +120,49 @@ def test_processor_routes(route, monkeypatch, jax_kernel_calls):
                                atol=ATOL, rtol=RTOL)
 
 
+def test_edge_step_route_wide_rows(monkeypatch, jax_kernel_calls):
+    """d = 384 (a multiple of 128 wider than the Hopper bf16 kernel's
+    widths): both packages take the edge-step route and agree in fp32, and
+    the port's bf16 processor takes it too."""
+    from graphcast_lite_tpu.graphs.structure import build_graph as jbuild
+    from graphcast_lite_tpu.models.gnn import InteractionNetProcessor as JP
+    from graphcast_lite_torch.graphs.structure import build_graph as tbuild
+    from graphcast_lite_torch.models.gnn import InteractionNetProcessor
+
+    _set_route(monkeypatch, "edge_step")
+    rng = np.random.RandomState(9)
+    n, e, d = 300, 3000, 384
+    s, r = rng.randint(0, n, e), rng.randint(0, n, e)
+    jg = jbuild(s, r, num_nodes=n, build_ell=False, pad_multiple=128)
+    tg = tbuild(s, r, num_nodes=n)
+    kw = dict(node_dim=d, raw_edge_dim=4, edge_latent_dim=d, hidden_dim=d,
+              num_steps=1, activation="swish", use_layer_norm=True)
+    x = rng.randn(n, d).astype(np.float32)
+    raw = rng.randn(tg.padded_num_edges, 4).astype(np.float32)
+    jproc = JP(**kw)
+    params = jproc.init(jax.random.PRNGKey(6), jnp.asarray(x), jg,
+                        jnp.asarray(raw))
+    for key in jax_kernel_calls:
+        jax_kernel_calls[key] = 0
+    expect = jproc.apply(params, jnp.asarray(x), jg, jnp.asarray(raw))
+
+    tproc = InteractionNetProcessor(**kw)
+    tproc.load_state_dict(from_flax_params(flax_numpy(params)))
+    with torch.no_grad():
+        out = tproc(to_torch(x), tg, edge_attr_raw=to_torch(raw))
+    _check_routes("edge_step", jax_kernel_calls, tproc.steps)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect),
+                               atol=ATOL, rtol=RTOL)
+
+    tproc16 = tproc.to(torch.bfloat16)
+    with torch.no_grad():
+        out16 = tproc16(to_torch(x).bfloat16(), tg.to("cpu", torch.bfloat16),
+                        edge_attr_raw=to_torch(raw).bfloat16())
+    assert {s.route for s in tproc16.steps} == {"edge_step"}
+    assert out16.dtype == torch.bfloat16
+    assert torch.isfinite(out16.float()).all()
+
+
 def test_mega_route_needs_its_structure(monkeypatch):
     """Below 16,384 real edges, or without a full receiver band, the mega
     switch leaves the step on the composed route, as in the reference."""
