@@ -8,10 +8,14 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    fused with its aggregation (``edge_mlp.cu``) and the fused lazy-LN edge
    step (``edge_step.cu``), on empty receivers, padding rows, pruned edges,
    a receiver with thousands of edges and receiver counts that are not a
-   multiple of the kernels' receiver tile; the edge step also on the
-   tilings its bf16 kernel meets (in-degree 1, alternating in-degrees 0 and
-   13, receivers of exactly 64 and 128 rows, one receiver) and on bf16 rows
-   wider than that kernel takes (H = 384).
+   multiple of the kernels' receiver tile; both fused kernels also on the
+   tilings their bf16 Hopper kernels meet (in-degree 1, alternating
+   in-degrees 0 and 13, receivers of exactly 64 and 128 rows, one
+   receiver, R = 33) and on bf16 rows wider than those kernels take
+   (H = 384), which run the 16-receiver design.  Checks that the edge-MLP
+   library's width selection (``gclt_edge_mlp_wgmma``) and group size
+   agree with the wrapper's Python mirror and prints each layout's shared
+   memory.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
@@ -27,7 +31,9 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
 3. Times each kernel at the flagship shapes (the segment sum at the encoder
    and the processor shape, the two fused kernels at the processor shape)
    against its bound, its plain version and, where there is one, one
-   PyTorch call; the edge step also against its earlier (wmma) time.
+   PyTorch call; the fused kernels also against their earlier (wmma)
+   times, and ``edge_mlp`` with the design it took (asserted: the Hopper
+   one) and its persistent blocks' sub-tile counts.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
    AR-4, on the reg-block route and on each COO route, and compares them.
@@ -90,6 +96,9 @@ BF16_TC_FLOPS = 989e12
 # edge_step at the flagship processor shape before its Hopper redesign:
 # the wmma kernel of commit c6b0bb6, H100 80GB HBM3 at 700 W.
 EDGE_STEP_EARLIER_MS = 2.1121
+# edge_mlp there before its Hopper redesign: the 16-receiver wmma kernel of
+# commit 14a3db7, two runs, H100 80GB HBM3 at 700 W.
+EDGE_MLP_EARLIER_MS = (0.7095, 0.7006)
 REQUESTS = 3
 AR_STEPS = 4
 # The COO routes of the processor, the switches that pick them (the JAX
@@ -280,12 +289,38 @@ def _close(label, out, ref, tol, extra=None) -> float:
     return diff.max().item()
 
 
-def _check_edge_mlp(label, t, r, act="swish"):
-    """edge_mlp kernel against its plain version; returns the max abs
-    error over u and agg."""
+def _mlp_design(dtype, hid, de) -> str:
+    """The design the built edge_mlp library takes at these widths
+    ("hopper" or "tile16"); raises unless it and its receivers per group
+    agree with the wrapper's Python mirror."""
+    from graphcast_lite_torch.ops import edge_mlp, nvcc_build
+
+    lib = nvcc_build.load(edge_mlp.SOURCE, edge_mlp.SIGNATURES)
+    code = nvcc_build.DTYPE_CODES[dtype]
+    wgmma = bool(lib.gclt_edge_mlp_wgmma(code, hid, de))
+    tile = lib.gclt_edge_mlp_tile_receivers(code, hid, de)
+    if (wgmma != edge_mlp.wgmma_design(dtype, hid, de)
+            or tile != edge_mlp.tile_receivers(dtype, hid, de)):
+        raise AssertionError(
+            f"edge_mlp {dtype} H={hid} De={de}: library says wgmma {wgmma}, "
+            f"{tile} receivers; Python says "
+            f"{edge_mlp.wgmma_design(dtype, hid, de)}, "
+            f"{edge_mlp.tile_receivers(dtype, hid, de)}")
+    return "hopper" if wgmma else "tile16"
+
+
+def _check_edge_mlp(label, t, r, act="swish", design=None):
+    """edge_mlp kernel against its plain version, and the design it took
+    against ``design`` where given; returns the max abs error over u and
+    agg."""
     from graphcast_lite_torch.ops import cuda_segment, edge_mlp
 
     args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r, act)
+    hid, de = t["w2"].shape
+    took = _mlp_design(t["h_pre"].dtype, hid, de)
+    if design is not None and took != design:
+        raise AssertionError(f"edge_mlp {label}: design {took}, expected "
+                             f"{design}")
     u, agg = edge_mlp.edge_mlp(*args)
     u_ref, agg_ref = edge_mlp.edge_mlp_reference(*args)
     mag = cuda_segment.segment_sum_reference(
@@ -296,7 +331,7 @@ def _check_edge_mlp(label, t, r, act="swish"):
               _close(f"edge_mlp {label} agg", agg, agg_ref, tol,
                      ORDER_RTOL * mag))
     _log(f"  edge_mlp  {label:<46s} {str(u.dtype):<15s} max|err| "
-         f"{err:.3e} ok")
+         f"{err:.3e} ok ({took})")
     return err
 
 
@@ -334,6 +369,26 @@ def phase_fused_cases():
     _log("phase 1b: edge_mlp and edge_step kernels vs plain versions on the "
          f"card (fp32 {FUSED_FP32_TOL}, bf16 {FUSED_BF16_TOL}; aggregates "
          f"+ {ORDER_RTOL} * sum|u|, stats {STATS_RTOL} * sum of magnitudes)")
+    from graphcast_lite_torch.ops import edge_mlp, nvcc_build
+
+    lib = nvcc_build.load(edge_mlp.SOURCE, edge_mlp.SIGNATURES)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hid in (128, 256, 384, 512):
+            for de in (128, 256, 384, 512):
+                _mlp_design(dtype, hid, de)
+    _log("  edge_mlp width selection: library and Python agree on fp32 and "
+         "bf16 at H, De in {128, 256, 384, 512}; shared memory a block: "
+         + ", ".join(
+             f"{str(dt)[6:]} {hid}x{de} "
+             f"{lib.gclt_edge_mlp_smem(nvcc_build.DTYPE_CODES[dt], hid, de)}"
+             f" ({_mlp_design(dt, hid, de)})"
+             for dt, hid, de in ((torch.bfloat16, 128, 128),
+                                 (torch.bfloat16, 128, 256),
+                                 (torch.bfloat16, 256, 128),
+                                 (torch.bfloat16, 256, 256),
+                                 (torch.bfloat16, 384, 384),
+                                 (torch.bfloat16, 384, 128),
+                                 (torch.float32, 256, 256))))
     gen = torch.Generator().manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
         for hid, de in ((128, 128), (256, 256), (128, 256)):
@@ -356,18 +411,21 @@ def phase_fused_cases():
         _check_edge_step(label, t, 4_001)
         for label, r, recv in _tiling_cases(gen):
             t = _fused_case(gen, 0, r, 256, 256, dtype, recv=recv)
+            _check_edge_mlp(label, t, r)
             _check_edge_step(label, t, r)
-    # bf16 rows wider than the Hopper kernel's shared memory holds take the
+    # bf16 rows wider than the Hopper kernels' shared memory holds take the
     # 16-receiver wmma design (fp32 at these widths needs more than a block
     # may have).
     for hid, de in ((384, 384), (384, 128)):
         t = _fused_case(gen, 20_000, 6_001, hid, de, torch.bfloat16)
-        _check_edge_step(f"E=20000 R=6001 H={hid} De={de}", t, 6_001)
+        label = f"E=20000 R=6001 H={hid} De={de}"
+        _check_edge_mlp(label, t, 6_001, design="tile16")
+        _check_edge_step(label, t, 6_001)
 
 
 def _tiling_cases(gen):
     """(label, R, sorted receivers) that put receiver runs on and across
-    the edge step's 64-row sub-tiles and receiver groups."""
+    the fused kernels' 64-row sub-tiles and receiver groups."""
     def seq(*runs):
         return torch.cat([torch.full((n,), r, dtype=torch.int64)
                           for r, n in runs])
@@ -718,7 +776,7 @@ def phase_kernel_flagship(gs):
                                  t["indptr"], r)
 
     label = f"flagship multimesh E_pad={e_pad} R={r} H=De={hid}"
-    mlp_err = _check_edge_mlp(label, t, r)
+    mlp_err = _check_edge_mlp(label, t, r, design="hopper")
     mlp_args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
                 "swish")
     mlp_bytes = _nbytes(t["h_pre"], t["w2"], t["b2"], t["mask"],
@@ -728,7 +786,8 @@ def phase_kernel_flagship(gs):
            "ms": _time_ms(lambda: edge_mlp.edge_mlp(*mlp_args)),
            "plain_ms": _time_ms(lambda: edge_mlp.edge_mlp_reference(
                *mlp_args), iters=5, warmup=1),
-           "bound_ms": mlp_bound, "bound_by": mlp_by}
+           "bound_ms": mlp_bound, "bound_by": mlp_by, "design": "hopper"}
+    mlp["fraction_of_bound"] = mlp["bound_ms"] / mlp["ms"]
 
     step_err, stats_err = _check_edge_step(label, t, r)
     step_args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
@@ -751,6 +810,17 @@ def phase_kernel_flagship(gs):
              "| no single PyTorch call computes this fused function")
     _log(f"  edge_step: bound / kernel = {step['fraction_of_bound']:.4f}; "
          f"earlier (wmma) kernel {EDGE_STEP_EARLIER_MS * 1e3:.1f} us")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = edge_mlp.subtiles_per_block(t["indptr"], sms)
+    groups, blocks = edge_mlp.hopper_geometry(r, sms)
+    _log(f"  edge_mlp: design {mlp['design']} (W2 resident, wgmma, "
+         f"persistent blocks); bound / kernel = "
+         f"{mlp['fraction_of_bound']:.4f}; earlier (16-receiver wmma) kernel "
+         + ", ".join(f"{ms * 1e3:.1f}" for ms in EDGE_MLP_EARLIER_MS)
+         + f" us; {groups} groups of {edge_mlp.HOPPER_RECEIVERS} receivers "
+         f"on {blocks} blocks: {int(tiles.sum())} sub-tiles, "
+         f"{int(tiles.max())} on the busiest block, "
+         f"{tiles.float().mean().item():.1f} on average")
     return seg_enc, seg_proc, mlp, step
 
 

@@ -9,10 +9,10 @@
 // That kernel streams 1024-edge chunks through VMEM behind a DMA ring and
 // sums each chunk into its 256-receiver tile as a one-hot matmul on the
 // MXU, with a host-built chunk schedule.  None of that carries over: the
-// receiver-sorted rows become CSR ranges, and a block owns 16 consecutive
-// receivers and every edge row of theirs (edge_tile.cuh), so the block
-// sums its receivers' rows in shared memory and writes each aggregate row
-// once, with no atomics and no schedule.
+// receiver-sorted rows become CSR ranges, and a block owns groups of
+// consecutive receivers and every edge row of theirs, so the block sums its
+// receivers' rows in shared memory and writes each aggregate row once, with
+// no atomics and no schedule.
 //
 // Rounding points follow the reference: activation in fp32 and rounded to
 // T; the product accumulated in fp32; b2 added in fp32; one cast to T;
@@ -24,16 +24,81 @@
 // 1 KB moved, 128 per byte, below the H100's 295.  At the flagship
 // processor shape (E_pad 261,120, R 40,962, H = De = 256, bf16) the least
 // traffic is 133.7 MB of h_pre read, 133.7 MB of u and 21.0 MB of agg
-// written: about 86 us at 3.35 TB/s.  The design reads h_pre once and
-// writes u and agg once; the weights (128 KB) come from L2 for every
-// sub-tile, which is the cost this first version leaves (no TMA, no
-// wgmma, one 64-row sub-tile in flight per block).
+// written: about 86 us at 3.35 TB/s; the 34.2 GFLOP would take 35 us.
+//
+// Two designs.  fp32 (not the serve dtype), and bf16 rows wider than 256,
+// keep the 16-receiver design of edge_tile.cuh: a block per 16 receivers,
+// wmma or FMA products into an fp32 tile in shared memory with W2 re-read
+// from L2 for every 64-row sub-tile, epilogue and aggregate between
+// barriers.  bf16 at H and De in {128, 256} (the serve dtype and the
+// flagship's widths) takes a design built for Hopper (hopper() below):
+//
+// * W2 resident.  W2 (128 KB at 256 x 256) fits in shared memory beside two
+//   row stages, so each persistent block (one an SM, two warpgroups) loads
+//   it once, as the wgmma B image (ops/edge_mlp.py: wgmma_b_image) in
+//   64-column slabs by cp.async.bulk counted in on one mbarrier, while its
+//   first rows load.  About 17 MB of weight reads a launch instead of the
+//   0.5-0.65 GB of the 16-receiver design's fragments.
+// * Rows.  The block walks groups of kMlpReceivers consecutive receivers
+//   (blockIdx.x, blockIdx.x + gridDim.x, ...): at the flagship's in-degree
+//   about 204 rows, close to three full 64-row sub-tiles.  A ring of two
+//   64-row h stages (16-byte cp.async into the 128-byte-swizzled K-major
+//   layout) runs on across the groups, so the next sub-tile's rows, masks
+//   and receiver offsets load while the current one computes.
+// * Activation in place in the stage, by all 256 threads, one 64-deep K
+//   block at a time: fp32, rounded to bf16 once, the division without a
+//   slow-path branch (activate_bf16).  As each K block is done
+//   (fence.proxy.async, barrier), the warpgroups issue its products, which
+//   run on the tensor cores while the next K block is activated.  The
+//   activation is not done on register A fragments because both
+//   warpgroups read every row: each would compute it for the whole tile.
+// * Products on wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate), A
+//   the activated stage, B the resident W2; warpgroup g owns output columns
+//   [g De/2, (g+1) De/2).
+// * Epilogue on the accumulator registers: + b2 in fp32, one cast to bf16,
+//   into a u tile in shared memory: over the h rows it came from where
+//   De <= H (after a barrier: both warpgroups' products read them), in a
+//   tile of its own otherwise.  Each u row is then written once with
+//   coalesced 16-byte stores, and all 256 threads sum u * mask in fp32,
+//   in row order, into the group's fp32 aggregate rows: a thread owns two
+//   columns of every kParts-th receiver (De / 2 column pairs, 256 / (De / 2)
+//   threads a pair) and walks each of its receivers' rows in the sub-tile
+//   (their range, stored with the masks), one register sum per receiver and
+//   one add into its aggregate row.  Each thread writes its own aggregate
+//   entries once, in bf16, when the group ends; no thread reads another's,
+//   so that needs no barrier.
+//
+// Shared memory at H = De = 256 (from a 1024-aligned base): W2 128 KB, two
+// 32 KB row stages, 32 fp32 aggregate rows (32 KB), row metadata and the
+// barrier: 231,432 bytes with the 1 KB alignment slack, of the 232,448 a
+// block may use.  32 receivers a group is the most that fits; at the
+// flagship it also makes the fewest sub-tiles (4,082, against 4,354 at 20
+// receivers and 5,281 at 16), since most receivers have 6 rows.
+//
+// What holds it (NVIDIA H100 80GB HBM3, 700 W; scripts/
+// torch_edge_mlp_time.py): about 0.235 ms at the flagship shape, 2.7x its
+// bound, 3x faster than the 16-receiver design.  The row copies alone run
+// in 0.068 ms; the phases of a sub-tile (activation, products, epilogue, u
+// stores, aggregate) follow each other on the block's 8 warps, and the
+// activation (two MUFU operations an element) is the largest.  A store
+// warpgroup beside one or two product warpgroups was slower (0.25-0.29
+// ms): with W2 resident only two row stages fit, so a stage goes back to
+// the loader only once its u is out, and the next rows' load is exposed.
+
+#include <stdint.h>
 
 #include "edge_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace gclt;
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+
+// ---------------------------------------------------------------------------
+// fp32, and bf16 rows wider than 256: 16 receivers a block, FMA or wmma
+// products (edge_tile.cuh).
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -82,44 +147,402 @@ edge_mlp_kernel(const T* __restrict__ h, const T* __restrict__ w2,
   store_agg(agg_s, nr, de, agg);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: W2 resident, wgmma products, register epilogue,
+// asynchronous row copies, persistent blocks.
+
+constexpr int kMlpReceivers = 32;  // receivers per group
+constexpr int kMlpThreads = 256;   // two warpgroups
+
+// Byte offsets of the bf16 kernel's dynamic shared memory, from a
+// 1024-aligned base.
+template <int H, int DE>
+struct MlpLayout {
+  static constexpr int kStage = kSubRows * H * 2;  // h, activated in place
+  // The u tile: over its h rows where it fits, else a tile of its own.
+  static constexpr int kUTile = DE > H ? kSubRows * DE * 2 : 0;
+  static constexpr int w2 = 0;  // the image: [De / 64][H / 64][64][64]
+  static constexpr int stages = H * DE * 2;
+  static constexpr int utile = stages + 2 * kStage;
+  static constexpr int agg = utile + kUTile;
+  // Each receiver's rows within the sub-tile: [2][kMlpReceivers] int2.
+  static constexpr int runs = agg + kMlpReceivers * DE * 4;
+  static constexpr int mask = runs + 2 * kMlpReceivers * 8;  // [2][64]
+  static constexpr int bar = mask + 2 * kSubRows * 4;
+  static constexpr int bytes = bar + 8 + 1024;  // + alignment slack
+};
+static_assert(MlpLayout<256, 256>::bytes <= 232448,
+              "the flagship layout must fit one block's shared memory");
+
+template <int H, int DE, int ACT>
+__global__ void __launch_bounds__(kMlpThreads, 1)
+edge_mlp_bf16_kernel(const bf16* __restrict__ h,
+                     const bf16* __restrict__ w2_img,
+                     const bf16* __restrict__ b2,
+                     const bf16* __restrict__ mask,
+                     const int* __restrict__ indptr, bf16* __restrict__ u,
+                     bf16* __restrict__ agg, int num_receivers) {
+  using L = MlpLayout<H, DE>;
+  constexpr int G = kMlpReceivers;
+  constexpr int KB = H / 64;                // 64-deep K blocks
+  constexpr int NS = DE / 128;              // W2 slabs per warpgroup
+  constexpr int kPairs = DE / 2;                 // aggregate column pairs
+  constexpr int kParts = kMlpThreads / kPairs;  // threads a column pair
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int row_a = 16 * ((tid >> 5) & 3) + (lane >> 2);  // and row_a + 8
+  const int cq = 2 * (lane & 3);
+  // This thread's aggregate columns, col_g and col_g + 1, and its
+  // receivers, r % kParts == part (uniform in a warp).
+  const int col_g = 2 * (tid % kPairs);
+  const int part = tid / kPairs;
+
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sp = smem + (base - raw);
+  float* agg_s = reinterpret_cast<float*>(sp + L::agg);
+  int2* runs_s = reinterpret_cast<int2*>(sp + L::runs);
+  float* mask_s = reinterpret_cast<float*>(sp + L::mask);
+  uint64_t* w2_full = reinterpret_cast<uint64_t*>(sp + L::bar);
+
+  const int ngroups = (num_receivers + G - 1) / G;
+  if (tid == 0) {
+    mbar_init(w2_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < G * DE; i += kMlpThreads) agg_s[i] = 0.0f;
+  // This thread's columns of b2, in fp32, once.
+  float2 b2_r[NS * 8];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      b2_r[8 * s + j] = __bfloat1622float2(*reinterpret_cast<const bf162*>(
+          b2 + wg * (DE / 2) + 64 * s + 8 * j + cq));
+    }
+  }
+  __syncthreads();
+
+  // W2 once, if this block has rows at all (a block must not exit with a
+  // bulk copy in flight).
+  int nk = next_busy<G>(indptr, num_receivers, ngroups, blockIdx.x);
+  if (tid == 0 && nk < ngroups) {
+    mbar_expect_tx(w2_full, H * DE * 2);
+    for (int s = 0; s < DE / 64; ++s) {
+      bulk_copy(base + L::w2 + s * H * 128,
+                w2_img + static_cast<size_t>(s) * H * 64, H * 128, w2_full);
+    }
+  }
+
+  // Sub-tile rows [e0, e0 + nrows) into row stage st, rows past nrows
+  // zero-filled (act(0) = 0).
+  auto load_rows = [&](int st, int e0, int nrows) {
+    const uint32_t dst = base + L::stages + st * L::kStage;
+    for (int q = tid; q < kSubRows * (H / 8); q += kMlpThreads) {
+      const int row = q / (H / 8);
+      const int ch = q - row * (H / 8);
+      const bool ok = row < nrows;
+      cp_async16(dst + swz_chunk(row, ch),
+                 h + static_cast<size_t>(e0 + (ok ? row : 0)) * H + ch * 8,
+                 ok ? 16 : 0);
+    }
+  };
+  // A sub-tile's metadata (each row's mask, and the row range of the
+  // group's receiver tid), read into registers when its rows are issued
+  // and stored into its stage's slots a sub-tile later, so that no thread
+  // waits for the loads.  The slots hold the range as rows of the
+  // sub-tile, empty for a receiver with none there.
+  struct Meta {
+    bf16 m;
+    int lo, hi;
+  };
+  auto fetch_meta = [&](const Group& g, int e0, int nrows) {
+    Meta mt{__float2bfloat16_rn(0.0f), 0, 0};
+    if (tid < nrows) mt.m = mask[e0 + tid];
+    if (tid < g.nr) {
+      mt.lo = indptr[g.r0 + tid];
+      mt.hi = indptr[g.r0 + tid + 1];
+    }
+    return mt;
+  };
+  auto put_meta = [&](int st, int e0, int nrows, const Meta& mt) {
+    if (tid < kSubRows) mask_s[st * kSubRows + tid] = __bfloat162float(mt.m);
+    if (tid < G) {
+      runs_s[st * G + tid] = make_int2(max(mt.lo, e0) - e0,
+                                       min(mt.hi, e0 + nrows) - e0);
+    }
+  };
+
+  if (nk < ngroups) {
+    const Group g = group_at<G>(indptr, num_receivers, nk);
+    const int n = min(kSubRows, g.ee - g.eb);
+    load_rows(0, g.eb, n);
+    put_meta(0, g.eb, n, fetch_meta(g, g.eb, n));
+  }
+  cp_async_commit();
+  bool w2_in = false;
+  int t = 0;  // sub-tiles begun by this block
+  for (int k = blockIdx.x; k < ngroups; k += gridDim.x) {
+    const Group g = group_at<G>(indptr, num_receivers, k);
+    bf16* dst = agg + static_cast<size_t>(g.r0) * DE;
+    if (g.ee == g.eb) {  // no rows: zero aggregates
+      for (int i = tid; i < g.nr * DE / 2; i += kMlpThreads) {
+        reinterpret_cast<bf162*>(dst)[i] = __float2bfloat162_rn(0.0f);
+      }
+      continue;
+    }
+    const int ntiles = g.tiles();
+    nk = next_busy<G>(indptr, num_receivers, ngroups, k + gridDim.x);
+    Group gn{};
+    if (nk < ngroups) gn = group_at<G>(indptr, num_receivers, nk);
+    for (int i = 0; i < ntiles; ++i, ++t) {
+      const int st = t & 1;
+      const int e0 = g.eb + i * kSubRows;
+      const int nrows = min(kSubRows, g.ee - e0);
+      // This sub-tile's rows and metadata are in, and every thread is past
+      // the sub-tile before, whose stage takes the next rows.
+      cp_async_wait<0>();
+      __syncthreads();
+      const bool in_group = i + 1 < ntiles;
+      const bool more = in_group || nk < ngroups;
+      const Group gx = in_group ? g : gn;
+      const int e0n = in_group ? e0 + kSubRows : gn.eb;
+      const int nn = min(kSubRows, gx.ee - e0n);
+      Meta mt{};
+      if (more) {
+        load_rows(st ^ 1, e0n, nn);
+        mt = fetch_meta(gx, e0n, nn);
+      }
+      cp_async_commit();
+
+      // u = act(h) @ W2: the activation in place, one K block at a time;
+      // each block's products run while the next block is activated.
+      const uint32_t a_t = base + L::stages + st * L::kStage;
+      unsigned char* a_p = sp + L::stages + st * L::kStage;
+      float acc[NS][32];
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+        for (int q = 0; q < kAtom / 16 / kMlpThreads; ++q) {
+          uint4* p = reinterpret_cast<uint4*>(a_p + kb * kAtom) + tid +
+                     q * kMlpThreads;
+          uint4 x = *p;
+          bf162* e = reinterpret_cast<bf162*>(&x);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float2 f = __bfloat1622float2(e[c]);
+            e[c] = __floats2bfloat162_rn(activate_bf16<ACT>(f.x),
+                                         activate_bf16<ACT>(f.y));
+          }
+          *p = x;
+        }
+        fence_async_smem();
+        __syncthreads();
+        if (!w2_in) {
+          mbar_wait(w2_full, 0);
+          w2_in = true;
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int k16 = 0; k16 < 4; ++k16) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            wgmma_m64n64k16(
+                acc[s], sw128_desc(a_t + kb * kAtom + 32 * k16),
+                sw128_desc(base + L::w2 + (wg * NS + s) * H * 128 +
+                           kb * kAtom + 32 * k16),
+                (kb | k16) != 0);
+          }
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < NS; ++s) fence_operands(acc[s]);
+
+      // u = T(acc + b2) into the u tile.
+      unsigned char* ut = L::kUTile ? sp + L::utile : a_p;
+      if (L::kUTile == 0) __syncthreads();  // both products read the rows
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = wg * (DE / 2) + 64 * s + 8 * j + cq;
+          const float2 bb = b2_r[8 * s + j];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            *reinterpret_cast<bf162*>(ut + swz(row_a + 8 * hh, col)) =
+                __floats2bfloat162_rn(acc[s][4 * j + 2 * hh] + bb.x,
+                                      acc[s][4 * j + 2 * hh + 1] + bb.y);
+          }
+        }
+      }
+      __syncthreads();
+
+      // Each u row out once, 16 bytes a thread.
+      for (int q = tid; q < nrows * (DE / 8); q += kMlpThreads) {
+        const int row = q / (DE / 8);
+        const int ch = q - row * (DE / 8);
+        *reinterpret_cast<uint4*>(u + static_cast<size_t>(e0 + row) * DE +
+                                  ch * 8) =
+            *reinterpret_cast<const uint4*>(ut + swz_chunk(row, ch));
+      }
+      // agg_s[r] += u * mask over receiver r's rows of the sub-tile, in row
+      // order, two columns a thread: one register sum per receiver.
+      {
+        const int2* rn = runs_s + st * G;
+        const float* ms = mask_s + st * kSubRows;
+        const unsigned char* uc =
+            ut + (col_g >> 6) * kAtom + ((col_g & 7) << 1);
+        const int ch = (col_g >> 3) & 7;
+#pragma unroll
+        for (int i = 0; i < G / kParts; ++i) {
+          const int r = part + i * kParts;
+          const int2 rg = rn[r];
+          if (rg.x >= rg.y) continue;
+          float s0 = 0.0f, s1 = 0.0f;
+          for (int row = rg.x; row < rg.y; ++row) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<
+                const bf162*>(uc + row * 128 + ((ch ^ (row & 7)) << 4)));
+            const float m = ms[row];
+            s0 += f.x * m;
+            s1 += f.y * m;
+          }
+          float2* p = reinterpret_cast<float2*>(agg_s + r * DE + col_g);
+          float2 v = *p;
+          v.x += s0;
+          v.y += s1;
+          *p = v;
+        }
+      }
+      if (more) put_meta(st ^ 1, e0n, nn, mt);
+    }
+    // The group's aggregate rows, each entry written once by the thread
+    // that summed it, and zeroed for the next group.
+    for (int r = part; r < g.nr; r += kParts) {
+      float2* p = reinterpret_cast<float2*>(agg_s + r * DE + col_g);
+      *reinterpret_cast<bf162*>(dst + static_cast<size_t>(r) * DE + col_g) =
+          __float22bfloat162_rn(*p);
+      *p = make_float2(0.0f, 0.0f);
+    }
+  }
+}
+
+// The widths the Hopper bf16 kernel takes.  Wider rows do not fit its
+// shared memory (at H = De = 384, W2 alone is 288 KB); bf16 at those widths
+// and fp32 (whose W2 alone is 256 KB at 256 x 256) run the 16-receiver
+// design of edge_tile.cuh.
+bool hopper(int dtype, int hid, int de) {
+  return dtype == 1 && (hid == 128 || hid == 256) && (de == 128 || de == 256);
+}
+
+// Dynamic shared memory of one block; -1 for a dtype the kernels do not
+// take.
+int smem_bytes(int dtype, int hid, int de) {
+  if (dtype != 0 && dtype != 1) return -1;
+  if (!hopper(dtype, hid, de)) {
+    return make_layout(dtype == 0 ? 4 : 2, hid, de, false).total;
+  }
+  if (hid == 128 && de == 128) return MlpLayout<128, 128>::bytes;
+  if (hid == 128) return MlpLayout<128, 256>::bytes;
+  if (de == 128) return MlpLayout<256, 128>::bytes;
+  return MlpLayout<256, 256>::bytes;
+}
+
 template <typename T>
-int launch(const void* h, const void* w2, const void* b2, const void* mask,
-           const int* indptr, void* u, void* agg, int num_receivers, int hid,
-           int de, int act, cudaStream_t stream) {
-  const int bytes = make_layout(sizeof(T), hid, de, false).total;
+cudaError_t launch_tile(int bytes, const void* h, const void* w2,
+                        const void* b2, const void* mask, const int* indptr,
+                        void* u, void* agg, int num_receivers, int hid,
+                        int de, int act, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       edge_mlp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   const int blocks = (num_receivers + kTileReceivers - 1) / kTileReceivers;
   edge_mlp_kernel<T><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<const T*>(mask), indptr,
       static_cast<T*>(u), static_cast<T*>(agg), num_receivers, hid, de, act);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+template <int H, int DE>
+cudaError_t launch_bf16(const void* h, const void* w2_img, const void* b2,
+                        const void* mask, const int* indptr, void* u,
+                        void* agg, int num_receivers, int act,
+                        cudaStream_t stream) {
+  const int bytes = MlpLayout<H, DE>::bytes;
+  const auto kernel = act == 0 ? edge_mlp_bf16_kernel<H, DE, 0>
+                               : edge_mlp_bf16_kernel<H, DE, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  // One persistent block an SM (at most one fits), each walking its groups.
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int groups = (num_receivers + kMlpReceivers - 1) / kMlpReceivers;
+  const int blocks = groups < sms ? groups : sms;
+  kernel<<<blocks, kMlpThreads, bytes, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w2_img),
+      static_cast<const bf16*>(b2), static_cast<const bf16*>(mask), indptr,
+      static_cast<bf16*>(u), static_cast<bf16*>(agg), num_receivers);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory one block needs (dtype: 0 = float32, 1 = bfloat16).
+// Dynamic shared memory one block needs (dtype: 0 = float32, 1 =
+// bfloat16); -1 for a dtype the kernels do not take.
 extern "C" int gclt_edge_mlp_smem(int dtype, int hid, int de) {
-  return make_layout(dtype == 0 ? 4 : 2, hid, de, false).total;
+  return smem_bytes(dtype, hid, de);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; act: 0 = swish/silu, 1 = relu.
-// Returns cudaGetLastError() after the launch.
+// 1 where a launch takes the Hopper bf16 design, with W2 as its wgmma
+// image; 0 where it takes the 16-receiver design, with W2 row-major.
+extern "C" int gclt_edge_mlp_wgmma(int dtype, int hid, int de) {
+  return hopper(dtype, hid, de) ? 1 : 0;
+}
+
+// Receivers per group: a block's (the 16-receiver design) or a group's
+// that a persistent block walks (the Hopper bf16 design).
+extern "C" int gclt_edge_mlp_tile_receivers(int dtype, int hid, int de) {
+  return hopper(dtype, hid, de) ? kMlpReceivers : kTileReceivers;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; act: 0 = swish/silu, 1 = relu.  w2
+// [H, De] is row-major, or the wgmma image that ops/edge_mlp.py:
+// wgmma_b_image makes of it where gclt_edge_mlp_wgmma says so.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int gclt_edge_mlp(const void* h, const void* w2, const void* b2,
                              const void* mask, const void* indptr, void* u,
                              void* agg, int dtype, int num_receivers, int hid,
                              int de, int act, void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bytes = smem_bytes(dtype, hid, de);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   if (dtype == 0) {
-    return launch<float>(h, w2, b2, mask, ip, u, agg, num_receivers, hid, de,
-                         act, s);
+    err = launch_tile<float>(bytes, h, w2, b2, mask, ip, u, agg,
+                             num_receivers, hid, de, act, s);
+  } else if (!hopper(dtype, hid, de)) {
+    err = launch_tile<bf16>(bytes, h, w2, b2, mask, ip, u, agg,
+                            num_receivers, hid, de, act, s);
+  } else if (hid == 128 && de == 128) {
+    err = launch_bf16<128, 128>(h, w2, b2, mask, ip, u, agg, num_receivers,
+                                act, s);
+  } else if (hid == 128) {
+    err = launch_bf16<128, 256>(h, w2, b2, mask, ip, u, agg, num_receivers,
+                                act, s);
+  } else if (de == 128) {
+    err = launch_bf16<256, 128>(h, w2, b2, mask, ip, u, agg, num_receivers,
+                                act, s);
+  } else {
+    err = launch_bf16<256, 256>(h, w2, b2, mask, ip, u, agg, num_receivers,
+                                act, s);
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(h, w2, b2, mask, ip, u, agg, num_receivers,
-                                 hid, de, act, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }

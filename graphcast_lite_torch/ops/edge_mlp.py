@@ -16,7 +16,13 @@ which take the place of the reference's chunk schedule.
 
 * On a CPU tensor the wrapper runs ``edge_mlp_reference``.
 * On a CUDA tensor it launches ``csrc/edge_mlp.cu`` (built by
-  ``ops.nvcc_build`` at first use) or raises; it never falls back.
+  ``ops.nvcc_build`` at first use) or raises; it never falls back.  In
+  bf16 at H and De in {128, 256} (``wgmma_design``; the flagship's widths)
+  the kernel keeps W2 resident in shared memory as wgmma's B operand, and
+  the wrapper hands it W2 as a ``wgmma_b_image``; persistent blocks walk
+  groups of ``HOPPER_RECEIVERS`` receivers (``hopper_geometry``).  fp32
+  and wider bf16 rows, whose W2 does not fit beside the row stages, run the
+  16-receiver design of ``edge_tile.cuh`` on row-major W2.
 
 ``launches`` counts kernel launches (never plain-version calls).  There is
 no backward: the reference kernel has none either.
@@ -25,6 +31,7 @@ no backward: the reference kernel has none either.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Tuple
 
@@ -33,8 +40,11 @@ import torch.nn.functional as F
 
 from . import cuda_segment, nvcc_build
 
-__all__ = ["SOURCE", "ACTIVATIONS", "MAX_SMEM", "launches", "act_fn",
-           "supports", "check_inputs", "edge_mlp", "edge_mlp_reference"]
+__all__ = ["SOURCE", "SIGNATURES", "ACTIVATIONS", "MAX_SMEM",
+           "TILE_RECEIVERS", "HOPPER_RECEIVERS", "launches", "act_fn",
+           "supports", "wgmma_design", "tile_receivers", "hopper_geometry",
+           "subtiles_per_block", "wgmma_b_image", "check_inputs", "edge_mlp",
+           "edge_mlp_reference"]
 
 SOURCE = os.path.join(nvcc_build.CSRC, "edge_mlp.cu")
 launches = 0
@@ -42,8 +52,16 @@ launches = 0
 # The activations the kernels take, with their codes.
 ACTIVATIONS = {"swish": 0, "silu": 0, "relu": 1}
 MAX_SMEM = 232448  # dynamic shared memory one H100 block may use
-_SIGNATURES = {
+# Receivers per block of the 16-receiver design, and per group of the
+# Hopper bf16 design (csrc/edge_mlp.cu: kTileReceivers, kMlpReceivers).
+TILE_RECEIVERS = 16
+HOPPER_RECEIVERS = 32
+SUB_ROWS = 64  # rows per sub-tile of both designs
+# The C interface of csrc/edge_mlp.cu.
+SIGNATURES = {
     "gclt_edge_mlp_smem": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gclt_edge_mlp_wgmma": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gclt_edge_mlp_tile_receivers": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_mlp": (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p]),
 }
@@ -59,6 +77,71 @@ def supports(hidden_dim: int, out_dim: int, activation: str) -> bool:
     """The widths and activations the fused kernels take."""
     return (activation in ACTIVATIONS and hidden_dim % 128 == 0
             and out_dim % 128 == 0)
+
+
+def wgmma_design(dtype: torch.dtype, hidden_dim: int, out_dim: int) -> bool:
+    """Whether a launch takes the Hopper bf16 design (csrc/edge_mlp.cu:
+    ``hopper()``; ``gclt_edge_mlp_wgmma`` answers for the built library):
+    bf16 with H and De in {128, 256}.  Wider rows do not fit its shared
+    memory beside W2; fp32's W2 alone is 256 KB at 256 x 256."""
+    return (dtype == torch.bfloat16 and hidden_dim in (128, 256)
+            and out_dim in (128, 256))
+
+
+def tile_receivers(dtype: torch.dtype, hidden_dim: int, out_dim: int) -> int:
+    """Receivers per block (16-receiver design) or per group (Hopper)."""
+    return (HOPPER_RECEIVERS if wgmma_design(dtype, hidden_dim, out_dim)
+            else TILE_RECEIVERS)
+
+
+def hopper_geometry(num_receivers: int, sms: int) -> Tuple[int, int]:
+    """(groups, blocks) of a Hopper launch: group ``g`` owns receivers
+    ``[g * HOPPER_RECEIVERS, min((g + 1) * HOPPER_RECEIVERS, R))``;
+    ``min(groups, sms)`` persistent blocks, block ``b`` walking groups
+    ``b, b + blocks, ...``."""
+    groups = -(-num_receivers // HOPPER_RECEIVERS)
+    return groups, min(groups, sms)
+
+
+def subtiles_per_block(indptr: torch.Tensor, sms: int) -> torch.Tensor:
+    """64-row sub-tiles each persistent block of a Hopper launch computes
+    (a group's rows in ``ceil(rows / 64)`` sub-tiles): the launch's tail is
+    its largest entry against the mean."""
+    r = indptr.numel() - 1
+    groups, blocks = hopper_geometry(r, sms)
+    ends = torch.arange(1, groups + 1) * HOPPER_RECEIVERS
+    bounds = indptr.cpu().long()[torch.cat([torch.zeros(1, dtype=torch.long),
+                                            ends.clamp(max=r)])]
+    tiles = (bounds[1:] - bounds[:-1] + SUB_ROWS - 1) // SUB_ROWS
+    out = torch.zeros(blocks, dtype=torch.long)
+    return out.index_add_(0, torch.arange(groups) % blocks, tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_order(k: int, n: int, device: torch.device) -> torch.Tensor:
+    """Flat index into a row-major [K, N] matrix of each place of its
+    image (see ``wgmma_b_image``)."""
+    cb, kb, nl, q, e = torch.meshgrid(
+        torch.arange(n // 64), torch.arange(k // 64), torch.arange(64),
+        torch.arange(8), torch.arange(8), indexing="ij")
+    rows = 64 * kb + 8 * (q ^ (nl % 8)) + e
+    return (rows * n + 64 * cb + nl).reshape(-1).to(device)
+
+
+def wgmma_b_image(w: torch.Tensor) -> torch.Tensor:
+    """``w`` [K, N] as the Hopper kernels' weight slabs: [N / 64, K / 64,
+    64, 64].
+
+    Slab ``cb`` is the shared-memory image of the column block
+    ``w[:, 64 cb : 64 cb + 64]`` as wgmma's B operand in the
+    128-byte-swizzled K-major layout: K blocks of 64, in each of them row
+    ``n`` holds ``w[64 kb : 64 kb + 64, 64 cb + n]`` in 8 chunks of 8, chunk
+    ``q`` stored at place ``q ^ (n % 8)``.  K and N are multiples of 64.
+    One gather with a cached order: it runs on every call, since the edge
+    step's caller folds the LayerNorm scale into W1e per step."""
+    k, n = w.shape
+    order = _image_order(k, n, w.device)
+    return w.reshape(-1).index_select(0, order).view(n // 64, k // 64, 64, 64)
 
 
 def edge_mlp_reference(h_pre: torch.Tensor, w2: torch.Tensor,
@@ -120,12 +203,14 @@ def edge_mlp(h_pre: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     check_inputs("edge_mlp", (h_pre, w2, b2, mask), h_pre.dtype,
                  h_pre.device)
     check_inputs("edge_mlp", (indptr,), torch.int32, h_pre.device)
-    lib = nvcc_build.load(SOURCE, _SIGNATURES)
+    lib = nvcc_build.load(SOURCE, SIGNATURES)
     code = nvcc_build.DTYPE_CODES[h_pre.dtype]
     smem = lib.gclt_edge_mlp_smem(code, hid, de)
     if smem > MAX_SMEM:
         raise ValueError(f"edge_mlp: H {hid} / De {de} need {smem} bytes of "
                          "shared memory per block")
+    if lib.gclt_edge_mlp_wgmma(code, hid, de):
+        w2 = wgmma_b_image(w2)
     u = torch.empty((e_pad, de), dtype=h_pre.dtype, device=h_pre.device)
     agg = torch.empty((num_receivers, de), dtype=h_pre.dtype,
                       device=h_pre.device)

@@ -35,7 +35,6 @@ plain-version calls).  There is no backward, as in the reference.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import Tuple
 
@@ -43,7 +42,7 @@ import torch
 
 from . import cuda_segment, nvcc_build
 from .edge_mlp import ACTIVATIONS, MAX_SMEM, act_fn, check_inputs, \
-    supports
+    supports, wgmma_b_image
 
 __all__ = ["SOURCE", "SIGNATURES", "MIN_PADDED_EDGES", "launches",
            "eligible", "wgmma_b_image", "launch_geometry", "edge_step",
@@ -73,33 +72,6 @@ def eligible(padded_num_edges: int, hidden_dim: int, edge_dim: int,
     of its schedule (the span limit cannot arise: see the kernel source)."""
     return (supports(hidden_dim, edge_dim, activation)
             and padded_num_edges >= MIN_PADDED_EDGES)
-
-
-@functools.lru_cache(maxsize=None)
-def _image_order(k: int, n: int, device: torch.device) -> torch.Tensor:
-    """Flat index into a row-major [K, N] matrix of each place of its
-    image (see ``wgmma_b_image``)."""
-    cb, kb, nl, q, e = torch.meshgrid(
-        torch.arange(n // 64), torch.arange(k // 64), torch.arange(64),
-        torch.arange(8), torch.arange(8), indexing="ij")
-    rows = 64 * kb + 8 * (q ^ (nl % 8)) + e
-    return (rows * n + 64 * cb + nl).reshape(-1).to(device)
-
-
-def wgmma_b_image(w: torch.Tensor) -> torch.Tensor:
-    """``w`` [K, N] as the bf16 kernel's weight slabs: [N / 64, K / 64, 64,
-    64].
-
-    Slab ``cb`` is the shared-memory image of the column block
-    ``w[:, 64 cb : 64 cb + 64]`` as wgmma's B operand in the
-    128-byte-swizzled K-major layout: K blocks of 64, in each of them row
-    ``n`` holds ``w[64 kb : 64 kb + 64, 64 cb + n]`` in 8 chunks of 8, chunk
-    ``q`` stored at place ``q ^ (n % 8)``.  K and N are multiples of 64.
-    One gather with a cached order: it runs on every call, since the
-    caller folds the LayerNorm scale into W1e per step."""
-    k, n = w.shape
-    order = _image_order(k, n, w.device)
-    return w.reshape(-1).index_select(0, order).view(n // 64, k // 64, 64, 64)
 
 
 def launch_geometry(num_receivers: int, tile: int) -> Tuple[int, tuple]:

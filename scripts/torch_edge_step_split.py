@@ -6,7 +6,7 @@ processor shape (the 512x256 model's multimesh, levels [4, 6]: E_pad
         [--split-current] [--receivers 10,16,20] [--compare CU,...]
 
 Every variant is a copy of a kernel source with parts cut out by text
-edits, written beside a copy of ``edge_tile.cuh`` under the package's
+edits, written beside copies of the package's ``*.cuh`` headers under its
 gitignored build directory and built by ``ops/nvcc_build.build`` (one nvcc
 each, all at once).  An edit whose text is not found exactly as often as
 expected stops the script, so a kernel edit that moves an anchor fails
@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import glob
 import json
 import os
 import shutil
@@ -199,7 +200,8 @@ def main() -> int:
     workdir = os.path.join(
         os.path.dirname(nvcc_build.lib_path(edge_step.SOURCE)), "split")
     os.makedirs(workdir, exist_ok=True)
-    shutil.copy(os.path.join(nvcc_build.CSRC, "edge_tile.cuh"), workdir)
+    for header in glob.glob(os.path.join(nvcc_build.CSRC, "*.cuh")):
+        shutil.copy(header, workdir)
     with open(edge_step.SOURCE) as f:
         current = f.read()
     sources = {}

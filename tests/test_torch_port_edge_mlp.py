@@ -24,12 +24,15 @@ from torch_port_common import ATOL, RTOL, bf16_close
 AGG_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def make_case(seed, e, r, h, de, recv_range=None):
+def make_case(seed, e, r, h, de, recv_range=None, recv=None):
     """Receiver-sorted rows padded to a multiple of 128 onto receiver R-1
-    (mask 0), with the first e // 7 real edges pruned (mask 0)."""
+    (mask 0), with the first e // 7 real edges pruned (mask 0); ``recv``
+    (sorted) replaces the random receivers."""
     rng = np.random.RandomState(seed)
     lo, hi = recv_range or (0, r)
-    recv = np.sort(rng.randint(lo, hi, e)).astype(np.int32)
+    if recv is None:
+        recv = np.sort(rng.randint(lo, hi, e)).astype(np.int32)
+    e = len(recv)
     e_pad = ((e + 127) // 128) * 128
     r1 = np.full((e_pad,), r - 1, np.int32)
     r1[:e] = recv
@@ -73,6 +76,41 @@ def test_plain_matches_pallas_interpret(e, r, h, de, act):
     case = make_case(0, e, r, h, de)
     u, agg = run_port(*case, r, act)
     u_ref, agg_ref = run_jax(*case, r, act)
+    np.testing.assert_allclose(u, u_ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(agg, agg_ref, **AGG_TOL)
+
+
+def _runs(*runs):
+    return np.concatenate([np.full(n, r, np.int32) for r, n in runs])
+
+
+# The tilings the bf16 Hopper kernel meets (chip_smoke.py's _tiling_cases,
+# at sizes the interpret mode runs quickly): receiver runs on and across its
+# 64-row sub-tiles and 32-receiver groups.  (R, sorted receivers).
+TILINGS = {
+    "in-degree 1": (300, np.arange(300, dtype=np.int32)),
+    "in-degrees 0 / 13 alternating": (
+        201, np.repeat(np.arange(0, 201, 2, dtype=np.int32), 13)),
+    "receivers of exactly 64 and 128 rows": (50, np.concatenate([
+        _runs((0, 64), (1, 128), (2, 5), (3, 64)),
+        np.sort(np.random.RandomState(5).randint(4, 50, 300))
+        .astype(np.int32)])),
+    "one receiver": (1, np.zeros(300, np.int32)),
+    "R=33": (33, np.sort(np.random.RandomState(6).randint(0, 33, 700))
+             .astype(np.int32)),
+    "a receiver with 2500 edges": (300, np.concatenate([
+        np.zeros(2500, np.int32),
+        np.sort(np.random.RandomState(7).randint(1, 300, 900))
+        .astype(np.int32)])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILINGS))
+def test_tilings_match_pallas_interpret(name):
+    r, recv = TILINGS[name]
+    case = make_case(4, 0, r, 128, 128, recv=recv)
+    u, agg = run_port(*case, r, "swish")
+    u_ref, agg_ref = run_jax(*case, r, "swish")
     np.testing.assert_allclose(u, u_ref, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(agg, agg_ref, **AGG_TOL)
 
