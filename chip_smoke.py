@@ -8,14 +8,20 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    fused with its aggregation (``edge_mlp.cu``) and the fused lazy-LN edge
    step (``edge_step.cu``), on empty receivers, padding rows, pruned edges,
    a receiver with thousands of edges and receiver counts that are not a
-   multiple of the kernels' receiver tile; both fused kernels also on the
-   tilings their bf16 Hopper kernels meet (in-degree 1, alternating
-   in-degrees 0 and 13, receivers of exactly 64 and 128 rows, one
-   receiver, R = 33) and on bf16 rows wider than those kernels take
-   (H = 384), which run the 16-receiver design.  Checks that the edge-MLP
-   library's width selection (``gclt_edge_mlp_wgmma``) and group size
-   agree with the wrapper's Python mirror and prints each layout's shared
-   memory.
+   multiple of the kernels' receiver tile.  The segment sum also on the
+   shapes that cut its balanced design's tiles: no edges (R = 50,000),
+   R = 1, a 50,000-edge receiver, long receivers that end exactly on tile
+   boundaries and the encoder's layout (131,072 empty rows, then a skewed
+   band), each at F in {19, 64, 256}, with PR 1's warp-per-row design on
+   the same skew, two balanced launches compared bitwise, and the
+   library's design and tile-size queries checked against the wrapper's
+   Python mirror.  Both fused kernels also on the tilings their bf16
+   Hopper kernels meet (in-degree 1, alternating in-degrees 0 and 13,
+   receivers of exactly 64 and 128 rows, one receiver, R = 33) and on bf16
+   rows wider than those kernels take (H = 384), which run the 16-receiver
+   design.  Checks that the edge-MLP library's width selection
+   (``gclt_edge_mlp_wgmma``) and group size agree with the wrapper's Python
+   mirror and prints each layout's shared memory.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
@@ -31,9 +37,10 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
 3. Times each kernel at the flagship shapes (the segment sum at the encoder
    and the processor shape, the two fused kernels at the processor shape)
    against its bound, its plain version and, where there is one, one
-   PyTorch call; the fused kernels also against their earlier (wmma)
-   times, and ``edge_mlp`` with the design it took (asserted: the Hopper
-   one) and its persistent blocks' sub-tile counts.
+   PyTorch call; the segment sum in the design it picks and in PR 1's
+   warp-per-row design, in turns; the fused kernels also against their
+   earlier (wmma) times, and ``edge_mlp`` with the design it took
+   (asserted: the Hopper one) and its persistent blocks' sub-tile counts.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
    AR-4, on the reg-block route and on each COO route, and compares them.
@@ -197,26 +204,88 @@ def _sorted_case(gen, num_edges, num_receivers, f, dtype, batch=None,
     return msgs.to("cuda", dtype), indptr.to("cuda")
 
 
-def _check_kernel(label, msgs, indptr, num_receivers) -> float:
-    """Segment-sum kernel against the plain version on the same card inputs;
-    returns the max abs error."""
+def _check_kernel(label, msgs, indptr, num_receivers, design=None) -> float:
+    """Segment-sum kernel (the design the library picks, or ``design``)
+    against the plain version on the same card inputs; returns the max abs
+    error."""
     from graphcast_lite_torch.ops import cuda_segment
 
-    out = cuda_segment.segment_sum(msgs, indptr, num_receivers)
+    out = cuda_segment.segment_sum(msgs, indptr, num_receivers, design)
     ref = cuda_segment.segment_sum_reference(msgs, indptr, num_receivers)
     mag = cuda_segment.segment_sum_reference(msgs.float().abs(), indptr,
                                              num_receivers)
     torch.cuda.synchronize()
     tol = FP32_TOL if msgs.dtype == torch.float32 else BF16_TOL
     err = _close(f"{label} {msgs.dtype}", out, ref, tol, ORDER_RTOL * mag)
-    _log(f"  {label:<44s} {str(msgs.dtype):<15s} max|err| {err:.3e} ok")
+    took = design or cuda_segment.segment_design(msgs.dtype, msgs.shape[-1])
+    _log(f"  {label:<44s} {str(msgs.dtype):<15s} max|err| {err:.3e} ok "
+         f"({took})")
     return err
 
 
+def _segment_design_check() -> None:
+    """Raises unless the segment-sum library and the Python mirror agree on
+    the balanced design's tile size and on the design of every dtype, width
+    and alignment."""
+    from graphcast_lite_torch.ops import cuda_segment, nvcc_build
+
+    lib = nvcc_build.load(cuda_segment.SOURCE, cuda_segment.SIGNATURES)
+    items = lib.gclt_segment_sum_tile_items()
+    if items != cuda_segment.TILE_ITEMS:
+        raise AssertionError(f"segment_sum: library tiles of {items} items, "
+                             f"Python {cuda_segment.TILE_ITEMS}")
+    for dtype, code in nvcc_build.DTYPE_CODES.items():
+        for f in (19, 64, 128, 256, 512, 1024):
+            for aligned in (True, False):
+                lib_says = ("balanced" if lib.gclt_segment_sum_design(
+                    code, f, int(aligned)) else "warp")
+                py_says = cuda_segment.segment_design(dtype, f, aligned)
+                if lib_says != py_says:
+                    raise AssertionError(
+                        f"segment_sum {dtype} F={f} aligned={aligned}: "
+                        f"library {lib_says}, Python {py_says}")
+
+
+def _skew_cases(gen):
+    """(label, R, sorted receivers) that put receivers on and across the
+    balanced design's tiles: no edges at all, one receiver, one receiver of
+    50,000 edges among small ones, long receivers that end exactly on tile
+    boundaries, and the encoder's layout (a long band of empty rows, then a
+    skewed band with 300-edge rows in its middle)."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    small = torch.sort(torch.randint(1, 3_000, (6_000,),
+                                     generator=gen)).values
+    # 256 receivers of a tile's items (edges and end), one whole tile each,
+    # long enough not to be moved (E = 256 x (TILE_ITEMS - 1) rows, a
+    # multiple of 128: no padding rows).
+    edges = cuda_segment.TILE_ITEMS - 1
+    exact = torch.arange(256).repeat_interleave(edges)
+    band = torch.randint(0, 10, (20_000,), generator=gen)
+    band[9_990:10_010] = 300
+    grid = 131_072
+    encoder = grid + torch.arange(20_000).repeat_interleave(band)
+    return [
+        ("E=0, R=50000", 50_000, torch.zeros(0, dtype=torch.int64)),
+        ("R=1", 1, torch.zeros(777, dtype=torch.int64)),
+        ("receiver with 50000 edges", 3_000,
+         torch.cat([torch.zeros(50_000, dtype=torch.int64), small])),
+        (f"{edges}-edge receivers, ends on tile ends, R=256", 256, exact),
+        ("encoder-shaped: 131072 empty rows, skewed band", grid + 20_000,
+         encoder),
+    ]
+
+
 def phase_kernel_cases():
+    from graphcast_lite_torch.ops import cuda_segment
+
     _log("phase 1: segment_sum kernel vs plain version on the card "
          f"(fp32 {FP32_TOL}, bf16 {BF16_TOL}, order term "
          f"{ORDER_RTOL} * sum|msgs|)")
+    _segment_design_check()
+    _log(f"  segment_sum design selection: library and Python agree on fp32 "
+         f"and bf16 at F in {{19, 64, 128, 256, 512, 1024}}, aligned or "
+         f"not, and on tiles of {cuda_segment.TILE_ITEMS} merge items")
     gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for f in (19, 64, 256):
@@ -235,6 +304,28 @@ def phase_kernel_cases():
                                                   generator=gen)).values])
         m, ip = _sorted_case(gen, 0, 4_000, 256, dtype, recv=hog)
         _check_kernel("receiver with 2500 edges, F=256", m, ip, 4_000)
+        for label, r, recv in _skew_cases(gen):
+            for f in (19, 64, 256):
+                m, ip = _sorted_case(gen, 0, r, f, dtype, recv=recv)
+                _check_kernel(f"{label}, F={f}", m, ip, r)
+            if "ends on tile ends" in label:
+                split = cuda_segment.split_rows(ip).numel()
+                if split:
+                    raise AssertionError(f"{label}: {split} split rows")
+            # PR 1's design on the same skew, and the balanced design twice
+            # on the same inputs: bitwise equal.
+            _check_kernel(f"{label}, F=256", m, ip, r, design="warp")
+            first = cuda_segment.segment_sum(m, ip, r, "balanced")
+            again = cuda_segment.segment_sum(m, ip, r, "balanced")
+            if not torch.equal(first, again):
+                raise AssertionError(f"{label}: two balanced launches differ")
+        m, ip = _sorted_case(gen, 30_000, 9_000, 128, dtype, batch=3)
+        _check_kernel("batched [3, E, 128]", m, ip, 9_000)
+        first = cuda_segment.segment_sum(m, ip, 9_000)
+        if not torch.equal(first, cuda_segment.segment_sum(m, ip, 9_000)):
+            raise AssertionError("batched: two launches differ")
+        _log(f"  {dtype}: two balanced launches bitwise equal on every skew "
+             "case at F=256 and batched at F=128")
 
 
 def _fused_case(gen, num_edges, num_receivers, hid, de, dtype, recv=None):
@@ -725,13 +816,24 @@ def _nbytes(*tensors) -> int:
 
 def _time_segment_sum(label, msgs, indptr, r):
     """The segment sum at one flagship shape: checked against the plain
-    version, timed against its bound, the plain version and one PyTorch
-    call."""
+    version in both designs, the design the library picks timed against
+    its bound, PR 1's warp-per-row design (in turns: picked, warp, warp,
+    picked), the plain version and one PyTorch call."""
     from graphcast_lite_torch.ops import cuda_segment
 
+    design = cuda_segment.segment_design(msgs.dtype, msgs.shape[1])
     err = _check_kernel(f"{label} E_pad={msgs.shape[0]} R={r} "
                         f"F={msgs.shape[1]}", msgs, indptr, r)
-    ms = _time_ms(lambda: cuda_segment.segment_sum(msgs, indptr, r))
+    _check_kernel(f"{label} (warp design)", msgs, indptr, r, design="warp")
+    # 50 launches a timing, as scripts/torch_segment_split.py times them:
+    # the two designs differ by a few percent at the processor shape.
+    picked = []
+    warp = []
+    for times in (picked, warp, warp, picked):
+        which = design if times is picked else "warp"
+        times.append(_time_ms(lambda: cuda_segment.segment_sum(
+            msgs, indptr, r, which), iters=50, warmup=10))
+    ms = sum(picked) / 2
     plain_ms = _time_ms(
         lambda: cuda_segment.segment_sum_reference(msgs, indptr, r))
     # The yardstick: one PyTorch call computing the same function.
@@ -741,11 +843,19 @@ def _time_segment_sum(label, msgs, indptr, r):
         msgs, "sum", lengths=lengths, axis=0))
     nbytes = _nbytes(msgs, indptr) + r * msgs.shape[1] * msgs.element_size()
     bound_ms, bound_by = _bound(nbytes, msgs.numel())
-    _log(f"  segment_sum {label}: kernel {ms * 1e3:.1f} us | bound "
-         f"{bound_ms * 1e3:.1f} us ({bound_by}; {nbytes / 1e6:.1f} MB) | "
-         f"plain {plain_ms * 1e3:.1f} us | {library_call} "
-         f"{library_ms * 1e3:.1f} us")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    _log(f"  segment_sum {label}: {design} kernel "
+         + ", ".join(f"{t * 1e3:.1f}" for t in picked)
+         + " us (fraction " + ", ".join(f"{bound_ms / t:.3f}" for t in picked)
+         + ") | warp-per-row kernel (PR 1) "
+         + ", ".join(f"{t * 1e3:.1f}" for t in warp)
+         + " us (fraction " + ", ".join(f"{bound_ms / t:.3f}" for t in warp)
+         + f") | bound {bound_ms * 1e3:.1f} us ({bound_by}; "
+         f"{nbytes / 1e6:.1f} MB) | plain {plain_ms * 1e3:.1f} us | "
+         f"{library_call} {library_ms * 1e3:.1f} us")
+    return {"max_abs_err": err, "ms": ms, "ms_runs": picked,
+            "design": design, "earlier_ms": sum(warp) / 2,
+            "earlier_ms_runs": warp, "earlier_design": "warp",
+            "fraction_of_bound": bound_ms / ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_call": library_call}
 
