@@ -40,13 +40,27 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    PyTorch call; the segment sum in the design it picks and in PR 1's
    warp-per-row design, in turns; the fused kernels also against their
    earlier (wmma) times, and ``edge_mlp`` with the design it took
-   (asserted: the Hopper one) and its persistent blocks' sub-tile counts.
+   (asserted: the Hopper one) and its persistent blocks' sub-tile counts;
+   the segment sum also at the four sender-sorted scatters of phase 5a.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
    AR-4, on the reg-block route and on each COO route, and compares them.
+5. Training.  5a: the segment sum against its plain version, fp32 and
+   bf16, on the sender-sorted CSRs of the train step's backward (the
+   reg-edge unit's sender scatter, the encoder's and the decoder's GCNConv
+   gather adjoints; a decoder sender reaches 696 edges), on the permuted
+   cotangent rows the backward builds.  5b: the 64x32 architecture's fp32
+   AR-4 train step (``make_train_step``) on the card against the CPU:
+   loss, every gradient and the exact segment-sum launches, then the
+   card's Adam update against its closed form.  5c: the flagship in bf16
+   mixed precision, 5 train steps on one seeded batch through
+   ``make_train_step`` on the default route: exact launches every step
+   (80 segment sums, no fused kernel), the loss falls, step and
+   forward-loss times, peak memory and one profiled step.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+Prints the card's name and power limit, ``{"serve": ...}``,
+``{"train": ...}`` and ``{"kernels": [...]}`` lines and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
 """
@@ -106,6 +120,19 @@ EDGE_STEP_EARLIER_MS = 2.1121
 # edge_mlp there before its Hopper redesign: the 16-receiver wmma kernel of
 # commit 14a3db7, two runs, H100 80GB HBM3 at 700 W.
 EDGE_MLP_EARLIER_MS = (0.7095, 0.7006)
+# The 64x32 model's train step on the card against the CPU, fp32 with TF32
+# off: the loss within TRAIN_LOSS_RTOL relative, and each parameter's
+# gradient within TRAIN_GRAD_RTOL of the leaf's largest CPU gradient
+# (+ 1e-6).  fp32 rounding alone moves the encoder's first-layer gradients
+# of the small CPU-test model (hidden 128, 2 steps) by about 1.2e-4 of
+# their largest value (measured there against float64); the card and the
+# CPU sum in other orders throughout a model twice as wide and six times
+# as deep, so the bound allows about eight times that.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+# Train steps of the flagship on one batch: a warm-up, three timed, one
+# profiled.
+TRAIN_STEPS = 5
 REQUESTS = 3
 AR_STEPS = 4
 # The COO routes of the processor, the switches that pick them (the JAX
@@ -160,6 +187,7 @@ def _kernel_modules():
 def _reset_launches():
     for mod in _kernel_modules().values():
         mod.launches = 0
+    _kernel_modules()["segment_sum"].launches_by_csr.clear()
 
 
 def _launches():
@@ -860,10 +888,11 @@ def _time_segment_sum(label, msgs, indptr, r):
             "library_ms": library_ms, "library_call": library_call}
 
 
-def phase_kernel_flagship(gs):
+def phase_kernel_flagship(gs, n_feat):
     """Each kernel at its flagship shapes in bf16: the segment sum at the
-    encoder shape (the default route) and at the processor shape (the COO
-    composed route), the fused kernels at the processor shape."""
+    encoder shape (the default route), at the processor shape (the COO
+    composed route) and at the sender-sorted scatters of the train step's
+    backward, the fused kernels at the processor shape."""
     from graphcast_lite_torch.ops import edge_mlp, edge_step
 
     _log("phase 3: kernel times at the flagship shapes, bf16 (CUDA events; "
@@ -884,6 +913,11 @@ def phase_kernel_flagship(gs):
     mask2 = t["mask"][:, None]
     seg_proc = _time_segment_sum("flagship multimesh", (t["v"] * mask2),
                                  t["indptr"], r)
+    seg_send = {}
+    for label, perm, indptr, rows, n, f in _sender_csrs(gs, n_feat):
+        seg_send[label] = _time_segment_sum(
+            label, _sender_msgs(gen, perm, rows, f, torch.bfloat16),
+            indptr.to("cuda"), n)
 
     label = f"flagship multimesh E_pad={e_pad} R={r} H=De={hid}"
     mlp_err = _check_edge_mlp(label, t, r, design="hopper")
@@ -931,7 +965,7 @@ def phase_kernel_flagship(gs):
          f"on {blocks} blocks: {int(tiles.sum())} sub-tiles, "
          f"{int(tiles.max())} on the busiest block, "
          f"{tiles.float().mean().item():.1f} on average")
-    return seg_enc, seg_proc, mlp, step
+    return seg_enc, seg_proc, seg_send, mlp, step
 
 
 def phase_numerics():
@@ -993,6 +1027,304 @@ def phase_numerics():
              f"max|card - cpu| {err:.3e} ok")
 
 
+def _sender_csrs(gs, n_feat):
+    """(label, perm, indptr, message rows, R, F) of the sender-sorted
+    scatters in the flagship train step's backward: the reg-edge unit's
+    sender scatter and the encoder's and decoder's GCNConv gather adjoints
+    (the decoder's second conv at the output width ``n_feat``)."""
+    rb = gs.processing.reg_blocks
+    enc, dec = gs.encoding, gs.decoding
+    return [
+        ("reg-edge sender scatter F=256", rb.s_perm, rb.s_indptr,
+         rb.rows_padded, rb.num_nodes, 256),
+        ("encoder GCN gather adjoint F=256", enc.s_perm, enc.s_indptr,
+         enc.padded_num_edges, enc.num_nodes, 256),
+        ("decoder GCN gather adjoint F=256", dec.s_perm, dec.s_indptr,
+         dec.padded_num_edges, dec.num_nodes, 256),
+        (f"decoder GCN gather adjoint F={n_feat}", dec.s_perm,
+         dec.s_indptr, dec.padded_num_edges, dec.num_nodes, n_feat),
+    ]
+
+
+def _sender_msgs(gen, perm, rows, f, dtype):
+    """Random cotangent rows [rows, F] put in sender order on the card, as
+    the backward builds them (an ``index_select`` by the sort)."""
+    g = torch.randn(rows, f, generator=gen).to("cuda", dtype)
+    return g.index_select(0, perm.to("cuda"))
+
+
+def phase_sender_scatter_cases(gs, n_feat):
+    """5a: the segment sum against its plain version, fp32 and bf16, on the
+    sender-sorted CSRs of the flagship graphs, and two launches bitwise
+    equal."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    _log("phase 5a: segment_sum on the train step's sender-sorted CSRs "
+         "(permuted cotangent rows), fp32 and bf16")
+    gen = torch.Generator().manual_seed(5)
+    for label, perm, indptr, rows, r, f in _sender_csrs(gs, n_feat):
+        deg = indptr[1:] - indptr[:-1]
+        _log(f"  {label}: {rows} rows into R={r}; out-degree max "
+             f"{int(deg.max())}, {int((deg == 0).sum())} empty rows")
+        ip = indptr.to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            msgs = _sender_msgs(gen, perm, rows, f, dtype)
+            _check_kernel(f"{label} F={f}", msgs, ip, r)
+            first = cuda_segment.segment_sum(msgs, ip, r)
+            if not torch.equal(first, cuda_segment.segment_sum(msgs, ip, r)):
+                raise AssertionError(f"{label} {dtype}: two launches differ")
+
+
+def _train_launches(model, graphs) -> dict:
+    """The segment-sum launches one AR-4 train step (BPTT, a checkpoint per
+    AR step) should make, by the CSR and shape the wrapper counts them at
+    (``cuda_segment.launches_by_csr``): label -> [key, count].  Per AR
+    step: each encoder GCNConv aggregates over the receiver CSR in the
+    forward and again in the recompute (the decoder's constant in-degree
+    aggregation is a reshape-sum); each reg-block processor step scatters
+    over its senders' CSR; each GCNConv of the encoder and the decoder
+    takes its gather adjoint over its graph's senders' CSR."""
+    enc, dec = graphs.encoding, graphs.decoding
+    rb = graphs.processing.reg_blocks
+    if dec.const_in_degree <= 0:
+        raise AssertionError("decoder graph without constant in-degree")
+    out = {}
+
+    def add(label, indptr, r, e, f, n):
+        entry = out.setdefault(f"{label} F={f}",
+                               [(indptr.data_ptr(), r, e, f), 0])
+        entry[1] += AR_STEPS * n
+
+    def widths(layer):
+        return [getattr(layer, f"conv_{i}").kernel.shape[1]
+                for i in range(layer.num_convs)]
+
+    for f in widths(model.encoder.graph_layer):
+        add("encoder aggregation (forward + recompute)", enc.indptr,
+            enc.num_receivers, enc.padded_num_edges, f, 2)
+    for s in model.processor.graph_layer.inet.steps:
+        add("reg-edge sender scatter", rb.s_indptr, rb.num_nodes,
+            rb.rows_padded, s.hidden_dim, 1)
+    for f in widths(model.encoder.graph_layer):
+        add("encoder GCN gather adjoint", enc.s_indptr, enc.num_nodes,
+            enc.padded_num_edges, f, 1)
+    for f in widths(model.decoder.graph_layer):
+        add("decoder GCN gather adjoint", dec.s_indptr, dec.num_nodes,
+            dec.padded_num_edges, f, 1)
+    return out
+
+
+def _csr_launches(expected: dict) -> dict:
+    """The segment-sum launches counted since the last reset, by the labels
+    of ``expected`` (``_train_launches``); raises on launches at a CSR or
+    shape that ``expected`` does not name."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    counted = dict(cuda_segment.launches_by_csr)
+    got = {label: counted.pop(key, 0) for label, (key, _) in expected.items()}
+    if counted:
+        raise AssertionError(f"segment_sum launched at unexpected CSRs or "
+                             f"shapes (indptr, R, E, F): {counted}")
+    return got
+
+
+def _grads(model):
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().cpu() for n, p in model.named_parameters()}
+
+
+def phase_train_numerics():
+    """5b: the 64x32 flagship architecture's fp32 train step (TF32 off) on
+    the card against the CPU: loss and every gradient; then the card's Adam
+    update against the closed form of a first Adam step on its own
+    gradients."""
+    import copy
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.graphs.build import build_graph_set
+    from graphcast_lite_torch.models.weather import ModelGraphs, WeatherModel
+    from graphcast_lite_torch.training.loss import lat_weights_from_axis
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    _log("phase 5b: 64x32 flagship architecture, fp32 AR-4 train step, card "
+         f"vs CPU (loss rtol {TRAIN_LOSS_RTOL}, each gradient "
+         f"{TRAIN_GRAD_RTOL} x its largest + 1e-6)")
+    cfg = presets.interaction_net_64x32()
+    lat, lon = presets.wb2_64x32_grid()
+    gs = build_graph_set(lat, lon, cfg.graph.mesh_levels,
+                         cfg.graph.grid2mesh_radius_query)
+    c, obs, g = (cfg.data.num_features_used, cfg.data.obs_window_used,
+                 gs.num_grid_nodes)
+    model = WeatherModel(cfg.pipeline, cfg.data, g, gs.num_mesh_nodes,
+                         generator=torch.Generator().manual_seed(0))
+    graphs = ModelGraphs.from_graph_set(gs)
+    spec = RolloutSpec(obs_window=obs, num_features=c,
+                       use_residual=cfg.use_residual, remat=True)
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, g, obs * c).astype(np.float32)
+    y = rng.randn(1, g, AR_STEPS * c).astype(np.float32)
+    lw = lat_weights_from_axis(len(lat), len(lon))
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(model)
+        step = make_train_step(m, graphs, spec, cfg, device=device,
+                               lat_weights=lw)
+        parts = _train_launches(m, step.graphs)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in m.named_parameters()}
+        _reset_launches()
+        loss = step(x, y).item()
+        counts = dict(_launches(), by_csr=_csr_launches(parts))
+        out[device] = (loss, _grads(m), before,
+                       {n: p.detach().cpu() for n, p in m.named_parameters()},
+                       counts, parts)
+    loss, grads, before, after, counts, parts = out["cuda"]
+    loss_cpu, grads_cpu = out["cpu"][:2]
+    by_csr = {label: n for label, (_, n) in parts.items()}
+    expected = sum(by_csr.values())
+    if counts != {"segment_sum": expected, "edge_mlp": 0, "edge_step": 0,
+                  "by_csr": by_csr}:
+        raise AssertionError(f"64x32 train step launches {counts}, expected "
+                             f"{expected} segment sums ({by_csr})")
+    if not (np.isfinite(loss)
+            and abs(loss - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)):
+        raise AssertionError(f"64x32 train loss card {loss} cpu {loss_cpu}")
+    worst = (0.0, "")
+    for name, ref in grads_cpu.items():
+        got = grads[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite card gradient")
+        err = (got - ref).abs().max().item()
+        tol = TRAIN_GRAD_RTOL * ref.abs().max().item() + 1e-6
+        if err > tol:
+            raise AssertionError(f"{name}: card gradient off the CPU's by "
+                                 f"{err:.3e} > {tol:.3e}")
+        worst = max(worst, (err / tol, name))
+    # A first Adam step moves each parameter by lr * g / (|g| + eps); the
+    # fp32 result rounds it once more (2^-23 relative).
+    lr, eps = cfg.learning_rate, 1e-8
+    adam_err = 0.0
+    for name, p0 in before.items():
+        g64 = grads[name].double()
+        expect = p0.double() - lr * g64 / (g64.abs() + eps)
+        err = (after[name].double() - expect).abs()
+        if (err > 1e-4 * lr + 2.0 ** -23 * expect.abs()).any():
+            raise AssertionError(f"{name}: card Adam step off its closed "
+                                 f"form by {err.max().item():.3e}")
+        adam_err = max(adam_err, err.max().item())
+    _log(f"  loss card {loss:.7f} cpu {loss_cpu:.7f}; {len(grads)} gradients, "
+         f"largest error {worst[0]:.3f} of its tolerance ({worst[1]}); "
+         f"segment_sum launches {expected}; Adam step within "
+         f"{adam_err:.2e} of lr * g / (|g| + eps) (lr {lr})")
+    return {"loss_card": loss, "loss_cpu": loss_cpu,
+            "worst_grad_err_of_tol": worst[0], "worst_grad_leaf": worst[1],
+            "adam_max_abs_err": adam_err, "launches": expected}
+
+
+def phase_train(ctx):
+    """5c: the flagship 512x256 train step in bf16 mixed precision through
+    ``make_train_step`` on the default route: TRAIN_STEPS steps on one
+    seeded batch; exact launch counts each step; the loss falls; step and
+    forward-loss times, peak memory and one profiled step."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.training.loss import channel_mask, \
+        lat_weights_from_axis
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    cfg = presets.interaction_net_512x256()
+    cfg.tpu.compute_dtype = "bfloat16"
+    n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    meta, model, graphs = ctx["meta"], ctx["model"], ctx["graphs"]
+    _log("phase 5c: flagship 512x256 AR-4 train step (BPTT, a checkpoint "
+         "per AR step, Adam at lr "
+         f"{cfg.learning_rate}), bf16 compute against fp32 masters, default "
+         f"route, {TRAIN_STEPS} steps on one seeded batch")
+    spec = RolloutSpec(obs_window=obs, num_features=n_feat,
+                       use_residual=cfg.use_residual,
+                       remat=cfg.tpu.remat_rollout,
+                       static_channels=tuple(cfg.static_channels),
+                       forcing_channels=tuple(cfg.forcing_channels))
+    step = make_train_step(
+        model, graphs, spec, cfg, device="cuda",
+        lat_weights=lat_weights_from_axis(meta.num_latitudes,
+                                          meta.num_longitudes),
+        chan_mask=channel_mask(n_feat, cfg.static_channels,
+                               cfg.forcing_channels))
+    x, y = (torch.from_numpy(a[None]).cuda() for a in ctx["request"])
+    parts = _train_launches(model, step.graphs)
+    by_csr = {label: n for label, (_, n) in parts.items()}
+    expected = {"segment_sum": sum(by_csr.values()), "edge_mlp": 0,
+                "edge_step": 0, "by_csr": by_csr}
+    losses, step_ms, step_counts = [], [], []
+    busy_ms = wall_ms = top = None
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        if i == TRAIN_STEPS - 1:
+            holder = []
+            busy_ms, wall_ms, top = _profile(
+                lambda: holder.append(step(x, y)))
+            loss = holder[0]
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(x, y)
+            end.record()
+            torch.cuda.synchronize()
+            if i > 0:
+                step_ms.append(start.elapsed_time(end))
+        if i == TRAIN_STEPS - 2:
+            peak = torch.cuda.max_memory_allocated()
+        counts = dict(_launches(), by_csr=_csr_launches(parts))
+        if counts != expected:
+            raise AssertionError(f"train step {i}: launches {counts}, "
+                                 f"expected {expected}")
+        step_counts.append(counts)
+        losses.append(loss.item())
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    _reset_launches()
+    fwd_ms = _time_ms(lambda: step.forward_loss(x, y), iters=3, warmup=1)
+    fwd_launches = _launches()["segment_sum"] // 4
+    ms = sum(step_ms) / len(step_ms)
+    g = ctx["gs"].num_grid_nodes
+    train = {
+        "train_step_ms": ms, "train_step_ms_runs": step_ms,
+        "train_grid_points_per_s": g * AR_STEPS / (ms / 1e3),
+        "forward_loss_ms": fwd_ms, "peak_mem_bytes": peak,
+        "losses": losses, "launches_per_step": step_counts[-1],
+        "segment_sum_launches_by_csr": step_counts[-1]["by_csr"],
+        "forward_loss_segment_sum_launches": fwd_launches,
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+    }
+    _log("  losses (before each update): "
+         + ", ".join(f"{v:.6f}" for v in losses))
+    _log(f"  segment_sum launches counted in each step: "
+         f"{step_counts[-1]['segment_sum']} ("
+         + ", ".join(f"{k} {v}" for k, v in step_counts[-1]["by_csr"].items())
+         + "); edge_step and edge_mlp 0")
+    _log(f"  train step (CUDA events, steps 2-{TRAIN_STEPS - 1}): "
+         + ", ".join(f"{t:.2f}" for t in step_ms)
+         + f" ms, mean {ms:.2f} ms; {train['train_grid_points_per_s']:.4g} "
+         f"grid-points/s ({g} points x {AR_STEPS} steps); forward loss "
+         f"{fwd_ms:.2f} ms ({fwd_launches} segment sums); peak allocated "
+         f"{peak / 2**30:.3f} GiB")
+    _log(f"  torch.profiler, one train step: device busy {busy_ms:.2f} ms of "
+         f"{wall_ms:.2f} ms wall (idle share "
+         f"{train['device_idle_share']:.3f}); top kernels by device time:")
+    for name, n, t in top:
+        _log(f"    {t:9.3f} ms  {n:5d} calls  {name[:90]}")
+    return train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1023,16 +1355,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         ctx, serve = phase_serve(workdir)
         serve["coo_routes"] = phase_coo_serve(ctx)
-    seg_enc, seg_proc, mlp, step = phase_kernel_flagship(ctx["gs"])
+    n_feat = ctx["spec"].num_features
+    seg_enc, seg_proc, seg_send, mlp, step = phase_kernel_flagship(
+        ctx["gs"], n_feat)
     phase_numerics()
+    phase_sender_scatter_cases(ctx["gs"], n_feat)
+    train = phase_train_numerics()
+    train = dict(phase_train(ctx), card_vs_cpu_64x32=train)
 
     coo = serve["coo_routes"]
+    # Launches counted in a train step at each sender-sorted CSR and shape.
+    by_csr = train["segment_sum_launches_by_csr"]
+    if set(seg_send) - set(by_csr):
+        raise AssertionError(f"timed sender shapes {sorted(seg_send)} not "
+                             f"all launched in the train step {by_csr}")
     seg = dict(seg_enc, launches=serve["launches"],
                launches_per_rollout=serve["launches"] // REQUESTS,
+               launches_per_train_step=train["launches_per_step"][
+                   "segment_sum"],
                at_processor_shape=dict(
                    seg_proc, route="composed",
                    launches_per_rollout=coo["composed"][
-                       "launches_per_rollout"]["segment_sum"]))
+                       "launches_per_rollout"]["segment_sum"]),
+               at_sender_scatter={
+                   label: dict(k, launches_per_train_step=by_csr[label])
+                   for label, k in seg_send.items()})
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -1042,9 +1389,11 @@ def main() -> int:
             "launches_per_rollout"][name]
         kernels.append((name, src, tpu, dict(
             k, launches=n, launches_per_rollout=n,
+            launches_per_train_step=train["launches_per_step"][name],
             library_note="no single PyTorch call computes this fused "
                          "function")))
     _log(json.dumps({"serve": serve}))
+    _log(json.dumps({"train": train}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

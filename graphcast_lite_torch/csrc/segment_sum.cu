@@ -75,8 +75,14 @@
 //    loads 16 bytes per edge row (8 bf16 or 4 fp32 values), so one warp
 //    covers 256 bf16 (128 fp32) features of a row per load.  The edge loop
 //    is unrolled by 4 to keep four row loads in flight per lane.
-//  * F that is not a multiple of VEC (e.g. 19), or a misaligned pointer,
-//    takes the scalar path: each lane still owns VEC consecutive features.
+//  * F that is not a multiple of VEC, or a misaligned pointer, takes the
+//    scalar path: each lane still owns VEC consecutive features.
+//  * Narrow rows on that path (F <= 16 x VEC, e.g. F = 19) take
+//    segment_sum_narrow_kernel: the row's features need `slots` lanes, so
+//    the warp's lanes form 32 / slots groups, each summing every groups-th
+//    edge of the row, and the first group adds the others' sums in group
+//    order by shuffles (a fixed order: every launch gives the same bits).
+//    With one group, 3 of 32 lanes would walk a row's edges one by one.
 //  * At the encoder shape its warps of the few high-degree rows run long,
 //    and the 16,384 blocks of the grid band only write zeros.
 //
@@ -206,6 +212,78 @@ segment_sum_kernel(const T* __restrict__ msgs, const int* __restrict__ indptr,
   }
 }
 
+// Narrow rows: see the header.  The grid is launch_warp's (one feature
+// stripe); the whole warp takes row r.
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+segment_sum_narrow_kernel(const T* __restrict__ msgs,
+                          const int* __restrict__ indptr, T* __restrict__ out,
+                          int num_receivers, int num_features,
+                          long long msgs_batch_stride,
+                          long long out_batch_stride) {
+  using V = Vec<T>;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= num_receivers) return;
+
+  const int slots = (num_features + V::N - 1) / V::N;
+  const int groups = 32 / slots;
+  const int slot = lane % slots, group = lane / slots;
+  const int f0 = slot * V::N;
+  const int n = min(V::N, num_features - f0);
+  const long long f = num_features;
+  const T* src = msgs + blockIdx.z * msgs_batch_stride + f0;
+  const int beg = __ldg(indptr + r);
+  const int end = __ldg(indptr + r + 1);
+
+  float acc[V::N];
+#pragma unroll
+  for (int j = 0; j < V::N; ++j) acc[j] = 0.0f;
+  if (group < groups) {
+    // Four of the group's rows in flight at a time, added in edge order.
+    int e = beg + group;
+    for (; e + 3 * groups < end; e += 4 * groups) {
+      float v[4][V::N];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const T* row = src + (e + k * groups) * f;
+#pragma unroll
+        for (int j = 0; j < V::N; ++j) {
+          v[k][j] = j < n ? V::to_float(row[j]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int j = 0; j < V::N; ++j) acc[j] += v[k][j];
+      }
+    }
+    for (; e < end; e += groups) {
+      const T* row = src + e * f;
+#pragma unroll
+      for (int j = 0; j < V::N; ++j) {
+        if (j < n) acc[j] += V::to_float(row[j]);
+      }
+    }
+  }
+  // The first group adds the other groups' sums, in group order; every lane
+  // takes part in the shuffles.
+  for (int g = 1; g < groups; ++g) {
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) {
+      const float v = __shfl_sync(0xffffffffu, acc[j], g * slots + slot);
+      if (group == 0) acc[j] += v;
+    }
+  }
+  if (group == 0) {
+    T* dst = out + blockIdx.z * out_batch_stride + r * f + f0;
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) {
+      if (j < n) dst[j] = V::from_float(acc[j]);
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_warp(const void* msgs, const int* indptr, void* out,
                         int num_receivers, int num_features, int batch,
@@ -224,6 +302,10 @@ cudaError_t launch_warp(const void* msgs, const int* indptr, void* out,
   T* o = static_cast<T*>(out);
   if (aligned) {
     segment_sum_kernel<T, true><<<grid, block, 0, stream>>>(
+        m, indptr, o, num_receivers, num_features, msgs_batch_stride,
+        out_batch_stride);
+  } else if (num_features <= 16 * vec) {
+    segment_sum_narrow_kernel<T><<<grid, block, 0, stream>>>(
         m, indptr, o, num_receivers, num_features, msgs_batch_stride,
         out_batch_stride);
   } else {

@@ -15,7 +15,15 @@ package's layout:
 In place of the Pallas chunk schedule the graph carries ``indptr``, the
 receiver CSR offsets read by the CUDA segment-sum kernel
 (``ops.cuda_segment``): receiver ``r`` owns edge rows
-``[indptr[r], indptr[r+1])`` of the padded, sorted arrays.
+``[indptr[r], indptr[r+1])`` of the padded, sorted arrays.  For the
+adjoint of the sender gather (``ops.gather``) it also carries the
+sender-sorted CSR: ``s_perm``, a stable argsort of the padded senders, and
+``s_indptr``, the senders' CSR offsets over the node space (the counterpart
+of the JAX package's ``senders_aux`` and ``RegularBlocks.s_perm/s_sorted``).
+Padding rows keep sender 0, so they sort into row 0's run; their
+cotangents are exact zeros (mask and ``gcn_norm`` are 0 there), so any
+valid row would do.  The JAX package moves them to the smallest real
+sender instead, which is the same gradient.
 
 Node-index convention: one flat node array, grid nodes 0..N-1 then mesh
 nodes N..N+M-1; bipartite graphs index into the combined space.
@@ -30,7 +38,8 @@ import numpy as np
 import torch
 
 __all__ = ["Graph", "RegularBlocks", "pad_to_multiple",
-           "indptr_from_receivers", "build_graph", "build_regular_blocks"]
+           "indptr_from_receivers", "sender_csr", "build_graph",
+           "build_regular_blocks"]
 
 _LANE = 128  # edge-count padding multiple (same as the JAX package)
 # The reference's receiver tile (its segment kernels' ``tile_receivers``).
@@ -49,6 +58,16 @@ def indptr_from_receivers(receivers: torch.Tensor,
     bounds = torch.arange(num_receivers + 1, device=receivers.device,
                           dtype=receivers.dtype)
     return torch.searchsorted(receivers, bounds).to(torch.int32)
+
+
+def sender_csr(senders: np.ndarray, num_nodes: int):
+    """(s_perm [E] int32, s_indptr [num_nodes + 1] int32): a stable
+    argsort of ``senders`` and the CSR offsets of the sorted senders."""
+    senders = np.asarray(senders, np.int64)
+    perm = np.argsort(senders, kind="stable")
+    s_indptr = np.searchsorted(senders[perm], np.arange(num_nodes + 1))
+    return (torch.from_numpy(perm.astype(np.int32)),
+            torch.from_numpy(s_indptr.astype(np.int32)))
 
 
 def _move(t: Optional[torch.Tensor], device, float_dtype):
@@ -70,12 +89,16 @@ class RegularBlocks:
     [K, V(ℓ)] table, stored SLOT-MAJOR (row = k·V + r has receiver r):
     receiver broadcast is a k-fold tile and aggregation a k-term slice sum.
     Blocks are concatenated and padded to 128 rows; padding rows carry
-    mask 0 / sender 0.
+    mask 0 / sender 0.  ``s_perm`` / ``s_indptr`` are the senders' sorted
+    CSR over the ``num_nodes`` rows (``sender_csr``), read by the sender
+    scatter of the edge unit's backward (``ops.reg_edge``).
     """
 
     senders: torch.Tensor              # [rows_pad] int32
     mask: torch.Tensor                 # [rows_pad] float
     edge_attr: Optional[torch.Tensor]  # [rows_pad, F_e]
+    s_perm: torch.Tensor               # [rows_pad] int32
+    s_indptr: torch.Tensor             # [num_nodes + 1] int32
     block_recv: tuple = ()
     block_k: tuple = ()
     num_nodes: int = 0
@@ -90,6 +113,8 @@ class RegularBlocks:
             senders=_move(self.senders, device, float_dtype),
             mask=_move(self.mask, device, float_dtype),
             edge_attr=_move(self.edge_attr, device, float_dtype),
+            s_perm=_move(self.s_perm, device, float_dtype),
+            s_indptr=_move(self.s_indptr, device, float_dtype),
         )
 
 
@@ -168,10 +193,13 @@ def build_regular_blocks(
         attr = np.zeros((rows_pad, edge_attr.shape[1]), np.float32)
         attr[:total_rows] = np.concatenate(attr_tabs, axis=0)
 
+    s_perm, s_indptr = sender_csr(snd, num_receivers)
     return RegularBlocks(
         senders=torch.from_numpy(snd),
         mask=torch.from_numpy(msk),
         edge_attr=torch.from_numpy(attr) if attr is not None else None,
+        s_perm=s_perm,
+        s_indptr=s_indptr,
         block_recv=tuple(block_recv),
         block_k=tuple(block_k),
         num_nodes=int(num_receivers),
@@ -190,6 +218,9 @@ class Graph:
       edge_attr: optional [E_pad, F_e] static edge features.
       indptr: [R + 1] int32 receiver CSR offsets into the padded arrays
         (``indptr[R] == E_pad``).
+      s_perm / s_indptr: [E_pad] int32 stable argsort of the padded
+        senders and [num_nodes + 1] int32 CSR offsets of the sorted
+        senders (``sender_csr``).
       static_in_degree: [R] float unmasked in-degree.
       gcn_norm: [E_pad] float GCN symmetric normalizer dinv_s·dinv_r (0 on
         padding rows).
@@ -211,6 +242,8 @@ class Graph:
     indptr: torch.Tensor
     static_in_degree: torch.Tensor
     gcn_norm: torch.Tensor
+    s_perm: torch.Tensor
+    s_indptr: torch.Tensor
     edge_attr: Optional[torch.Tensor] = None
     reg_blocks: Optional[RegularBlocks] = None
     num_nodes: int = 0
@@ -233,6 +266,8 @@ class Graph:
             receivers=_move(self.receivers, device, float_dtype),
             edge_mask=_move(self.edge_mask, device, float_dtype),
             indptr=_move(self.indptr, device, float_dtype),
+            s_perm=_move(self.s_perm, device, float_dtype),
+            s_indptr=_move(self.s_indptr, device, float_dtype),
             static_in_degree=_move(self.static_in_degree, device,
                                    float_dtype),
             gcn_norm=_move(self.gcn_norm, device, float_dtype),
@@ -329,11 +364,14 @@ def build_graph(
             avoid_rows=e_pad,
         )
 
+    s_perm, s_indptr = sender_csr(s_full, num_nodes)
     return Graph(
         senders=torch.from_numpy(s_full),
         receivers=torch.from_numpy(r_full),
         edge_mask=torch.from_numpy(m_full),
         indptr=indptr,
+        s_perm=s_perm,
+        s_indptr=s_indptr,
         static_in_degree=torch.from_numpy(degrees_f),
         gcn_norm=torch.from_numpy(gcn_norm),
         edge_attr=(torch.from_numpy(attr_full)

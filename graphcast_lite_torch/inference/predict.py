@@ -220,6 +220,8 @@ def evaluate_model(
         x, y = dataset.get(i)
         p_avail = y.shape[-1] // c
         steps = min(ar_steps, p_avail)
+        if direct_steps > 1:
+            steps = min(steps, direct_steps)
         targets = y.reshape(g, p_avail, c)
         persistence = x.reshape(g, obs, c)[:, -1, :]
 

@@ -20,6 +20,12 @@ with its defaults, read when the step is called:
   aggregation (``ops.edge_mlp``);
 * else the composed route aggregates through the segment-sum kernel.
 
+The two fused kernels are forward only: inside ``ops.fused_edge.
+training_trace()`` (set by ``training.rollout.rollout_loss``) both
+switches are ignored and the COO layout takes the composed route, as in
+the JAX package.  Every row gather passes its index's sorted CSR to
+``ops.gather.gather_rows``, so its adjoint is the segment-sum kernel.
+
 Not ported yet (they raise): the masked GCN branch and the GAT family
 (ROADMAP A8), runtime edge masks and the non-lazy InteractionNetLayer.
 """
@@ -35,6 +41,7 @@ from torch import nn
 from ..graphs.structure import Graph
 from ..ops import edge_mlp, edge_step
 from ..ops import segment as seg_ops
+from ..ops.fused_edge import in_training
 from ..ops.gather import gather_rows
 from ..ops.reg_edge import RegStatic, reg_edge_tail
 from .nn import PReLU, PyGLayerNorm, TorchLinear, glorot_uniform_pyg, \
@@ -73,7 +80,9 @@ class GCNConv(nn.Module):
             )
         xw = x @ self.kernel
         deg = graph.static_in_degree + 1.0
-        msgs = xw.index_select(0, graph.senders) * graph.gcn_norm[:, None]
+        msgs = gather_rows(xw, graph.senders,
+                           (graph.s_perm, graph.s_indptr)) \
+            * graph.gcn_norm[:, None]
         agg = seg_ops.aggregate_sum(msgs, graph)
         # Implicit self loop: norm_ii = 1/deg_i.
         out = agg + xw / deg[:, None]
@@ -109,21 +118,22 @@ def _use_reg_blocks(graph: Graph, edge_mask) -> bool:
 def _use_edge_step_path(graph: Graph, hidden_dim: int, edge_dim: int,
                         activation: str) -> bool:
     """The fused edge-step kernel: only with ``GCLT_EDGE_STEP=1`` (off by
-    default, as in the reference) and where the kernel takes the shapes."""
+    default, as in the reference), outside training, and where the kernel
+    takes the shapes."""
     flag = os.environ.get("GCLT_EDGE_STEP")
-    return (flag is not None and flag not in _OFF
+    return (flag is not None and flag not in _OFF and not in_training()
             and edge_step.eligible(graph.padded_num_edges, hidden_dim,
                                    edge_dim, activation))
 
 
 def _use_mega_edge_path(graph: Graph, hidden_dim: int, edge_dim: int,
                         activation: str) -> bool:
-    """The edge-MLP segment kernel: only with ``GCLT_MEGA_EDGE=1``, and on
-    the reference's structural conditions (16,384 real edges or more, a
+    """The edge-MLP segment kernel: only with ``GCLT_MEGA_EDGE=1``, outside
+    training, and on the reference's structural conditions (16,384 real edges or more, a
     unified node space, a full receiver band).  The port sends every
     segment sum through its kernel, so the reference's segment-kernel
     condition always holds here."""
-    if os.environ.get("GCLT_MEGA_EDGE", "0") in _OFF:
+    if os.environ.get("GCLT_MEGA_EDGE", "0") in _OFF or in_training():
         return False
     return (edge_mlp.supports(hidden_dim, edge_dim, activation)
             and graph.num_edges >= 16384
@@ -196,8 +206,8 @@ class _LazyINLayer(nn.Module):
                                num_nodes=graph.num_receivers,
                                activation=self.activation)
             u, agg_sum = reg_edge_tail(
-                static, x, v, rb.mask.to(x.dtype), rb.senders,
-                w1s, w1r, w1e_eff, b1_eff, k1, b1,
+                static, x, v, rb.mask.to(x.dtype), rb.senders, rb.s_perm,
+                rb.s_indptr, w1s, w1r, w1e_eff, b1_eff, k1, b1,
             )
             new_x = self._node_step(x, agg_sum, graph)
             # Lazy-LN residual + masked graph-mode stats (pad rows carry u
@@ -212,11 +222,12 @@ class _LazyINLayer(nn.Module):
             return (new_x, v_new) + self._affine(mu, var)
 
         mask = graph.edge_mask
+        s_aux = (graph.s_perm, graph.s_indptr)
         if _use_edge_step_path(graph, hid, de, self.activation):
             # The whole edge side in one kernel; only the sender gather and
             # the two node projections stay outside.
             self.route = "edge_step"
-            xsg = gather_rows(x @ w1s, graph.senders)
+            xsg = gather_rows(x @ w1s, graph.senders, s_aux)
             v_new, agg_sum, stats = edge_step.edge_step(
                 xsg, v, x @ w1r, w1e_eff, b1_eff, k1, b1, a.float(),
                 c.float(), mask, graph.indptr, graph.num_receivers,
@@ -228,8 +239,8 @@ class _LazyINLayer(nn.Module):
             var = torch.clamp(stats[1] / denom - torch.square(mu), min=0.0)
             return (new_x, v_new) + self._affine(mu, var)
 
-        h = (gather_rows(x @ w1s, graph.senders)
-             + gather_rows(x @ w1r, graph.receivers)
+        h = (gather_rows(x @ w1s, graph.senders, s_aux)
+             + gather_rows(x @ w1r, graph.receivers, (None, graph.indptr))
              + v @ w1e_eff + b1_eff)
         if _use_mega_edge_path(graph, hid, de, self.activation):
             self.route = "mega"

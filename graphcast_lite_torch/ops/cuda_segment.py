@@ -13,6 +13,12 @@ Messages are receiver-sorted and pre-masked (padding rows are zero);
   torch version (fp32 ``index_add_``, then a cast).
 * On a CUDA tensor it launches ``csrc/segment_sum.cu`` or raises; it never
   falls back.  The kernel is built by ``ops.nvcc_build`` at first use.
+* It is differentiable: the adjoint of a segment sum is a gather of the
+  cotangent by receiver id (``g.index_select(-2, receiver_ids)``, the
+  JAX package's VJP, ``ops/pallas_segment.py:_segment_sum_bwd``), with the
+  ids read off ``indptr`` and clipped into range, so message rows past
+  ``indptr[R]`` read row R - 1 (they are padding rows, which the callers
+  mask).
 
 It is bound by bytes: one add per message element, one read of msgs and
 one write of out (193 MB, about 58 us on an H100 at the flagship encoder
@@ -33,11 +39,15 @@ by shape (``gclt_segment_sum_design``):
   device and stream.
 * ``"warp"`` (every other shape: F = 19, bf16 F = 64, fp32 F = 512,
   misaligned views): one warp per receiver row, the design of the first
-  port.
+  port; on rows narrower than 16 lanes' worth (F = 19), the warp's lanes
+  form groups that sum every groups-th edge, added in group order.
 
 ``design=`` forces one of the two (raising where ``"balanced"`` cannot
 run); only measurements use it.  ``launches`` counts wrapper calls that
-launched the kernel (one a call, never plain-version calls).
+launched the kernel (one a call, never plain-version calls);
+``launches_by_csr`` counts the same launches by the CSR and shape they
+ran at, keyed ``(indptr.data_ptr(), R, E, F)``, so that a measurement can
+tell apart the callers of one run.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ __all__ = [
     "DESIGNS",
     "TILE_ITEMS",
     "launches",
+    "launches_by_csr",
     "segment_design",
     "tile_partition",
     "split_rows",
@@ -65,6 +76,7 @@ __all__ = [
 
 SOURCE = os.path.join(nvcc_build.CSRC, "segment_sum.cu")
 launches = 0
+launches_by_csr: Dict[Tuple[int, int, int, int], int] = {}
 
 # The designs of csrc/segment_sum.cu, by their code in its C interface.
 DESIGNS = {"warp": 0, "balanced": 1}
@@ -150,25 +162,58 @@ def split_rows(indptr: torch.Tensor) -> torch.Tensor:
 def segment_sum_reference(msgs: torch.Tensor, indptr: torch.Tensor,
                           num_receivers: int) -> torch.Tensor:
     """Plain torch version: fp32 ``index_add_`` over the rows
-    ``[0, indptr[-1])``, then one cast to the messages' dtype."""
+    ``[0, indptr[-1])``, then one cast to the messages' dtype (float64
+    messages accumulate in float64)."""
     counts = (indptr[1:] - indptr[:-1]).long()
     recv = torch.repeat_interleave(
         torch.arange(num_receivers, device=msgs.device), counts
     )
     n = recv.numel()
+    acc = torch.promote_types(msgs.dtype, torch.float32)
     out = torch.zeros(msgs.shape[:-2] + (num_receivers, msgs.shape[-1]),
-                      dtype=torch.float32, device=msgs.device)
-    out.index_add_(-2, recv, msgs[..., :n, :].float())
+                      dtype=acc, device=msgs.device)
+    out.index_add_(-2, recv, msgs[..., :n, :].to(acc))
     return out.to(msgs.dtype)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """The segment sum with the JAX package's VJP: a gather of the
+    cotangent by receiver id, clipped into range."""
+
+    @staticmethod
+    def forward(ctx, msgs, indptr, num_receivers, design):
+        ctx.save_for_backward(indptr)
+        ctx.num_edges = msgs.shape[-2]
+        return _segment_sum(msgs, indptr, num_receivers, design)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indptr,) = ctx.saved_tensors
+        edges = torch.arange(ctx.num_edges, dtype=indptr.dtype,
+                             device=indptr.device)
+        ids = torch.searchsorted(indptr[1:], edges, right=True)
+        ids = ids.clamp_(max=indptr.numel() - 2)
+        return g.index_select(-2, ids), None, None, None
 
 
 def segment_sum(msgs: torch.Tensor, indptr: torch.Tensor,
                 num_receivers: int,
                 design: Optional[str] = None) -> torch.Tensor:
-    """Sum receiver-sorted messages [E, F] or [B, E, F] into [..., R, F].
+    """Sum receiver-sorted messages [E, F] or [B, E, F] into [..., R, F];
+    differentiable in ``msgs``.
 
     ``design`` (``"warp"`` or ``"balanced"``) forces the kernel's design on
     a CUDA tensor; by default the library picks it by shape."""
+    if torch.is_grad_enabled() and msgs.requires_grad:
+        return _SegmentSum.apply(msgs, indptr, num_receivers, design)
+    return _segment_sum(msgs, indptr, num_receivers, design)
+
+
+def _segment_sum(msgs: torch.Tensor, indptr: torch.Tensor,
+                 num_receivers: int,
+                 design: Optional[str] = None) -> torch.Tensor:
+    """``segment_sum``'s forward: the plain version on the CPU, the kernel
+    on the card."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"segment_sum: unknown design {design!r}")
     if msgs.device.type == "cpu":
@@ -235,4 +280,6 @@ def segment_sum(msgs: torch.Tensor, indptr: torch.Tensor,
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error {err}")
     global launches
     launches += 1
+    key = (indptr.data_ptr(), num_receivers, e, f)
+    launches_by_csr[key] = launches_by_csr.get(key, 0) + 1
     return out

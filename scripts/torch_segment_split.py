@@ -6,7 +6,7 @@ same at the flagship processor shape.
 
     python3 scripts/torch_segment_split.py [--tile-items 16,32]
         [--warps 2,8] [--stages 2,4] [--chunk-bytes 2048,4096]
-        [--compare CU,...] [--timeline] [--out PATH]
+        [--compare CU,...] [--timeline] [--senders] [--out PATH]
 
 Five cases, each on both designs (``warp``: the warp-per-row kernel of the
 first port; ``balanced``: the merge-path kernel):
@@ -19,6 +19,14 @@ first port; ``balanced``: the merge-path kernel):
   evenly (E // 40,962 or one more a row), which takes the skew away;
 * ``processor``: the multimesh (E_pad 261,120, R 40,962, in-degree 6-12),
   which the COO composed route sums 48 times a rollout.
+
+``--senders`` adds the sender-sorted scatters of the train step's backward
+(``graphs.structure.sender_csr``): ``reg_senders`` (the reg-block rows into
+40,962 mesh rows), ``enc_senders`` (the G2M edges into 172,034 rows,
+40,962 of them empty) and ``dec_senders`` (the M2G edges into 172,034
+rows, 131,072 empty, out-degree up to 696) at F = 256, and
+``dec_senders_f19`` at the decoder's output width, F = 19, which only the
+warp-per-row design takes.
 
 ``--tile-items``, ``--warps``, ``--stages`` and ``--chunk-bytes`` time the
 balanced design with other values of ``kTileItems``, ``kWarps``,
@@ -122,14 +130,19 @@ _KNOBS = {"tile_items": "kTileItems", "warps": "kWarps",
           "stages": "kStages", "chunk_bytes": "kChunkBytes"}
 
 
-def flagship_indptrs():
-    """The flagship G2M and multimesh graphs' receiver CSR offsets (E_pad
-    rows: padding belongs to the last receiver, as the graphs keep it)."""
+def flagship_graphs():
     cfg = presets.interaction_net_512x256()
     lat, lon = presets.wb2_512x256_grid()
-    gs = build_graph_set(lat, lon, cfg.graph.mesh_levels,
-                         cfg.graph.grid2mesh_radius_query)
-    return gs.encoding.indptr, gs.processing.indptr
+    return build_graph_set(lat, lon, cfg.graph.mesh_levels,
+                           cfg.graph.grid2mesh_radius_query)
+
+
+def sender_cases(gs):
+    """{name: sender CSR offsets} of the train step's sender scatters."""
+    return {"reg_senders": gs.processing.reg_blocks.s_indptr,
+            "enc_senders": gs.encoding.s_indptr,
+            "dec_senders": gs.decoding.s_indptr,
+            "dec_senders_f19": gs.decoding.s_indptr}
 
 
 def cases(indptr: torch.Tensor, processor: torch.Tensor):
@@ -232,6 +245,8 @@ def main() -> int:
                     help="comma-separated segment_sum.cu files to time as-is")
     ap.add_argument("--timeline", action="store_true",
                     help="print each case's per-warp timeline spread")
+    ap.add_argument("--senders", action="store_true",
+                    help="add the train step's sender-sorted scatters")
     ap.add_argument("--out", help="also write the JSON line to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -276,7 +291,10 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    indptrs = cases(*flagship_indptrs())
+    gs = flagship_graphs()
+    indptrs = cases(gs.encoding.indptr, gs.processing.indptr)
+    if args.senders:
+        indptrs.update(sender_cases(gs))
     print(f"flagship graphs: {time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator().manual_seed(1)
     e_pad = max(int(ip[-1]) for ip in indptrs.values())
@@ -285,16 +303,20 @@ def main() -> int:
     for case, ip in indptrs.items():
         ip = ip.cuda()
         r = ip.numel() - 1
-        m = msgs[:int(ip[-1])].contiguous()
+        f = 19 if case.endswith("_f19") else F
+        m = msgs[:int(ip[-1]), :f].contiguous()
         ref = cuda_segment.segment_sum_reference(m, ip, r)
         mag = cuda_segment.segment_sum_reference(m.float().abs(), ip, r)
-        nbytes = chip_smoke._nbytes(m, ip) + r * F * 2
+        nbytes = chip_smoke._nbytes(m, ip) + r * f * 2
         bound_ms, _ = chip_smoke._bound(nbytes, m.numel())
+        wide = cuda_segment.segment_design(m.dtype, f) == "balanced"
         for name, lib in libs.items():
             designs = (("warp", "balanced") if name == "cur" else
                        ("warp",) if name.startswith("warp_") else
                        ("balanced",))
             for design in designs:
+                if design == "balanced" and not wide:
+                    continue
                 key = f"{name}/{design}/{case}"
                 call = _caller(lib, m, ip, r, design)
                 rows[key] = {"ms": [], "bound_ms": bound_ms, "R": r,

@@ -43,9 +43,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 35 since the COO routes: ops.edge_mlp, ops.edge_step, ops.gather and
-    # ops.nvcc_build joined the walk.
-    assert int(proc.stdout.split()[0]) >= 35, proc.stdout
+    # 38 since the train step: ops.fused_edge, training.loss and
+    # training.trainer joined the walk (35 with the COO routes).
+    assert int(proc.stdout.split()[0]) >= 38, proc.stdout
 
 
 @pytest.fixture(scope="module")
@@ -78,3 +78,22 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tiny_serve,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate_model(model, graphs, test_ds, meta, device="cuda",
                        max_samples=1)
+
+
+def test_train_step_needs_a_card_unless_asked_for_cpu(tiny_serve,
+                                                      monkeypatch):
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    tcfg, test_ds, meta = tiny_serve
+    model, graphs, _ = build_weather_model(tcfg, meta, device="cpu")
+    spec = RolloutSpec(obs_window=2, num_features=N_FEAT)
+    x, y = test_ds.get(0)
+    step = make_train_step(model, graphs, spec, tcfg, steps=1, device="cpu")
+    assert torch.isfinite(step(x[None], y[None]))
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, graphs, spec, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, graphs, spec, tcfg, device="cuda")
