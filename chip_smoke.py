@@ -35,7 +35,8 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    fp32 reg-block rollout; times each route and profiles one rollout of it
    (device busy time and idle share).
 3. Times each kernel at the flagship shapes (the segment sum at the encoder
-   and the processor shape, the two fused kernels at the processor shape)
+   shape, also in fp32 as ``Trainer.fit``'s evaluation runs it, and at the
+   processor shape, the two fused kernels at the processor shape)
    against its bound, its plain version and, where there is one, one
    PyTorch call; the segment sum in the design it picks and in PR 1's
    warp-per-row design, in turns; the fused kernels also against their
@@ -57,9 +58,31 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    ``make_train_step`` on the default route: exact launches every step
    (80 segment sums, no fused kernel), the loss falls, step and
    forward-loss times, peak memory and one profiled step.
+6. The trainer and the user surface.  6a: the flagship in bf16 mixed
+   precision through ``Trainer.fit`` on a seeded 11-frame synthetic
+   512x256 dataset: 4 epochs of 2 steps climbing the AR curriculum 1, 2,
+   3, 4 (one AR level an epoch), an fp32 evaluation of the validation
+   sample before and after each epoch, a checkpoint every epoch.  Checks
+   the AR level of every epoch and step, every step's segment-sum launches
+   by CSR and shape (``_train_launches`` at the step's AR level: 20 a
+   level), 2 a validation sample in each evaluation, no fused kernel,
+   finite losses, the files the fit writes and no sample loaded past the
+   epoch's last step; then a new ``Trainer`` on a
+   new model resumes the checkpoint for epoch 5, with its params and Adam
+   state bitwise the saved ones before its first step and Adam's step
+   count continuing.  Times per AR level: step ms (CUDA events), evaluate
+   ms per validation sample, checkpoint save ms, epoch wall, the host share
+   of the epoch (1 - step time / epoch wall) and peak memory.  6b: the
+   README's demo loop through the CLIs' ``main(argv)`` on the card:
+   ``make_demo --size medium``, ``train --max-steps-per-epoch 8`` (at
+   least one segment sum every step, the loss falls), ``predict --ar-steps
+   2`` at K = 1 and ``--rollouts-per-dispatch 4`` (accepted as the JAX
+   package's CLI takes it, no effect yet: the same report).
 
 Prints the card's name and power limit, ``{"serve": ...}``,
-``{"train": ...}`` and ``{"kernels": [...]}`` lines and, last,
+``{"train": ...}``, ``{"fit": ...}`` and ``{"kernels": [...]}`` lines
+(the kernels' launches counted in the serve, the train step, the fit and
+the demo's training) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
@@ -135,6 +158,16 @@ TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 5
 REQUESTS = 3
 AR_STEPS = 4
+# Phase 6a: epochs of Trainer.fit (AR 1, 2, 3, 4 at epochs_per_stage 1),
+# steps an epoch, and the frames of its dataset: 6 windows of obs 2 +
+# AR 4, 4 of them train samples, 1 validation and 1 test sample.
+FIT_EPOCHS = 4
+FIT_STEPS = 2
+FIT_FRAMES = 11
+# Phase 6b: the demo's steps an epoch, and a --rollouts-per-dispatch K
+# (accepted, no effect until the batched forward).
+DEMO_STEPS = 8
+DEMO_K = 4
 # The COO routes of the processor, the switches that pick them (the JAX
 # package's own), and their exact kernel launches per AR-4 rollout
 # (48 = 12 processor steps x 4 AR steps; 8 = 2 encoder GCNConv x 4).
@@ -904,6 +937,10 @@ def phase_kernel_flagship(gs, n_feat):
             * enc.edge_mask.cpu()[:, None]).to("cuda", torch.bfloat16)
     seg_enc = _time_segment_sum("flagship G2M", msgs, enc.indptr,
                                 enc.num_receivers)
+    # Trainer.fit evaluates in fp32 on the uncast graphs: the same shape in
+    # fp32.
+    seg_enc32 = _time_segment_sum("flagship G2M fp32", msgs.float(),
+                                  enc.indptr, enc.num_receivers)
 
     proc = gs.processing.to("cuda", torch.bfloat16)
     r, e_pad, hid = proc.num_receivers, proc.padded_num_edges, 256
@@ -965,7 +1002,7 @@ def phase_kernel_flagship(gs, n_feat):
          f"on {blocks} blocks: {int(tiles.sum())} sub-tiles, "
          f"{int(tiles.max())} on the busiest block, "
          f"{tiles.float().mean().item():.1f} on average")
-    return seg_enc, seg_proc, seg_send, mlp, step
+    return seg_enc, seg_enc32, seg_proc, seg_send, mlp, step
 
 
 def phase_numerics():
@@ -1075,15 +1112,16 @@ def phase_sender_scatter_cases(gs, n_feat):
                 raise AssertionError(f"{label} {dtype}: two launches differ")
 
 
-def _train_launches(model, graphs) -> dict:
-    """The segment-sum launches one AR-4 train step (BPTT, a checkpoint per
-    AR step) should make, by the CSR and shape the wrapper counts them at
-    (``cuda_segment.launches_by_csr``): label -> [key, count].  Per AR
-    step: each encoder GCNConv aggregates over the receiver CSR in the
-    forward and again in the recompute (the decoder's constant in-degree
-    aggregation is a reshape-sum); each reg-block processor step scatters
-    over its senders' CSR; each GCNConv of the encoder and the decoder
-    takes its gather adjoint over its graph's senders' CSR."""
+def _train_launches(model, graphs, ar_steps=AR_STEPS) -> dict:
+    """The segment-sum launches one AR-``ar_steps`` train step (BPTT, a
+    checkpoint per AR step) should make, by the CSR and shape the wrapper
+    counts them at (``cuda_segment.launches_by_csr``): label -> [key,
+    count].  Per AR step: each encoder GCNConv aggregates over the
+    receiver CSR in the forward and again in the recompute (the decoder's
+    constant in-degree aggregation is a reshape-sum); each reg-block
+    processor step scatters over its senders' CSR; each GCNConv of the
+    encoder and the decoder takes its gather adjoint over its graph's
+    senders' CSR."""
     enc, dec = graphs.encoding, graphs.decoding
     rb = graphs.processing.reg_blocks
     if dec.const_in_degree <= 0:
@@ -1093,7 +1131,7 @@ def _train_launches(model, graphs) -> dict:
     def add(label, indptr, r, e, f, n):
         entry = out.setdefault(f"{label} F={f}",
                                [(indptr.data_ptr(), r, e, f), 0])
-        entry[1] += AR_STEPS * n
+        entry[1] += ar_steps * n
 
     def widths(layer):
         return [getattr(layer, f"conv_{i}").kernel.shape[1]
@@ -1325,6 +1363,401 @@ def phase_train(ctx):
     return train
 
 
+def _launch_snapshot():
+    """The launch counters as they stand (``_launch_diff`` subtracts two)."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    return _launches(), dict(cuda_segment.launches_by_csr)
+
+
+def _launch_diff(before, after):
+    """(launches per kernel, segment-sum launches by CSR and shape) made
+    between two snapshots."""
+    counts = {k: after[0][k] - before[0][k] for k in after[0]}
+    by_csr = {key: n - before[1].get(key, 0) for key, n in after[1].items()
+              if n != before[1].get(key, 0)}
+    return counts, by_csr
+
+
+class _FitRecorder:
+    """Wraps a ``Trainer``'s ``train_step`` and ``evaluate`` and the
+    checkpoint module's ``save_checkpoint`` and ``save_params`` (the best
+    model) to time them (CUDA events and the host clock) and to count the
+    kernel launches each makes; calls
+    ``before_first_step(state)`` before the first step.  An epoch's wall
+    time runs from the end of the previous epoch's checkpoint save (or of
+    the evaluation before epoch 1) to the end of its own.  The counters
+    run on: the whole fit's launches stay readable."""
+
+    def __init__(self, trainer, before_first_step=None):
+        from graphcast_lite_torch.training import checkpoint as ckpt_lib
+
+        self.steps, self.evals, self.saves, self.best = [], [], [], []
+        self._ckpt = ckpt_lib
+        self._save, self._save_params = (ckpt_lib.save_checkpoint,
+                                         ckpt_lib.save_params)
+        self._epoch_start()
+        step, evaluate = trainer.train_step, trainer.evaluate
+
+        def train_step(state, x, y, steps, *args, **kwargs):
+            if before_first_step is not None and not self.steps:
+                before_first_step(state)
+            torch.cuda.synchronize()
+            before = _launch_snapshot()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss = step(state, x, y, steps, *args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            counts, by_csr = _launch_diff(before, _launch_snapshot())
+            self.steps.append({"ar": steps, "ms": start.elapsed_time(end),
+                               "loss": loss.item(), "launches": counts,
+                               "by_csr": by_csr})
+            return state, loss
+
+        def timed_evaluate(state, loader):
+            torch.cuda.synchronize()
+            before, t0 = _launch_snapshot(), time.perf_counter()
+            out = evaluate(state, loader)
+            torch.cuda.synchronize()
+            counts, _ = _launch_diff(before, _launch_snapshot())
+            self.evals.append({"ms": (time.perf_counter() - t0) * 1e3,
+                               "samples": len(loader.dataset),
+                               "launches": counts})
+            if not self.steps:      # the evaluation before epoch 1
+                self._epoch_start()
+            return out
+
+        def timed_save(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._save(*args, **kwargs)
+            t1 = time.perf_counter()
+            self.saves.append({"ms": (t1 - t0) * 1e3,
+                               "epoch_wall_ms": (t1 - self._mark) * 1e3,
+                               "peak_mem_bytes":
+                                   torch.cuda.max_memory_allocated()})
+            self._epoch_start()
+
+        def timed_save_params(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._save_params(*args, **kwargs)
+            self.best.append((len(self.saves), (time.perf_counter() - t0)
+                              * 1e3))
+
+        trainer.train_step, trainer.evaluate = train_step, timed_evaluate
+        ckpt_lib.save_checkpoint = timed_save
+        ckpt_lib.save_params = timed_save_params
+
+    def _epoch_start(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self._mark = time.perf_counter()
+
+    def close(self):
+        self._ckpt.save_checkpoint = self._save
+        self._ckpt.save_params = self._save_params
+
+
+def _assert_fit_launches(rec, model, graphs):
+    """Every step launched exactly ``_train_launches(k)`` segment sums by
+    CSR and shape at its AR level k and no fused kernel; every evaluation
+    2 segment sums a validation sample (the encoder's two GCNConv
+    aggregations of a one-step rollout) and nothing else."""
+    for i, st in enumerate(rec.steps):
+        parts = _train_launches(model, graphs, st["ar"])
+        by_csr = dict(st["by_csr"])
+        got = {label: by_csr.pop(key, 0)
+               for label, (key, _) in parts.items()}
+        want = {label: n for label, (_, n) in parts.items()}
+        if by_csr or got != want or st["launches"] != {
+                "segment_sum": sum(want.values()), "edge_mlp": 0,
+                "edge_step": 0}:
+            raise AssertionError(f"fit step {i} (AR {st['ar']}): launches "
+                                 f"{st['launches']}, by CSR {got} + "
+                                 f"unexpected {by_csr}; expected {want}")
+        st["by_csr"] = got
+    for ev in rec.evals:
+        want = {"segment_sum": 2 * ev["samples"], "edge_mlp": 0,
+                "edge_step": 0}
+        if ev["launches"] != want:
+            raise AssertionError(f"evaluation launches {ev['launches']}, "
+                                 f"expected {want}")
+
+
+def phase_fit(workdir):
+    """6a: the flagship through ``Trainer.fit`` (bf16 against fp32
+    masters), FIT_EPOCHS epochs of FIT_STEPS steps climbing the AR
+    curriculum 1..4, then a resume for one more epoch."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.training.trainer import Trainer
+
+    cfg = presets.interaction_net_512x256()
+    cfg.tpu.compute_dtype = "bfloat16"
+    cfg.num_epochs = FIT_EPOCHS
+    n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    _log(f"phase 6a: flagship 512x256 through Trainer.fit, bf16 against "
+         f"fp32 masters, {FIT_EPOCHS} epochs x {FIT_STEPS} steps (AR "
+         f"curriculum 1..{cfg.max_ar_steps}), batch {cfg.batch_size}, then "
+         "a resume for epoch 5")
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "fit_data"), n_time=FIT_FRAMES, n_lon=512,
+        n_lat=256, n_feat=n_feat, static_channels=list(cfg.static_channels),
+        seed=1)
+    train_ds, val_ds, _, meta = load_chunked_datasets(
+        data_dir, obs_window=obs, pred_steps=cfg.data.pred_window_used,
+        n_features=n_feat)
+    if len(train_ds) < FIT_STEPS * cfg.batch_size or len(val_ds) < 1:
+        raise AssertionError(f"train {len(train_ds)} / val {len(val_ds)} "
+                             "samples")
+    nbytes = os.path.getsize(os.path.join(data_dir, "data.npy"))
+    _log(f"  synthetic dataset: {FIT_FRAMES} frames x 512 x 256 x {n_feat} "
+         f"float16, {nbytes} bytes; {len(train_ds)} train, {len(val_ds)} "
+         "validation samples")
+    model, graphs, gs = build_weather_model(cfg, meta, device="cuda", seed=0)
+    results_dir = os.path.join(workdir, "fit")
+    trainer = Trainer(model, graphs, cfg, meta, results_dir, device="cuda")
+    state = trainer.init_state(seed=0)
+    rec = _FitRecorder(trainer)
+    # Host ms of each sample load, by the epoch it falls in (the count of
+    # checkpoint saves so far): the batch loader's and the evaluation's.
+    loads = {"train": [], "val": []}
+    for key, ds in (("train", train_ds), ("val", val_ds)):
+        def timed_get(idx, get=ds.get, out=loads[key]):
+            t0 = time.perf_counter()
+            sample = get(idx)
+            out.append((len(rec.saves), (time.perf_counter() - t0) * 1e3))
+            return sample
+        ds.get = timed_get
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = trainer.fit(state, train_ds, val_ds,
+                              max_steps_per_epoch=FIT_STEPS)
+    finally:
+        rec.close()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, by_csr = _launch_snapshot()
+    cast = trainer._graphs_for(torch.bfloat16)
+    _assert_fit_launches(rec, model, cast)
+    if counts["segment_sum"] != sum(
+            st["launches"]["segment_sum"] for st in rec.steps) + sum(
+            ev["launches"]["segment_sum"] for ev in rec.evals) \
+            or counts["segment_sum"] == 0:
+        raise AssertionError(f"fit launches {counts} are not its steps' "
+                             "and evaluations'")
+    with open(os.path.join(results_dir, "metrics.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    ar_levels = [e["ar_steps"] for e in epochs]
+    if ar_levels != list(range(1, FIT_EPOCHS + 1)) or [
+            st["ar"] for st in rec.steps] != [
+            k for k in ar_levels for _ in range(FIT_STEPS)]:
+        raise AssertionError(f"AR levels by epoch {ar_levels}, by step "
+                             f"{[st['ar'] for st in rec.steps]}")
+    losses = results["train_losses"] + results["val_losses"]
+    if len(losses) != 2 * FIT_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"fit losses {results}")
+    for name in ("checkpoint/state.pt", "checkpoint/meta.json",
+                 "best_model.pt", "results.json", "training_log.txt",
+                 "metrics.jsonl"):
+        if not os.path.exists(os.path.join(results_dir, name)):
+            raise AssertionError(f"fit wrote no {name}")
+
+    # Resume: a new Trainer on a new model continues at epoch 5 from the
+    # checkpoint, with the saved state bitwise before its first step.
+    saved_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    saved_opt = {i: {k: v.detach().clone() for k, v in st.items()}
+                 for i, st in trainer.optimizer.state_dict()["state"].items()}
+    steps_taken = len(rec.steps)
+    del trainer, state
+    check = {}
+
+    def before_first_step(st):
+        params = dict(st.model.named_parameters())
+        opt = st.optimizer.state_dict()["state"]
+        check["params_equal"] = all(torch.equal(params[n], p)
+                                    for n, p in saved_params.items())
+        check["adam_equal"] = set(opt) == set(saved_opt) and all(
+            torch.equal(opt[i][k], v) for i, s in saved_opt.items()
+            for k, v in s.items())
+        check["adam_step"] = {float(s["step"]) for s in opt.values()}
+
+    cfg.num_epochs = FIT_EPOCHS + 1
+    model2 = WeatherModel(cfg.pipeline, cfg.data, gs.num_grid_nodes,
+                          gs.num_mesh_nodes,
+                          generator=torch.Generator().manual_seed(1))
+    trainer2 = Trainer(model2, graphs, cfg, meta, results_dir, device="cuda")
+    rec2 = _FitRecorder(trainer2, before_first_step)
+    try:
+        results2 = trainer2.fit(trainer2.init_state(seed=1), train_ds,
+                                val_ds, resume=True,
+                                max_steps_per_epoch=FIT_STEPS)
+    finally:
+        rec2.close()
+    _assert_fit_launches(rec2, model2, trainer2._graphs_for(torch.bfloat16))
+    step_after = {float(s["step"]) for s in
+                  trainer2.optimizer.state_dict()["state"].values()}
+    if not (check.get("params_equal") and check.get("adam_equal")
+            and check["adam_step"] == {float(steps_taken)}
+            and step_after == {float(steps_taken + FIT_STEPS)}
+            and len(rec2.evals) == 1 and [st["ar"] for st in rec2.steps]
+            == [FIT_EPOCHS] * FIT_STEPS
+            and results2["train_losses"][:FIT_EPOCHS]
+            == results["train_losses"]
+            and len(results2["train_losses"]) == FIT_EPOCHS + 1
+            and np.isfinite(results2["train_losses"][-1])):
+        raise AssertionError(f"resume: {check}, Adam step after "
+                             f"{step_after}, evaluations {len(rec2.evals)}, "
+                             f"AR {[st['ar'] for st in rec2.steps]}, "
+                             f"losses {results2}")
+
+    levels = []
+    for e, (epoch, save) in enumerate(zip(epochs, rec.saves)):
+        steps = rec.steps[e * FIT_STEPS:(e + 1) * FIT_STEPS]
+        ev = rec.evals[e + 1]
+        step_ms = [st["ms"] for st in steps]
+        best_ms = sum(ms for i, ms in rec.best if i == e)
+        batch_ms = [ms for i, ms in loads["train"] if i == e]
+        # Each evaluation loads the validation set once, the first before
+        # epoch 1.
+        n_val = len(val_ds)
+        val_ms = sum(ms for _, ms in
+                     loads["val"][(e + 1) * n_val:(e + 2) * n_val])
+        levels.append({
+            "epoch": epoch["epoch"], "ar": epoch["ar_steps"],
+            "step_ms": step_ms,
+            "evaluate_ms_per_sample": ev["ms"] / ev["samples"],
+            "evaluate_loading_ms_per_sample": val_ms / ev["samples"],
+            "batch_loads": len(batch_ms),
+            "batch_loading_ms": sum(batch_ms),
+            "checkpoint_save_ms": save["ms"],
+            "best_model_save_ms": best_ms,
+            "epoch_wall_ms": save["epoch_wall_ms"],
+            # logs and the rest of the loop's host work
+            "other_ms": save["epoch_wall_ms"] - sum(step_ms) - ev["ms"]
+            - save["ms"] - best_ms - sum(batch_ms),
+            "host_share": 1.0 - sum(step_ms) / save["epoch_wall_ms"],
+            "peak_mem_bytes": save["peak_mem_bytes"],
+            "train_loss": epoch["train_loss"], "val_loss": epoch["val_loss"],
+            "segment_sum_launches_per_step": steps[0]["launches"][
+                "segment_sum"],
+            "segment_sum_launches_by_csr": steps[0]["by_csr"],
+        })
+    # The loader stops at max_steps_per_epoch: no sample loaded unused.
+    if [lv["batch_loads"] for lv in levels] \
+            != [FIT_STEPS * cfg.batch_size] * FIT_EPOCHS:
+        raise AssertionError("batch loads by epoch "
+                             f"{[lv['batch_loads'] for lv in levels]}")
+    for lv in levels:
+        _log(f"  epoch {lv['epoch']} AR {lv['ar']}: steps "
+             + ", ".join(f"{t:.2f}" for t in lv["step_ms"])
+             + f" ms ({lv['segment_sum_launches_per_step']} segment sums "
+             f"each); {lv['batch_loads']} batch loads "
+             f"{lv['batch_loading_ms']:.2f} ms; evaluate "
+             f"{lv['evaluate_ms_per_sample']:.2f} ms per validation sample "
+             f"({lv['evaluate_loading_ms_per_sample']:.2f} ms of it "
+             f"loading); checkpoint save "
+             f"{lv['checkpoint_save_ms']:.2f} ms, best model save "
+             f"{lv['best_model_save_ms']:.2f} ms, other host work "
+             f"{lv['other_ms']:.2f} ms; epoch wall "
+             f"{lv['epoch_wall_ms']:.2f} ms, host share "
+             f"{lv['host_share']:.3f}; peak allocated "
+             f"{lv['peak_mem_bytes'] / 2**30:.3f} GiB; train loss "
+             f"{lv['train_loss']:.6f}, val loss {lv['val_loss']:.6f}")
+    _log(f"  fit {fit_s:.1f} s; segment_sum launches {counts['segment_sum']} "
+         f"({len(rec.steps)} steps, {len(rec.evals)} evaluations), edge_step "
+         f"and edge_mlp 0; resume at epoch {FIT_EPOCHS + 1}: params and "
+         f"Adam state bitwise equal to the saved ones, Adam step "
+         f"{steps_taken} -> {steps_taken + FIT_STEPS}; its AR-"
+         f"{FIT_EPOCHS} steps "
+         + ", ".join(f"{st['ms']:.2f}" for st in rec2.steps) + " ms")
+    return {"levels": levels, "fit_s": fit_s, "data_bytes": nbytes,
+            "launches": counts, "steps": len(rec.steps),
+            "evaluation_launches": sum(ev["launches"]["segment_sum"]
+                                       for ev in rec.evals),
+            "evaluations": len(rec.evals),
+            "init_evaluate_ms_per_sample":
+                rec.evals[0]["ms"] / rec.evals[0]["samples"],
+            "resume": {"epoch": FIT_EPOCHS + 1, "adam_step_before":
+                       steps_taken, "bitwise_equal": True,
+                       "step_ms": [st["ms"] for st in rec2.steps],
+                       "train_loss": results2["train_losses"][-1]}}
+
+
+def phase_demo(workdir):
+    """6b: the README's demo loop through the CLIs on the card:
+    make_demo (medium), train, predict at K = 1 and K = 4."""
+    from graphcast_lite_torch.cli import make_demo
+    from graphcast_lite_torch.cli import predict as predict_cli
+    from graphcast_lite_torch.cli import train as train_cli
+    from graphcast_lite_torch.training.trainer import Trainer
+
+    exp = os.path.join(workdir, "demo")
+    _log("phase 6b: make_demo --size medium -> train --max-steps-per-epoch "
+         f"{DEMO_STEPS} -> predict --ar-steps 2 (K = 1 and "
+         f"--rollouts-per-dispatch {DEMO_K}), through the CLIs' main()")
+    make_demo.main([exp, "--size", "medium"])
+    per_step = []
+    step = Trainer.train_step
+
+    def counted_step(self, *args, **kwargs):
+        before = _launches()["segment_sum"]
+        out = step(self, *args, **kwargs)
+        per_step.append(_launches()["segment_sum"] - before)
+        return out
+
+    Trainer.train_step = counted_step
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        train_cli.main([exp, "--max-steps-per-epoch", str(DEMO_STEPS)])
+    finally:
+        Trainer.train_step = step
+    train_s = time.perf_counter() - t0
+    train_counts = _launches()
+    with open(os.path.join(exp, "results.json")) as f:
+        losses = json.load(f)["train_losses"]
+    if not (per_step and min(per_step) >= 1
+            and train_counts["segment_sum"] >= sum(per_step)):
+        raise AssertionError(f"demo train: segment sums per step {per_step}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"demo train loss did not fall: {losses}")
+    reports = []
+    for k in (1, DEMO_K):
+        path = os.path.join(workdir, f"demo_report_k{k}.json")
+        _reset_launches()
+        predict_cli.main([exp, "--ar-steps", "2", "--report-json", path,
+                          "--rollouts-per-dispatch", str(k)])
+        with open(path) as f:
+            reports.append(json.load(f))
+        if _launches()["segment_sum"] == 0:
+            raise AssertionError(f"predict K={k} launched no segment sum")
+    if reports[0] != reports[1]:
+        raise AssertionError(f"--rollouts-per-dispatch {DEMO_K} report "
+                             "differs from K = 1's")
+    rep = reports[0]
+    _log(f"  train {train_s:.1f} s: {len(per_step)} steps, segment sums per "
+         f"step {min(per_step)}-{max(per_step)}, {train_counts}; loss "
+         + ", ".join(f"{v:.4f}" for v in losses))
+    _log(f"  predict ({rep['num_samples']} samples, AR 2): skill vs "
+         f"persistence {rep['skill'] * 100:.2f}% (RMSE {rep['rmse']:.6f}, "
+         f"persistence {rep['baseline_rmse']:.6f}); K = {DEMO_K} report "
+         "equal to K = 1's")
+    return {"train_s": train_s, "steps": len(per_step),
+            "segment_sum_launches_per_step": [min(per_step), max(per_step)],
+            "launches": train_counts, "train_losses": losses,
+            "skill": rep["skill"], "rmse": rep["rmse"],
+            "baseline_rmse": rep["baseline_rmse"],
+            "samples": rep["num_samples"], "k_equal": True}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1356,12 +1789,15 @@ def main() -> int:
         ctx, serve = phase_serve(workdir)
         serve["coo_routes"] = phase_coo_serve(ctx)
     n_feat = ctx["spec"].num_features
-    seg_enc, seg_proc, seg_send, mlp, step = phase_kernel_flagship(
+    seg_enc, seg_enc32, seg_proc, seg_send, mlp, step = \
+        phase_kernel_flagship(
         ctx["gs"], n_feat)
     phase_numerics()
     phase_sender_scatter_cases(ctx["gs"], n_feat)
     train = phase_train_numerics()
     train = dict(phase_train(ctx), card_vs_cpu_64x32=train)
+    with tempfile.TemporaryDirectory() as workdir:
+        fit = {"flagship": phase_fit(workdir), "demo": phase_demo(workdir)}
 
     coo = serve["coo_routes"]
     # Launches counted in a train step at each sender-sorted CSR and shape.
@@ -1379,7 +1815,13 @@ def main() -> int:
                        "launches_per_rollout"]["segment_sum"]),
                at_sender_scatter={
                    label: dict(k, launches_per_train_step=by_csr[label])
-                   for label, k in seg_send.items()})
+                   for label, k in seg_send.items()},
+               at_encoder_fp32=dict(
+                   seg_enc32, launches_in_fit_evaluations=fit["flagship"][
+                       "evaluation_launches"]),
+               launches_in_fit=fit["flagship"]["launches"]["segment_sum"],
+               launches_in_demo_train=fit["demo"]["launches"][
+                   "segment_sum"])
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -1390,10 +1832,13 @@ def main() -> int:
         kernels.append((name, src, tpu, dict(
             k, launches=n, launches_per_rollout=n,
             launches_per_train_step=train["launches_per_step"][name],
+            launches_in_fit=fit["flagship"]["launches"][name],
+            launches_in_demo_train=fit["demo"]["launches"][name],
             library_note="no single PyTorch call computes this fused "
                          "function")))
     _log(json.dumps({"serve": serve}))
     _log(json.dumps({"train": train}))
+    _log(json.dumps({"fit": fit}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

@@ -4,9 +4,16 @@ AR rollout over the test split on the card, with persistence-skill
 streaming metrics, per-horizon / per-channel (physical units) tables,
 region metrics and raw predictions export.
 
+The checkpoint is a ``.pt`` state dict (``cli.train`` writes
+``best_model.pt``) or the JAX package's ``.msgpack`` params, read without
+flax; one whose structure differs from the config's model is restored
+non-strictly (the matching entries; missing / mismatched reported).
+
 Examples:
   predict <exp_dir> --data-dir D --ar-steps 4 --per-channel
   predict <exp_dir> --data-dir D --dtype bf16 --region 50 60 80 100
+  predict <exp_dir> --data-dir D --checkpoint best_model.msgpack
+  predict <exp_dir> --data-dir D --rollouts-per-dispatch 4
   predict <exp_dir> --data-dir D --device cpu
 """
 
@@ -24,8 +31,9 @@ def main(argv=None):
     parser.add_argument("exp_dir")
     parser.add_argument("--data-dir", default=None)
     parser.add_argument("--checkpoint", default=None,
-                        help="torch state dict saved with torch.save "
-                        "(default <exp_dir>/best_model.pt)")
+                        help="params: a .pt state dict or the JAX "
+                        "package's .msgpack (default <exp_dir>/"
+                        "best_model.pt, then best_model.msgpack)")
     parser.add_argument("--ar-steps", type=int, default=None)
     parser.add_argument("--split", default="test_only",
                         choices=["test_only", "val", "test", "train", "all"])
@@ -37,7 +45,9 @@ def main(argv=None):
     parser.add_argument("--save-preds", default=None)
     parser.add_argument("--report-json", default=None)
     parser.add_argument("--rollouts-per-dispatch", type=int, default=1,
-                        help="amortized serve (not ported yet: only 1)")
+                        help="accepted as the JAX package's amortized "
+                        "serve takes it; no effect until the batched "
+                        "forward (ROADMAP): each sample is its own rollout")
     parser.add_argument("--da", choices=["none", "nudging", "oi"],
                         default="none",
                         help="data assimilation (not ported yet: only none)")
@@ -52,16 +62,12 @@ def main(argv=None):
     if args.da != "none":
         parser.error("--da is not ported yet (ROADMAP A11: DA and the "
                      "remaining model-calling entry points)")
-    if args.rollouts_per_dispatch > 1:
-        parser.error("--rollouts-per-dispatch > 1 is not ported yet "
-                     "(ROADMAP: rollouts_per_dispatch > 1)")
-
-    import torch
 
     from ..build import build_weather_model, config_direct_steps
     from ..config import load_experiment_config
     from ..data.dataset import load_chunked_datasets
     from ..inference.predict import evaluate_model
+    from ..training import checkpoint as ckpt_lib
 
     cfg = load_experiment_config(os.path.join(args.exp_dir, "config.json"))
     data_dir = args.data_dir or cfg.data_dir
@@ -76,11 +82,24 @@ def main(argv=None):
     )
     model, graphs, _ = build_weather_model(cfg, meta, device=args.device,
                                            seed=args.seed)
-    ckpt = args.checkpoint or os.path.join(args.exp_dir, "best_model.pt")
+    ckpt = args.checkpoint
+    if ckpt is None:
+        candidates = [os.path.join(args.exp_dir, name)
+                      for name in ("best_model.pt", "best_model.msgpack")]
+        ckpt = next((p for p in candidates if os.path.exists(p)),
+                    candidates[0])
     if os.path.exists(ckpt):
-        state = torch.load(ckpt, map_location="cpu", weights_only=True)
-        model.load_state_dict(state)
-        print(f"[predict] loaded {ckpt}")
+        state = ckpt_lib.load_params(ckpt)
+        try:
+            model.load_state_dict(state)
+            print(f"[predict] loaded {ckpt}")
+        except RuntimeError:
+            # Structure changed (e.g. a pruned-mesh rebuild of a global
+            # checkpoint): restore the matching entries.
+            report = ckpt_lib.partial_restore(model, state)
+            print(f"[predict] non-strict restore from {ckpt} "
+                  f"(missing={len(report['missing'])}, "
+                  f"mismatched={len(report['mismatched'])})")
     else:
         print(f"[predict] WARNING: no checkpoint at {ckpt}; "
               f"evaluating random init (seed {args.seed})")
@@ -98,6 +117,7 @@ def main(argv=None):
         scalers_std=scalers["std"] if args.per_channel else None,
         save_predictions=args.save_preds,
         direct_steps=config_direct_steps(cfg),
+        rollouts_per_dispatch=args.rollouts_per_dispatch,
         device=args.device,
         dtype=args.dtype,
     )

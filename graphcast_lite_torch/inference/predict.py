@@ -12,8 +12,11 @@ streaming NumPy metrics on the host —
 * physical-unit per-channel RMSE via the dataset scalers;
 * raw predictions + ground truth + sample offsets saved as .npz.
 
-Not ported yet (they raise): the data-assimilation hook (ROADMAP A11) and
-``rollouts_per_dispatch > 1``.
+``rollouts_per_dispatch=K`` is accepted, as the JAX package's amortized
+serve takes it, and has no effect yet: every sample is its own rollout,
+which is what K = 1 computes, until the batched ``[B, N, F]`` forward
+(ROADMAP) gives the port a K-sample call that saves time.
+Not ported yet (it raises): the data-assimilation hook (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -166,15 +169,12 @@ def evaluate_model(
 
     Each sample is one whole-trajectory rollout on ``device`` (default
     ``cuda``; raises without a card unless ``device='cpu'``) with the
-    params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``)."""
+    params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``).
+    ``rollouts_per_dispatch`` is accepted and has no effect yet (see the
+    module's docstring)."""
     if assimilator is not None:
         raise NotImplementedError(
             "data-assimilation hooks are not ported yet (ROADMAP A11)"
-        )
-    if rollouts_per_dispatch > 1:
-        raise NotImplementedError(
-            "rollouts_per_dispatch > 1 (amortized serve) is not ported yet "
-            "(see ROADMAP)"
         )
     dev = resolve_device(device)
     fdt = resolve_dtype(dtype)

@@ -10,17 +10,22 @@ exception: the InteractionNet steps run under ``nn.scan`` in JAX, which
 stacks their parameters on axis 0 under ``…/inet/steps/layer/…``; they are
 unstacked here into ``…inet.steps.{i}.…``.  Kernels keep their [in, out]
 layout.
+
+``from_optax_adam_state(tree, model, processor_lr_factor)`` maps the JAX
+package's Adam state (as ``flax.serialization.to_state_dict`` lays it out)
+onto the state dict of ``training.trainer.build_optimizer``'s optimizer,
+through the same path rules.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["from_flax_params"]
+__all__ = ["from_flax_params", "from_optax_adam_state"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) \
@@ -52,3 +57,66 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
                 np.ascontiguousarray(arr)
             )
     return state
+
+
+def _adam_leaves(adam: Mapping) -> Tuple[float, Dict[str, torch.Tensor],
+                                         Dict[str, torch.Tensor]]:
+    """``optax.adam``'s state ``{"0": {count, mu, nu}, "1": {}}`` ->
+    (count, mu, nu) with mu and nu as port state dicts (leaves masked out
+    by ``optax.masked`` are empty dicts, and drop out)."""
+    if set(adam.keys()) != {"0", "1"} or set(adam["0"].keys()) \
+            != {"count", "mu", "nu"}:
+        raise ValueError(f"not an optax.adam state: {sorted(adam.keys())}")
+    inner = adam["0"]
+    return (float(np.asarray(inner["count"])), from_flax_params(inner["mu"]),
+            from_flax_params(inner["nu"]))
+
+
+def from_optax_adam_state(tree: Mapping, model: torch.nn.Module,
+                          processor_lr_factor: float = 1.0) -> Dict[str, Any]:
+    """The JAX package's optimizer state (``optax.adam``, or the
+    ``optax.multi_transform`` of its ``build_optimizer`` when
+    ``processor_lr_factor`` is not 1) -> a state dict for the optimizer
+    ``training.trainer.build_optimizer(model, lr, processor_lr_factor)``
+    builds: per parameter ``step`` (optax's ``count``), ``exp_avg`` (``mu``)
+    and ``exp_avg_sq`` (``nu``), and the groups' parameter indices.  The
+    groups carry no hyperparameters: the caller puts ``state`` into its own
+    optimizer's state dict."""
+    named = list(model.named_parameters())
+    processor = {n for n, _ in named if "processor" in n.split(".")}
+    if processor_lr_factor == 1.0:
+        if "0" not in tree:
+            raise ValueError("expected the optax.adam layout "
+                             "{'0': {count, mu, nu}, '1': {}}")
+        groups: List[List[str]] = [[n for n, _ in named]]
+        adam = _adam_leaves(tree)
+        sources = {n: adam for n in groups[0]}
+    else:
+        if set(tree.keys()) != {"inner_states"}:
+            raise ValueError("expected the multi_transform layout "
+                             "{'inner_states': {'rest', 'processor'}}")
+        groups = [[n for n, _ in named if n not in processor],
+                  [n for n, _ in named if n in processor]]
+        rest, proc = (_adam_leaves(tree["inner_states"][k]["inner_state"])
+                      for k in ("rest", "processor"))
+        sources = {n: (proc if n in processor else rest) for n, _ in named}
+    shapes = {n: p.shape for n, p in named}
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    index = 0
+    param_groups = []
+    for names in groups:
+        ids = []
+        for name in names:
+            count, mu, nu = sources[name]
+            if name not in mu or name not in nu:
+                raise KeyError(f"the optax state has no moments of {name}")
+            if mu[name].shape != shapes[name]:
+                raise ValueError(f"{name}: moments of shape "
+                                 f"{tuple(mu[name].shape)}, parameter "
+                                 f"{tuple(shapes[name])}")
+            state[index] = {"step": torch.tensor(count),
+                            "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            ids.append(index)
+            index += 1
+        param_groups.append({"params": ids})
+    return {"state": state, "param_groups": param_groups}

@@ -21,8 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax():
     """Every module of the package, and chip_smoke (whose main runs only
-    under ``__main__``), imports without jax, flax, pydantic, msgpack or
-    anything of graphcast_lite_tpu."""
+    under ``__main__``), imports without jax, flax, optax, pydantic,
+    msgpack or anything of graphcast_lite_tpu."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import graphcast_lite_torch as pkg
@@ -32,7 +32,7 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         import chip_smoke
         assert callable(chip_smoke.main)
-        banned = ("jax", "jaxlib", "flax", "pydantic", "msgpack",
+        banned = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack",
                   "graphcast_lite_tpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in banned)
@@ -43,9 +43,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 38 since the train step: ops.fused_edge, training.loss and
-    # training.trainer joined the walk (35 with the COO routes).
-    assert int(proc.stdout.split()[0]) >= 38, proc.stdout
+    # 43 since the trainer: utils.logs, utils.flax_msgpack,
+    # training.checkpoint, cli.make_demo and cli.train joined the walk (38
+    # with the train step, 35 with the COO routes).
+    assert int(proc.stdout.split()[0]) >= 43, proc.stdout
 
 
 @pytest.fixture(scope="module")
@@ -97,3 +98,26 @@ def test_train_step_needs_a_card_unless_asked_for_cpu(tiny_serve,
         make_train_step(model, graphs, spec, tcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(model, graphs, spec, tcfg, device="cuda")
+
+
+def test_trainer_and_clis_need_a_card_unless_asked_for_cpu(tiny_serve,
+                                                           tmp_path,
+                                                           monkeypatch):
+    from graphcast_lite_torch.cli import make_demo, predict, train
+    from graphcast_lite_torch.training.trainer import Trainer
+
+    tcfg, _, meta = tiny_serve
+    model, graphs, _ = build_weather_model(tcfg, meta, device="cpu")
+    Trainer(model, graphs, tcfg, meta, str(tmp_path / "cpu"), device="cpu")
+    exp = str(tmp_path / "demo")
+    make_demo.main([exp])     # writes files only: no device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, graphs, tcfg, meta, str(tmp_path / "card"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main([exp, "--max-steps-per-epoch", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.main([exp, "--max-samples", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main([exp, "--device", "cuda"])

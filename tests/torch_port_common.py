@@ -18,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from graphcast_lite_tpu import presets as jax_presets
@@ -205,3 +206,58 @@ def assert_grads_close(grads, expect):
         worst = max(worst, (err / tol, name))
     print(f"gradients: largest error {worst[0]:.3f} of its tolerance "
           f"({worst[1]}), {len(grads)} leaves")
+
+
+# ---- Trainer.fit through both packages ---------------------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for a module of small-model tests (import it into
+    the module to turn it on).  Their ops are tiny, and the suite runs in
+    several worker processes at once: there torch's intra-op threads wait
+    for each other across processes, and a 5 s CPU fit took 330 s."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# Per-epoch losses and ACC of the port's fit against the JAX package's,
+# relative (measured about 5e-6 on the ConvGCN and the lazy InteractionNet
+# experiments below).
+FIT_RTOL = 1e-4
+
+
+def fit_experiment(tmp_path, processor="conv_gcn", **updates):
+    """The JAX package's ``small_experiment`` (16x8 grid, hidden 16, mesh
+    [1, 2], batch 2, max AR 2) and the same experiment in the port, on the
+    same dataset: (jax cfg, jax model, jax graphs, jax datasets, port cfg,
+    port model, port graphs, port datasets).  ``updates`` change the
+    config of both; each dataset tuple is (train, val, meta)."""
+    import json
+
+    from graphcast_lite_tpu.config import GraphLayerType
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.config import ExperimentConfig, from_dict
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from test_training import small_experiment
+
+    jcfg, jmodel, jgraphs, jtrain, jval, _, jmeta = small_experiment(
+        tmp_path, processor_type=GraphLayerType(processor))
+    jcfg = jcfg.model_copy(update=updates)
+    pcfg = from_dict(ExperimentConfig, json.loads(jcfg.model_dump_json()))
+    ptrain, pval, _, pmeta = load_chunked_datasets(
+        str(tmp_path / "data"), obs_window=2,
+        pred_steps=pcfg.data.pred_window_used,
+        n_features=pcfg.data.num_features_used)
+    pmodel, pgraphs, _ = build_weather_model(pcfg, pmeta, device="cpu")
+    return (jcfg, jmodel, jgraphs, (jtrain, jval, jmeta),
+            pcfg, pmodel, pgraphs, (ptrain, pval, pmeta))
+
+
+def read_jsonl(path):
+    import json
+
+    with open(path) as f:
+        return [json.loads(line) for line in f]
