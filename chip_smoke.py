@@ -22,6 +22,12 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    design.  Checks that the edge-MLP library's width selection
    (``gclt_edge_mlp_wgmma``) and group size agree with the wrapper's Python
    mirror and prints each layout's shared memory.
+1c. The segment sum against its plain version, fp32 and bf16, at the
+   shapes the GAT, SparseGAT and product-graph families add on the WB2
+   64x32 graphs: GAT aggregations (F = 256 at 4 heads x 64, 64 at one
+   head), softmax denominators (F = 4, 1; F = 1 is also the degree sum
+   under a pruned mask), the product-graph GCN's aggregations (F = 64,
+   33) and the backward's gather adjoints over the sender CSRs.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
@@ -34,6 +40,13 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    exact launch counts per rollout, and holds its bf16 rollout against the
    fp32 reg-block rollout; times each route and profiles one rollout of it
    (device busy time and idle share).
+2c. Serves one request with the plain InteractionNet step
+   (``GCLT_LAZY_EDGE=0``) on the composed route (56 segment sums a
+   rollout) and on the mega route (8 segment sums, 48 ``edge_mlp``
+   launches through the step's ``_MegaEdgeMLP`` counterpart): rollout
+   time by stage, idle share, peak memory, bf16 against the fp32 plain
+   rollout, and the fp32 plain rollout against the fp32 lazy one within
+   ``NONLAZY_FP32_RTOL``.
 3. Times each kernel at the flagship shapes (the segment sum at the encoder
    shape, also in fp32 as ``Trainer.fit``'s evaluation runs it, and at the
    processor shape, the two fused kernels at the processor shape)
@@ -42,10 +55,17 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    warp-per-row design, in turns; the fused kernels also against their
    earlier (wmma) times, and ``edge_mlp`` with the design it took
    (asserted: the Hopper one) and its persistent blocks' sub-tile counts;
-   the segment sum also at the four sender-sorted scatters of phase 5a.
+   the segment sum also at the four sender-sorted scatters of phase 5a;
+   3b the segment sum at phase 1c's shapes in fp32.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
    AR-4, on the reg-block route and on each COO route, and compares them.
+   4b: the four WB2 64x32 BASELINE configurations at their published
+   widths (GCN, GAT at 4 heads, SparseGAT at its 0.1356 threshold, the
+   obs-5 product graph), seeded weights, fp32: one request (exact
+   segment-sum launches) and one train step, card against CPU, and
+   SparseGAT's pruned mask equal on every edge whose alpha lies more
+   than 1e-5 from the threshold.
 5. Training.  5a: the segment sum against its plain version, fp32 and
    bf16, on the sender-sorted CSRs of the train step's backward (the
    reg-edge unit's sender scatter, the encoder's and the decoder's GCNConv
@@ -77,10 +97,16 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    ``make_demo --size medium``, ``train --max-steps-per-epoch 8`` (at
    least one segment sum every step, the loss falls), ``predict --ar-steps
    2`` at K = 1 and ``--rollouts-per-dispatch 4`` (accepted as the JAX
-   package's CLI takes it, no effect yet: the same report).
+   package's CLI takes it, no effect yet: the same report).  6c: on a
+   synthetic 64x32 set of 33 features, SparseGAT through ``cli.train``
+   for 12 epochs (pruning from epoch index 6; the live edges after each
+   epoch), a ``--resume`` from its checkpoint after epoch 11 ending on the
+   same mask, the product graph for 2 epochs, and ``cli.predict`` on
+   each.
 
 Prints the card's name and power limit, ``{"serve": ...}``,
-``{"train": ...}``, ``{"fit": ...}`` and ``{"kernels": [...]}`` lines
+``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}`` and
+``{"kernels": [...]}`` lines
 (the kernels' launches counted in the serve, the train step, the fit and
 the demo's training) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -179,7 +205,47 @@ COO_ROUTES = {
     "mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
              {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0}),
 }
-_SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE")
+_SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE",
+             "GCLT_LAZY_EDGE")
+# The plain (non-lazy) InteractionNet step at the flagship: its routes, the
+# switches that pick them, their exact launches per AR-4 rollout and the
+# route its steps record.
+NONLAZY_ROUTES = {
+    "composed": ({"GCLT_LAZY_EDGE": "0"},
+                 {"segment_sum": 8 + 48, "edge_mlp": 0, "edge_step": 0},
+                 "nonlazy"),
+    "mega": ({"GCLT_LAZY_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
+             {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0},
+             "nonlazy_mega"),
+}
+# The fp32 plain rollout against the fp32 lazy reg-block rollout of the
+# same weights and request, per AR step: RMS(plain - lazy) <=
+# NONLAZY_FP32_RTOL * RMS(lazy).  The two differ by the edge LayerNorm's
+# variance formula (E[(v - mu)^2] against E[v^2] - mu^2), by the lazy fold
+# of each LN into the next step's weights and by the order of the sums, a
+# few fp32 roundings (1e-7) a step; the bound allows 10^4 times that over
+# 12 steps and 4 AR steps of random weights.
+NONLAZY_FP32_RTOL = 1e-3
+# The WB2 64x32 BASELINE configurations at their published widths (the
+# presets; GAT at the 4 heads of experiments/wb2_64x32_gat), and the
+# SparseGAT threshold (its sparsity_thresholds).
+BASELINE_CONFIGS = {
+    "gcn": ("baseline_gcn_64x32", {}),
+    "gat": ("gat_64x32", {"heads": 4}),
+    "sparse_gat": ("sparse_gat_64x32", {}),
+    "product_graph": ("product_graph_64x32", {}),
+}
+SPARSE_THR = 0.1356
+# SparseGAT masks are compared on the edges whose alpha lies farther than
+# this from the threshold (fp32 alpha differs by about 1e-7 card to CPU).
+ALPHA_MARGIN = 1e-5
+# Phase 6c: the SparseGAT fit's epochs (the schedule prunes from epoch
+# index 6), the epoch after which its checkpoint is kept for a resume, the
+# product-graph fit's epochs, and the steps an epoch of both.
+SPARSE_EPOCHS = 12
+SPARSE_RESUME_AFTER = 10
+PRODUCT_EPOCHS = 2
+USER_STEPS = 4
 
 
 def _log(*args):
@@ -740,22 +806,22 @@ def _rollout(ctx, dtype):
     return rollout, smodel
 
 
-def _rel_rms(p16, p32, label):
-    """Relative RMS distance, per AR step, of a bf16 rollout from the fp32
-    rollout of the same weights on the same request; raises above
-    BF16_SERVE_RTOL or on a non-finite value."""
+def _rel_rms(p16, p32, label, ref="the fp32 reg-block rollout",
+             tol=BF16_SERVE_RTOL, what="bf16"):
+    """Relative RMS distance, per AR step, of a rollout (by default bf16)
+    from ``ref`` (by default the fp32 reg-block rollout) of the same
+    weights on the same request; raises above ``tol`` or on a non-finite
+    value."""
     if not torch.isfinite(p16).all():
-        raise AssertionError(f"{label}: non-finite bf16 rollout")
+        raise AssertionError(f"{label}: non-finite {what} rollout")
     rel = [(torch.linalg.vector_norm(p16[:, s] - p32[:, s])
             / torch.linalg.vector_norm(p32[:, s])).item()
            for s in range(AR_STEPS)]
-    _log(f"  {label}: bf16 against the fp32 reg-block rollout (TF32 off), "
-         "same weights and request, RMS(bf16 - fp32) / RMS(fp32) per AR "
-         "step: " + ", ".join(f"{r:.4e}" for r in rel)
-         + f" (tolerance {BF16_SERVE_RTOL:.4e})")
-    if not all(np.isfinite(rel)) or max(rel) > BF16_SERVE_RTOL:
-        raise AssertionError(f"{label}: bf16 serve off the fp32 rollout: "
-                             f"{rel}")
+    _log(f"  {label}: {what} against {ref} (TF32 off), same weights and "
+         f"request, RMS({what} - ref) / RMS(ref) per AR step: "
+         + ", ".join(f"{r:.4e}" for r in rel) + f" (tolerance {tol:.4e})")
+    if not all(np.isfinite(rel)) or max(rel) > tol:
+        raise AssertionError(f"{label}: {what} rollout off {ref}: {rel}")
     return rel
 
 
@@ -1758,6 +1824,453 @@ def phase_demo(workdir):
             "samples": rep["num_samples"], "k_equal": True}
 
 
+def _baseline_graphs():
+    """(GraphSet, ModelGraphs with the product graph) of the WB2 64x32
+    BASELINE configurations: mesh [3, 5] (E_pad 65,280), and the product
+    graph over obs 5 x 2,048 grid nodes (k = 4, Kronecker)."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.graphs.build import build_graph_set
+    from graphcast_lite_torch.models.weather import ModelGraphs
+
+    cfg = presets.product_graph_64x32()
+    lat, lon = presets.wb2_64x32_grid()
+    gs = build_graph_set(lat, lon, cfg.graph.mesh_levels,
+                         cfg.graph.grid2mesh_radius_query)
+    graphs = ModelGraphs.from_graph_set(gs, cfg.pipeline.product_graph,
+                                        cfg.data.obs_window_used)
+    return gs, graphs
+
+
+def _new_shapes(graphs):
+    """(label, perm or None, indptr, rows, R, F) of the segment sums the
+    new layer families add, on the 64x32 graphs: GAT's aggregations at
+    4 x 64 and 1 x 64, its softmax denominators at H = 4 and 1 (H = 1 is
+    also the degree sum under a pruned mask), the product-graph GCN's
+    aggregations, and the gather adjoints of the backward over the sender
+    CSRs (GAT's xW and a_src, the product GCN's)."""
+    proc, prod = graphs.processing, graphs.product
+    shapes = []
+    for f, what in ((256, "GAT 4x64 aggregation"),
+                    (64, "GAT 1x64 aggregation"),
+                    (4, "GAT softmax denominators H=4"),
+                    (1, "denominators H=1, degrees under a mask")):
+        shapes.append((f"multimesh {what} F={f}", None, proc.indptr,
+                       proc.padded_num_edges, proc.num_receivers, f))
+    for f in (64, 33):
+        shapes.append((f"product GCN aggregation F={f}", None, prod.indptr,
+                       prod.padded_num_edges, prod.num_receivers, f))
+    for f, what in ((256, "GAT xW"), (4, "GAT a_src")):
+        shapes.append((f"multimesh {what} gather adjoint F={f}",
+                       proc.s_perm, proc.s_indptr, proc.padded_num_edges,
+                       proc.num_nodes, f))
+    for f in (64, 33):
+        shapes.append((f"product GCN gather adjoint F={f}", prod.s_perm,
+                       prod.s_indptr, prod.padded_num_edges, prod.num_nodes,
+                       f))
+    return shapes
+
+
+def _new_shape_msgs(gen, perm, rows, f, dtype):
+    """Messages at one new shape on the card: receiver-sorted rows under a
+    pruned mask (half the edges), or permuted cotangent rows."""
+    if perm is not None:
+        return _sender_msgs(gen, perm, rows, f, dtype)
+    msgs = torch.randn(rows, f, generator=gen)
+    keep = torch.rand(rows, generator=gen) < 0.5
+    return (msgs * keep[:, None]).to("cuda", dtype)
+
+
+def phase_new_shape_cases(graphs):
+    """1c: the segment sum against its plain version at the shapes the
+    new layer families add, fp32 and bf16, and two launches bitwise
+    equal."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    _log("phase 1c: segment_sum at the new families' shapes on the 64x32 "
+         "graphs (multimesh E_pad 65,280, product E_pad 32,768 over 10,240 "
+         "nodes), fp32 and bf16")
+    gen = torch.Generator().manual_seed(9)
+    for label, perm, indptr, rows, r, f in _new_shapes(graphs):
+        ip = indptr.to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            msgs = _new_shape_msgs(gen, perm, rows, f, dtype)
+            _check_kernel(label, msgs, ip, r)
+            first = cuda_segment.segment_sum(msgs, ip, r)
+            if not torch.equal(first, cuda_segment.segment_sum(msgs, ip, r)):
+                raise AssertionError(f"{label} {dtype}: two launches differ")
+
+
+def phase_kernel_new_shapes(graphs):
+    """3b: the segment sum timed at the new shapes in fp32 (the BASELINE
+    configurations train and serve in fp32)."""
+    _log("phase 3b: segment_sum times at the new families' shapes, fp32")
+    gen = torch.Generator().manual_seed(10)
+    out = {}
+    for label, perm, indptr, rows, r, f in _new_shapes(graphs):
+        msgs = _new_shape_msgs(gen, perm, rows, f, torch.float32)
+        out[label] = _time_segment_sum(label, msgs, indptr.to("cuda"), r)
+    return out
+
+
+def _serve_launches(model, graphs) -> int:
+    """Segment sums of one 64x32 forward: every graph layer on a graph
+    without constant in-degree sums once a GCNConv, twice a GAT conv (the
+    softmax denominators and the aggregation), once a SimpleConv."""
+    from graphcast_lite_torch.config import GraphLayerType as L
+
+    n = 0
+    for block, graph in ((model.product_model, graphs.product),
+                         (model.encoder, graphs.encoding),
+                         (model.processor, graphs.processing),
+                         (model.decoder, graphs.decoding)):
+        if block is None or graph.const_in_degree > 0:
+            continue
+        gl = block.graph_layer
+        n += {L.ConvGCN: getattr(gl, "num_convs", 0),
+              L.GATConv: 2 * getattr(gl, "num_convs", 0),
+              L.SparseGATConv: 2, L.SimpleConv: 1}[gl.layer_type]
+    return n
+
+
+def _far_mask_check(label, card_mask, cpu_mask, alphas, thr):
+    """SparseGAT masks of the card and the CPU equal on the edges whose
+    alpha (the CPU's, at each pruning call) lies farther than ALPHA_MARGIN
+    from the threshold; returns (live edges, near edges)."""
+    far = torch.ones(cpu_mask.numel(), dtype=torch.bool)
+    for alpha in alphas:
+        far &= (alpha - thr).abs() > ALPHA_MARGIN
+    card_mask, cpu_mask = card_mask.float().cpu(), cpu_mask.float().cpu()
+    if not torch.equal(card_mask[far], cpu_mask[far]):
+        raise AssertionError(f"{label}: pruned masks differ card vs CPU")
+    return int(cpu_mask.sum()), int((~far).sum())
+
+
+def phase_baseline_numerics(gs, graphs):
+    """4b: the four WB2 64x32 BASELINE configurations at their published
+    widths, seeded weights, fp32 (TF32 off): one request (AR 1) and one
+    train step on the card against the CPU, exact segment-sum launches of
+    the request, and SparseGAT's pruned mask at its threshold."""
+    import copy
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.training.loss import lat_weights_from_axis
+    from graphcast_lite_torch.training.rollout import RolloutSpec, \
+        rollout_predict
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    _log("phase 4b: WB2 64x32 BASELINE configurations (GCN, GAT 4 heads, "
+         "SparseGAT, product graph), fp32, card vs CPU: one request "
+         f"({E2E_TOL}) and one train step (loss rtol {TRAIN_LOSS_RTOL}, each "
+         f"gradient {TRAIN_GRAD_RTOL} x its largest + 1e-6); SparseGAT "
+         f"pruned at {SPARSE_THR}, masks equal beyond {ALPHA_MARGIN} of it")
+    g, m = gs.num_grid_nodes, gs.num_mesh_nodes
+    lw = lat_weights_from_axis(32, 64)
+    out = {}
+    for name, (fn, kw) in BASELINE_CONFIGS.items():
+        cfg = getattr(presets, fn)(**kw)
+        c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+        model = WeatherModel(cfg.pipeline, cfg.data, g, m,
+                             generator=torch.Generator().manual_seed(0))
+        sparse = name == "sparse_gat"
+        rng = np.random.RandomState(0)
+        x = rng.randn(1, g, obs * c).astype(np.float32)
+        y = rng.randn(1, g, c).astype(np.float32)
+        spec = RolloutSpec(obs_window=obs, num_features=c, remat=True)
+        res = {}
+        for device in ("cuda", "cpu"):
+            mdl = copy.deepcopy(model).to(device)
+            gr = graphs.to(device)
+            mask0 = gr.processing.edge_mask.clone() if sparse else None
+            alphas = []
+            if sparse:
+                mdl.processor.graph_layer.conv_0.core.register_forward_hook(
+                    lambda mod, a, o: alphas.append(o[1].detach().cpu()))
+            masks = []
+
+            def model_fn(inp, mask, t, p, mdl=mdl, gr=gr, masks=masks):
+                o, nm = mdl(inp, gr, mask, SPARSE_THR, sparse)
+                masks.append(nm)
+                return o, nm
+
+            window = torch.from_numpy(x[0].reshape(g, obs, c)).to(device)
+            _reset_launches()
+            with torch.inference_mode():
+                pred = rollout_predict(model_fn, window, 1, spec, mask0)
+            counts = _launches()
+            req_alphas = list(alphas)
+            step = make_train_step(mdl, gr, spec, cfg, steps=1,
+                                   device=device, lat_weights=lw)
+            _reset_launches()
+            loss, mask = step.run(x, y, mask0, SPARSE_THR, sparse)
+            train_counts = _launches()
+            res[device] = dict(pred=pred.cpu(), req_mask=masks[0],
+                               req_alphas=req_alphas, loss=loss.item(),
+                               grads=_grads(mdl), mask=mask,
+                               train_alphas=alphas[len(req_alphas):],
+                               counts=counts, train_counts=train_counts,
+                               expected=_serve_launches(mdl, gr))
+        card, cpu = res["cuda"], res["cpu"]
+        if card["pred"].shape != (g, 1, c) \
+                or not torch.isfinite(card["pred"]).all():
+            raise AssertionError(f"{name}: card output not finite")
+        err = (card["pred"] - cpu["pred"]).abs().max().item()
+        torch.testing.assert_close(card["pred"], cpu["pred"], **E2E_TOL)
+        want = {"segment_sum": card["expected"], "edge_mlp": 0,
+                "edge_step": 0}
+        if card["counts"] != want:
+            raise AssertionError(f"{name}: request launches "
+                                 f"{card['counts']}, expected {want}")
+        if card["train_counts"]["segment_sum"] <= card["expected"]:
+            raise AssertionError(f"{name}: train step launches "
+                                 f"{card['train_counts']}")
+        loss, loss_cpu = card["loss"], cpu["loss"]
+        if not (np.isfinite(loss) and abs(loss - loss_cpu)
+                <= TRAIN_LOSS_RTOL * abs(loss_cpu)):
+            raise AssertionError(f"{name}: train loss card {loss} cpu "
+                                 f"{loss_cpu}")
+        worst = (0.0, "")
+        for n, ref in cpu["grads"].items():
+            got = card["grads"][n]
+            e = (got - ref).abs().max().item()
+            tol = TRAIN_GRAD_RTOL * ref.abs().max().item() + 1e-6
+            if not (torch.isfinite(got).all() and e <= tol):
+                raise AssertionError(f"{name} {n}: card gradient off the "
+                                     f"CPU's by {e:.3e} > {tol:.3e}")
+            worst = max(worst, (e / tol, n))
+        row = {"max_abs_err_request": err, "loss_card": loss,
+               "loss_cpu": loss_cpu, "worst_grad_err_of_tol": worst[0],
+               "worst_grad_leaf": worst[1],
+               "launches_per_request": card["counts"]["segment_sum"],
+               "launches_per_train_step":
+                   card["train_counts"]["segment_sum"]}
+        if sparse:
+            total = int(graphs.processing.edge_mask.sum())
+            live_req, near_req = _far_mask_check(
+                f"{name} request", card["req_mask"], cpu["req_mask"],
+                cpu["req_alphas"], SPARSE_THR)
+            live, near = _far_mask_check(
+                f"{name} train step", card["mask"], cpu["mask"],
+                cpu["train_alphas"], SPARSE_THR)
+            if not 0 < live_req < total:
+                raise AssertionError(f"{name}: the threshold cut {total} "
+                                     f"edges to {live_req}")
+            row.update(live_edges=total, live_after_request=live_req,
+                       near_threshold_request=near_req,
+                       live_after_train_step=live,
+                       near_threshold_train_step=near)
+        out[name] = row
+        _log(f"  {name}: request max|card - cpu| {err:.3e}; loss card "
+             f"{loss:.7f} cpu {loss_cpu:.7f}; {len(cpu['grads'])} gradients, "
+             f"largest error {worst[0]:.3f} of its tolerance ({worst[1]}); "
+             f"segment_sum launches {row['launches_per_request']} a request "
+             f"(expected {card['expected']}), "
+             f"{row['launches_per_train_step']} a train step"
+             + (f"; live edges {row['live_edges']} -> "
+                f"{row['live_after_request']} (request), "
+                f"{row['live_after_train_step']} (train step); "
+                f"{row['near_threshold_request']} edges within "
+                f"{ALPHA_MARGIN} of the threshold" if sparse else ""))
+    return out
+
+
+def phase_nonlazy_serve(ctx):
+    """2c: the flagship bf16 AR-4 serve with the plain InteractionNet step
+    (``GCLT_LAZY_EDGE=0``) on the composed and the mega route: exact
+    launches, times, peak memory, bf16 against the fp32 plain rollout and
+    the fp32 plain rollout against the fp32 lazy one."""
+    from graphcast_lite_torch.inference.predict import evaluate_model
+
+    _log("phase 2c: flagship 512x256 AR-4 bf16 serve, plain InteractionNet "
+         "step (GCLT_LAZY_EDGE=0), one request a route")
+    g = ctx["gs"].num_grid_nodes
+    with _route(NONLAZY_ROUTES["composed"][0]):
+        p32 = _rollout(ctx, torch.float32)[0]().float()
+    lazy_rel = _rel_rms(p32, ctx["p32"], "plain composed fp32",
+                        ref="the fp32 lazy reg-block rollout",
+                        tol=NONLAZY_FP32_RTOL, what="fp32 plain")
+    out = {"fp32_plain_vs_lazy_rel_rms": lazy_rel}
+    for route, (env, expected, step_route) in NONLAZY_ROUTES.items():
+        with _route(env):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            report = evaluate_model(ctx["model"], ctx["graphs"],
+                                    ctx["test_ds"], ctx["meta"],
+                                    max_samples=1, **ctx["kw"])
+            torch.cuda.synchronize()
+            counts = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            if report.num_samples != 1 or not np.isfinite(report.rmse):
+                raise AssertionError(f"plain {route}: report "
+                                     f"{report.num_samples} {report.rmse}")
+            if counts != expected:
+                raise AssertionError(f"plain {route}: launches per rollout "
+                                     f"{counts}, expected {expected}")
+            rollout, smodel = _rollout(ctx, torch.bfloat16)
+            rollout_ms = _time_ms(rollout, iters=5, warmup=1)
+            steps = smodel.processor.graph_layer.inet.steps
+            if {s.route for s in steps} != {step_route}:
+                raise AssertionError(f"plain {route}: steps took "
+                                     f"{ {s.route for s in steps} }")
+            stages = _stage_ms(smodel, rollout)
+            busy_ms, wall_ms, top = _profile(rollout, top_n=3)
+            rel = _rel_rms(rollout().float(), p32, f"plain {route}",
+                           ref="the fp32 plain composed rollout")
+        out[route] = {
+            "switches": env, "launches_per_rollout": counts,
+            "rollout_ms": rollout_ms,
+            "grid_points_per_s": g * AR_STEPS / (rollout_ms / 1e3),
+            "peak_mem_bytes": peak, "stage_ms": stages,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "bf16_vs_fp32_plain_rel_rms": rel, "rmse": report.rmse,
+        }
+        _log(f"  plain {route} {env}: launches per rollout {counts}; RMSE "
+             f"{report.rmse:.6f} (finite); rollout {rollout_ms:.2f} ms, "
+             f"{out[route]['grid_points_per_s']:.4g} grid-points/s, peak "
+             f"allocated {peak / 2**30:.3f} GiB; by stage "
+             + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+        _log(f"    torch.profiler, one rollout: device busy {busy_ms:.2f} ms "
+             f"of {wall_ms:.2f} ms wall (idle share "
+             f"{out[route]['device_idle_share']:.3f}); top kernels: "
+             + "; ".join(f"{name[:40]} {n} calls {ms:.2f} ms"
+                         for name, n, ms in top))
+    return out
+
+
+def _user_experiment(workdir, name, cfg, data_dir):
+    """An experiment directory holding ``cfg`` (on ``data_dir``)."""
+    from graphcast_lite_torch.config import to_dict
+
+    exp = os.path.join(workdir, name)
+    os.makedirs(exp, exist_ok=True)
+    cfg.data_dir = data_dir
+    with open(os.path.join(exp, "config.json"), "w") as f:
+        json.dump(to_dict(cfg), f, indent=1)
+    return exp
+
+
+def _train_cli(exp, *extra):
+    """``cli.train`` on the card: (train losses, segment sums launched)."""
+    from graphcast_lite_torch.cli import train as train_cli
+
+    _reset_launches()
+    train_cli.main([exp, "--max-steps-per-epoch", str(USER_STEPS)]
+                   + list(extra))
+    launched = _launches()["segment_sum"]
+    with open(os.path.join(exp, "results.json")) as f:
+        losses = json.load(f)["train_losses"]
+    if launched == 0 or not all(np.isfinite(losses)):
+        raise AssertionError(f"{exp}: train launched {launched} segment "
+                             f"sums, losses {losses}")
+    return losses, launched
+
+
+def _predict_cli(exp):
+    """``cli.predict`` on the card (AR 1): the report."""
+    from graphcast_lite_torch.cli import predict as predict_cli
+
+    path = os.path.join(exp, "report.json")
+    _reset_launches()
+    predict_cli.main([exp, "--ar-steps", "1", "--report-json", path])
+    with open(path) as f:
+        rep = json.load(f)
+    if _launches()["segment_sum"] == 0 or not np.isfinite(rep["rmse"]):
+        raise AssertionError(f"{exp}: predict {rep['rmse']}")
+    return rep
+
+
+def phase_user_loop(workdir, proc_edges):
+    """6c: SparseGAT and the product graph through the CLIs on the card,
+    on a seeded synthetic 64x32 set with 33 features: SparseGAT trains
+    SPARSE_EPOCHS epochs from the multimesh's ``proc_edges`` live edges
+    (the schedule prunes from epoch index 6; the live edges after each
+    epoch), and a resume from its checkpoint after epoch index
+    SPARSE_RESUME_AFTER ends on the same mask; the product graph trains
+    PRODUCT_EPOCHS epochs; then ``cli.predict`` on each."""
+    import shutil
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+    from graphcast_lite_torch.training import checkpoint as ckpt_lib
+    from graphcast_lite_torch.training.trainer import \
+        attention_threshold_schedule
+
+    _log(f"phase 6c: SparseGAT ({SPARSE_EPOCHS} epochs, resume after epoch "
+         f"{SPARSE_RESUME_AFTER + 1}) and product graph ({PRODUCT_EPOCHS} "
+         f"epochs) through cli.train --max-steps-per-epoch {USER_STEPS}, "
+         "then cli.predict, on a synthetic 64x32 set of 33 features")
+    t0 = time.perf_counter()
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "wb2_64x32_data"), n_time=40, n_lon=64,
+        n_lat=32, n_feat=33, seed=3)
+    cfg = presets.sparse_gat_64x32()
+    cfg.num_epochs = SPARSE_EPOCHS
+    exp = _user_experiment(workdir, "sparse_gat", cfg, data_dir)
+    live, kept = [], os.path.join(workdir, "sparse_gat_mid")
+    save = ckpt_lib.save_checkpoint
+
+    def recording_save(ckpt_dir, model, optimizer, meta, edge_mask=None):
+        save(ckpt_dir, model, optimizer, meta, edge_mask=edge_mask)
+        if os.path.dirname(ckpt_dir) == exp:
+            live.append(int(edge_mask.sum()))
+            if meta["epoch"] == SPARSE_RESUME_AFTER:
+                shutil.copytree(exp, kept)
+
+    ckpt_lib.save_checkpoint = recording_save
+    try:
+        losses, launched = _train_cli(exp)
+    finally:
+        ckpt_lib.save_checkpoint = save
+    thr = [attention_threshold_schedule(e) for e in range(SPARSE_EPOCHS)]
+    full = torch.load(os.path.join(exp, "checkpoint", "state.pt"),
+                      weights_only=True)["edge_mask"]
+    first = min(e for e, t in enumerate(thr) if t > 0)
+    if (len(live) != SPARSE_EPOCHS
+            or live[:first] != [proc_edges] * first
+            or any(b > a for a, b in zip(live, live[1:]))
+            or not live[-1] < proc_edges or int(full.sum()) != live[-1]):
+        raise AssertionError(f"SparseGAT live edges by epoch {live} "
+                             f"(from {proc_edges})")
+    _log(f"  SparseGAT: live edges after each epoch {live} (of "
+         f"{proc_edges}; thresholds " + ", ".join(f"{t:.4f}" for t in thr)
+         + "); losses " + ", ".join(f"{v:.4f}" for v in losses)
+         + f"; {launched} segment sums")
+    resumed_losses, _ = _train_cli(kept, "--resume")
+    again = torch.load(os.path.join(kept, "checkpoint", "state.pt"),
+                       weights_only=True)["edge_mask"]
+    if not torch.equal(again, full):
+        raise AssertionError(f"SparseGAT resume: final mask "
+                             f"{int(again.sum())} live edges, the whole "
+                             f"run's {int(full.sum())}")
+    loss_diff = max(abs(a - b) for a, b in zip(resumed_losses, losses))
+    _log(f"  SparseGAT resumed after epoch {SPARSE_RESUME_AFTER + 1}: the "
+         f"same final mask; losses max |diff| {loss_diff:.3e}")
+    sparse_rep = _predict_cli(exp)
+    pcfg = presets.product_graph_64x32()
+    pcfg.num_epochs = PRODUCT_EPOCHS
+    pexp = _user_experiment(workdir, "product_graph", pcfg, data_dir)
+    plosses, plaunched = _train_cli(pexp)
+    product_rep = _predict_cli(pexp)
+    wall_s = time.perf_counter() - t0
+    _log(f"  product graph: losses " + ", ".join(f"{v:.4f}" for v in plosses)
+         + f"; {plaunched} segment sums; predict skill "
+         f"{product_rep['skill'] * 100:.2f}% (SparseGAT "
+         f"{sparse_rep['skill'] * 100:.2f}%); phase wall {wall_s:.1f} s")
+    return {"sparse_gat": {"live_edges_by_epoch": live,
+                           "live_edges_start": proc_edges, "thresholds": thr,
+                           "train_losses": losses, "launches": launched,
+                           "resume_same_mask": True,
+                           "resume_loss_max_abs_diff": loss_diff,
+                           "predict_skill": sparse_rep["skill"],
+                           "predict_rmse": sparse_rep["rmse"]},
+            "product_graph": {"train_losses": plosses, "launches": plaunched,
+                              "predict_skill": product_rep["skill"],
+                              "predict_rmse": product_rep["rmse"]},
+            "wall_s": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1784,22 +2297,29 @@ def main() -> int:
          + ", ".join(os.path.relpath(p) for p in libs))
 
     phase_kernel_cases()
+    gs64, graphs64 = _baseline_graphs()
+    phase_new_shape_cases(graphs64)
     phase_fused_cases()
     with tempfile.TemporaryDirectory() as workdir:
         ctx, serve = phase_serve(workdir)
         serve["coo_routes"] = phase_coo_serve(ctx)
+        serve["plain_routes"] = phase_nonlazy_serve(ctx)
     n_feat = ctx["spec"].num_features
     seg_enc, seg_enc32, seg_proc, seg_send, mlp, step = \
         phase_kernel_flagship(
         ctx["gs"], n_feat)
+    seg_new = phase_kernel_new_shapes(graphs64)
     phase_numerics()
+    baseline = phase_baseline_numerics(gs64, graphs64)
     phase_sender_scatter_cases(ctx["gs"], n_feat)
     train = phase_train_numerics()
     train = dict(phase_train(ctx), card_vs_cpu_64x32=train)
     with tempfile.TemporaryDirectory() as workdir:
-        fit = {"flagship": phase_fit(workdir), "demo": phase_demo(workdir)}
+        fit = {"flagship": phase_fit(workdir), "demo": phase_demo(workdir),
+               "user_loop": phase_user_loop(
+                   workdir, graphs64.processing.num_edges)}
 
-    coo = serve["coo_routes"]
+    coo, plain = serve["coo_routes"], serve["plain_routes"]
     # Launches counted in a train step at each sender-sorted CSR and shape.
     by_csr = train["segment_sum_launches_by_csr"]
     if set(seg_send) - set(by_csr):
@@ -1821,7 +2341,17 @@ def main() -> int:
                        "evaluation_launches"]),
                launches_in_fit=fit["flagship"]["launches"]["segment_sum"],
                launches_in_demo_train=fit["demo"]["launches"][
-                   "segment_sum"])
+                   "segment_sum"],
+               launches_per_rollout_plain_composed=plain["composed"][
+                   "launches_per_rollout"]["segment_sum"],
+               at_new_shapes=seg_new,
+               at_64x32_configs={
+                   name: {k: row[k] for k in ("launches_per_request",
+                                              "launches_per_train_step")}
+                   for name, row in baseline.items()},
+               launches_in_user_loop={
+                   name: fit["user_loop"][name]["launches"]
+                   for name in ("sparse_gat", "product_graph")})
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -1829,8 +2359,13 @@ def main() -> int:
             ("edge_step", "edge_step.cu", "pallas_edge_step.py:365", step)):
         n = coo["mega" if name == "edge_mlp" else "edge_step"][
             "launches_per_rollout"][name]
+        extra = {}
+        if name == "edge_mlp":
+            # The plain step's mega route: _MegaEdgeMLP, its second caller.
+            extra["launches_per_rollout_plain_mega"] = plain["mega"][
+                "launches_per_rollout"][name]
         kernels.append((name, src, tpu, dict(
-            k, launches=n, launches_per_rollout=n,
+            k, **extra, launches=n, launches_per_rollout=n,
             launches_per_train_step=train["launches_per_step"][name],
             launches_in_fit=fit["flagship"]["launches"][name],
             launches_in_demo_train=fit["demo"]["launches"][name],
@@ -1838,6 +2373,7 @@ def main() -> int:
                          "function")))
     _log(json.dumps({"serve": serve}))
     _log(json.dumps({"train": train}))
+    _log(json.dumps({"baseline_64x32": baseline}))
     _log(json.dumps({"fit": fit}))
     _log(json.dumps({"kernels": [dict({
         "name": name,

@@ -114,7 +114,10 @@ def build_weather_model(
         flat_grid=meta.flat_grid,
         region_bounds=region_bounds,
     )
-    graphs = ModelGraphs.from_graph_set(gs).to(dev)
+    graphs = ModelGraphs.from_graph_set(
+        gs, product_config=cfg.pipeline.product_graph,
+        obs_window=cfg.data.obs_window_used,
+    ).to(dev)
     model = WeatherModel(
         pipeline=cfg.pipeline,
         data=cfg.data,

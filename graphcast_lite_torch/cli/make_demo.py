@@ -3,8 +3,7 @@
 A synthetic advecting-wave dataset in the chunked on-disk format, next to
 a config.json in the JAX package's schema (the same config and the same
 data files as ``graphcast_lite_tpu.cli.make_demo`` writes), ready for
-``cli.train`` / ``cli.predict``.  Every ``--processor`` is written;
-``cli.train`` raises for the families not ported yet (ROADMAP A8).
+``cli.train`` / ``cli.predict``, for every ``--processor``.
 
 Usage: python -m graphcast_lite_torch.cli.make_demo <dir> [--size small|medium]
 """

@@ -7,7 +7,9 @@ region metrics and raw predictions export.
 The checkpoint is a ``.pt`` state dict (``cli.train`` writes
 ``best_model.pt``) or the JAX package's ``.msgpack`` params, read without
 flax; one whose structure differs from the config's model is restored
-non-strictly (the matching entries; missing / mismatched reported).
+non-strictly (the matching entries; missing / mismatched reported).  A
+SparseGAT model is served on the processing graph's own edge mask (the
+params file holds no pruned mask), as the JAX package's CLI serves it.
 
 Examples:
   predict <exp_dir> --data-dir D --ar-steps 4 --per-channel

@@ -77,12 +77,15 @@
 //    is unrolled by 4 to keep four row loads in flight per lane.
 //  * F that is not a multiple of VEC, or a misaligned pointer, takes the
 //    scalar path: each lane still owns VEC consecutive features.
-//  * Narrow rows on that path (F <= 16 x VEC, e.g. F = 19) take
-//    segment_sum_narrow_kernel: the row's features need `slots` lanes, so
-//    the warp's lanes form 32 / slots groups, each summing every groups-th
-//    edge of the row, and the first group adds the others' sums in group
-//    order by shuffles (a fixed order: every launch gives the same bits).
-//    With one group, 3 of 32 lanes would walk a row's edges one by one.
+//  * Narrow rows on that path (F <= 16 x VEC, e.g. F = 19), and aligned
+//    rows of at most 4 x VEC (fp32 F <= 16, bf16 F <= 32: the edge
+//    softmax's [E, H] denominators, the [E, 1] mask sums of degrees under a
+//    pruned mask), take segment_sum_narrow_kernel: the row's features need
+//    `slots` lanes, so the warp's lanes form 32 / slots groups, each
+//    summing every groups-th edge of the row, and the first group adds the
+//    others' sums in group order by shuffles (a fixed order: every launch
+//    gives the same bits).  With one group, 3 of 32 lanes would walk a
+//    row's edges one by one.
 //  * At the encoder shape its warps of the few high-degree rows run long,
 //    and the 16,384 blocks of the grid band only write zeros.
 //
@@ -300,7 +303,7 @@ cudaError_t launch_warp(const void* msgs, const int* indptr, void* out,
       reinterpret_cast<unsigned long long>(out) % 16 == 0;
   const T* m = static_cast<const T*>(msgs);
   T* o = static_cast<T*>(out);
-  if (aligned) {
+  if (aligned && num_features > 4 * vec) {
     segment_sum_kernel<T, true><<<grid, block, 0, stream>>>(
         m, indptr, o, num_receivers, num_features, msgs_batch_stride,
         out_batch_stride);

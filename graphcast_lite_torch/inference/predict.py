@@ -161,6 +161,7 @@ def evaluate_model(
     save_predictions: Optional[str] = None,
     horizon_hours: int = 6,
     direct_steps: int = 1,
+    edge_mask: Optional[torch.Tensor] = None,
     rollouts_per_dispatch: int = 1,
     device: Union[str, torch.device, None] = None,
     dtype: Union[str, torch.dtype] = "fp32",
@@ -170,6 +171,8 @@ def evaluate_model(
     Each sample is one whole-trajectory rollout on ``device`` (default
     ``cuda``; raises without a card unless ``device='cpu'``) with the
     params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``).
+    ``edge_mask`` is SparseGAT's processing-edge mask (default: the
+    graph's own, as the JAX package's ``cli.predict`` serves it).
     ``rollouts_per_dispatch`` is accepted and has no effect yet (see the
     module's docstring)."""
     if assimilator is not None:
@@ -179,6 +182,8 @@ def evaluate_model(
     dev = resolve_device(device)
     fdt = resolve_dtype(dtype)
     model, graphs = serving_copy(model, graphs, dev, fdt)
+    if edge_mask is not None:
+        edge_mask = edge_mask.to(dev, fdt)
 
     c = dataset.n_feat
     obs = dataset.obs_window
@@ -195,8 +200,7 @@ def evaluate_model(
     exclude = sorted(set(static_channels) | set(forcing_channels))
 
     def model_fn(inp, m, t, p):
-        out, _ = model(inp, graphs, m)
-        return out, None
+        return model(inp, graphs, m)
 
     sm_pred = StreamingMetrics(c, exclude)
     sm_base = StreamingMetrics(c, exclude)
@@ -228,7 +232,7 @@ def evaluate_model(
         window = torch.from_numpy(x.reshape(g, obs, c)).to(dev, fdt)
         with torch.inference_mode():
             out = rollout_predict(
-                model_fn, window, steps, spec,
+                model_fn, window, steps, spec, edge_mask,
                 forcing=torch.from_numpy(targets).to(dev, fdt),
             )
             out = out.float().cpu().numpy()               # [G, steps, C]

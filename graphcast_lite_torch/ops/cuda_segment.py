@@ -39,8 +39,10 @@ by shape (``gclt_segment_sum_design``):
   device and stream.
 * ``"warp"`` (every other shape: F = 19, bf16 F = 64, fp32 F = 512,
   misaligned views): one warp per receiver row, the design of the first
-  port; on rows narrower than 16 lanes' worth (F = 19), the warp's lanes
-  form groups that sum every groups-th edge, added in group order.
+  port; on rows narrower than 16 lanes' worth (F = 19) and on aligned rows
+  of at most 4 lanes' worth (fp32 F = 1 or 4: degrees under a pruned mask,
+  the edge softmax's denominators), the warp's lanes form groups that sum
+  every groups-th edge, added in group order.
 
 ``design=`` forces one of the two (raising where ``"balanced"`` cannot
 run); only measurements use it.  ``launches`` counts wrapper calls that

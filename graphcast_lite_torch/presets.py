@@ -1,7 +1,8 @@
-"""Experiment presets of the flagship InteractionNet model (the counterpart
-of ``graphcast_lite_tpu.presets`` for the configurations this package
-runs).  Each returns an ExperimentConfig; grids/graphs are built
-separately with ``build_graph_set``.
+"""Experiment presets (the counterpart of ``graphcast_lite_tpu.presets``
+for the configurations this package runs): the four WB2 64x32 BASELINE
+families (GCN, GAT, SparseGAT, product graph) and the flagship
+InteractionNet model.  Each returns an ExperimentConfig; grids/graphs are
+built separately with ``build_graph_set``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 from .config import (
     DataConfig,
     ExperimentConfig,
+    GATProps,
     GraphBlock,
     GraphBuildingConfig,
     GraphLayerType,
@@ -19,11 +21,17 @@ from .config import (
     MLPBlock,
     ModelConfig,
     PipelineConfig,
+    ProductGraphConfig,
+    ProductGraphType,
 )
 
 __all__ = [
     "wb2_64x32_grid",
     "wb2_512x256_grid",
+    "baseline_gcn_64x32",
+    "gat_64x32",
+    "sparse_gat_64x32",
+    "product_graph_64x32",
     "interaction_net_512x256",
     "interaction_net_64x32",
 ]
@@ -57,6 +65,85 @@ def _data_cfg(n_feat, obs, pred, name="wb2"):
         dataset_name=name, num_features_used=n_feat, obs_window_used=obs,
         pred_window_used=pred, want_feats_flattened=True,
     )
+
+
+def baseline_gcn_64x32(n_feat=33, obs=2, pred=1,
+                       hidden=64) -> ExperimentConfig:
+    """Baseline encode-process-decode GCN (WB2 64x32, 33 features, P=1)."""
+    return ExperimentConfig(
+        learning_rate=1e-4,
+        graph=_graph_cfg([3, 5]),
+        pipeline=PipelineConfig(
+            encoder=ModelConfig(
+                mlp=MLPBlock(mlp_hidden_dims=[2 * hidden], output_dim=hidden,
+                             use_layer_norm=True, layer_norm_mode="node"),
+                gcn=GraphBlock(layer_type=GraphLayerType.ConvGCN,
+                               hidden_dims=[hidden], output_dim=hidden,
+                               use_layer_norm=False),
+            ),
+            processor=ModelConfig(
+                gcn=GraphBlock(layer_type=GraphLayerType.ConvGCN,
+                               hidden_dims=[hidden, hidden],
+                               output_dim=hidden, use_layer_norm=False),
+            ),
+            decoder=ModelConfig(
+                mlp=MLPBlock(mlp_hidden_dims=[2 * hidden], output_dim=hidden,
+                             use_layer_norm=False),
+                gcn=GraphBlock(layer_type=GraphLayerType.ConvGCN,
+                               hidden_dims=[hidden], output_dim=n_feat,
+                               use_layer_norm=False),
+            ),
+        ),
+        data=_data_cfg(n_feat, obs, pred),
+        max_ar_steps=pred,
+    )
+
+
+def gat_64x32(n_feat=33, obs=2, pred=1, hidden=64,
+              heads=1) -> ExperimentConfig:
+    """GATConv attention processor (gcn_vs_gat, WB2 64x32);
+    ``experiments/wb2_64x32_gat`` runs it at 4 heads."""
+    cfg = baseline_gcn_64x32(n_feat, obs, pred, hidden)
+    cfg.pipeline.processor = ModelConfig(
+        gcn=GraphBlock(
+            layer_type=GraphLayerType.GATConv,
+            hidden_dims=[hidden], output_dim=hidden, use_layer_norm=False,
+            gat_props=GATProps(num_heads=heads, sparsity_thresholds=[]),
+        )
+    )
+    return cfg
+
+
+def sparse_gat_64x32(n_feat=33, obs=2, pred=1, hidden=64,
+                     heads=1) -> ExperimentConfig:
+    """SparseGAT processor with scheduled edge pruning (one head, as the
+    JAX package's preset, whatever ``heads``)."""
+    cfg = baseline_gcn_64x32(n_feat, obs, pred, hidden)
+    cfg.pipeline.processor = ModelConfig(
+        gcn=GraphBlock(
+            layer_type=GraphLayerType.SparseGATConv,
+            output_dim=hidden, use_layer_norm=False,
+            gat_props=GATProps(num_heads=1, sparsity_thresholds=[0.1356]),
+        )
+    )
+    return cfg
+
+
+def product_graph_64x32(n_feat=33, obs=5, pred=1, hidden=64,
+                        num_k=4) -> ExperimentConfig:
+    """Product-graph temporal GCN (O=5 observation windows)."""
+    cfg = baseline_gcn_64x32(n_feat, obs, pred, hidden)
+    cfg.pipeline.product_graph = ProductGraphConfig(
+        model=ModelConfig(
+            gcn=GraphBlock(layer_type=GraphLayerType.ConvGCN,
+                           hidden_dims=[hidden], output_dim=n_feat,
+                           use_layer_norm=False),
+        ),
+        num_k=num_k,
+        self_loop=False,
+        type=ProductGraphType.KRONECKER,
+    )
+    return cfg
 
 
 def _interaction_pipeline(n_feat, hidden, mp_steps):

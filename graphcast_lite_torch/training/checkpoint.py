@@ -3,9 +3,9 @@
 
 A checkpoint is a directory:
 
-  <dir>/state.pt     the model's state dict and the optimizer's state
-                     dict, one ``torch.save`` (the SparseGAT edge mask joins
-                     them with SparseGAT, ROADMAP A8)
+  <dir>/state.pt     the model's state dict, the optimizer's state dict
+                     and SparseGAT's processing-edge mask (None for the
+                     other families), one ``torch.save``
   <dir>/meta.json    epoch, ar_steps, best_val_loss, patience_counter and
                      the loss histories: the curriculum position (the same
                      keys as the JAX package's)
@@ -15,8 +15,10 @@ The best model is saved on its own as ``best_model.pt`` (params only).
 The JAX package's files are read too, without flax or msgpack
 (``utils.flax_msgpack``): ``load_flax_params`` reads its
 ``best_model.msgpack`` into a state dict, and ``load_flax_checkpoint`` its
-``<dir>/state.msgpack`` + ``meta.json`` into a model and an optimizer, so a
-JAX run can be served or resumed here.  ``partial_restore`` copies only
+``<dir>/state.msgpack`` + ``meta.json`` into a model, an optimizer and an
+edge mask, so a JAX run can be served or resumed here.  The loaders copy a
+saved edge mask into the caller's (``edge_mask=``, the ``Trainer``'s
+``TrainState.edge_mask``) and refuse one that has no place there.  ``partial_restore`` copies only
 the entries whose names and shapes match (the analogue of
 ``load_state_dict(strict=False)``) and reports the rest.
 """
@@ -25,8 +27,9 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -61,10 +64,13 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
 
 def save_checkpoint(ckpt_dir: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    meta: Dict[str, Any]) -> None:
+                    meta: Dict[str, Any],
+                    edge_mask: Optional[torch.Tensor] = None) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict()},
+                "optimizer": optimizer.state_dict(),
+                "edge_mask": (None if edge_mask is None
+                              else edge_mask.detach().cpu())},
                os.path.join(ckpt_dir, STATE_FILE))
     with open(os.path.join(ckpt_dir, META_FILE), "w") as f:
         json.dump(meta, f)
@@ -75,15 +81,33 @@ def _meta(ckpt_dir: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def _restore_mask(saved, edge_mask: Optional[torch.Tensor]) -> None:
+    """Copy a saved edge mask (None where the run had none) into
+    ``edge_mask`` in place; raises where it has no place there."""
+    if saved is None:
+        return
+    saved = torch.as_tensor(np.asarray(saved, np.float32))
+    if edge_mask is None or tuple(edge_mask.shape) != tuple(saved.shape):
+        raise ValueError(
+            f"the checkpoint carries a SparseGAT edge mask of shape "
+            f"{tuple(saved.shape)}, the state "
+            f"{None if edge_mask is None else tuple(edge_mask.shape)}")
+    with torch.no_grad():
+        edge_mask.copy_(saved)
+
+
 def load_checkpoint(ckpt_dir: str, model: nn.Module,
-                    optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """Load ``<dir>/state.pt`` into ``model`` and ``optimizer`` (in place);
-    returns the meta."""
+                    optimizer: torch.optim.Optimizer,
+                    edge_mask: Optional[torch.Tensor] = None
+                    ) -> Dict[str, Any]:
+    """Load ``<dir>/state.pt`` into ``model``, ``optimizer`` and
+    ``edge_mask`` (in place); returns the meta."""
     # Loaded onto the CPU: ``load_state_dict`` moves the moments to their
     # parameters' device and keeps Adam's ``step`` on the CPU, where the
     # non-capturable Adam wants it.
     blob = torch.load(os.path.join(ckpt_dir, STATE_FILE),
                       map_location="cpu", weights_only=True)
+    _restore_mask(blob.get("edge_mask"), edge_mask)
     model.load_state_dict(blob["model"])
     optimizer.load_state_dict(blob["optimizer"])
     return _meta(ckpt_dir)
@@ -96,20 +120,21 @@ def load_flax_params(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_flax_checkpoint(ckpt_dir: str, model: nn.Module,
-                         optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """Load the JAX package's ``<dir>/state.msgpack`` (params, optax state)
-    into ``model`` and ``optimizer`` (built by
+                         optimizer: torch.optim.Optimizer,
+                         edge_mask: Optional[torch.Tensor] = None
+                         ) -> Dict[str, Any]:
+    """Load the JAX package's ``<dir>/state.msgpack`` (params, optax state,
+    edge mask) into ``model``, ``optimizer`` (built by
     ``training.trainer.build_optimizer``: one parameter group, or two when
     the processor has its own learning rate, matching ``optax.adam`` and
-    the JAX package's ``multi_transform``); returns the meta.  A SparseGAT
-    run's checkpoint (an edge mask saved) raises until SparseGAT is
-    ported."""
+    the JAX package's ``multi_transform``) and ``edge_mask`` (a SparseGAT
+    run's; the JAX package saves an empty mapping for none); returns the
+    meta."""
     blob = load_msgpack(os.path.join(ckpt_dir, FLAX_STATE_FILE))
     mask = blob["edge_mask"]
-    if not (mask is None or isinstance(mask, Mapping) and not mask):
-        raise NotImplementedError(
-            "a SparseGAT checkpoint (edge mask) is not ported yet (ROADMAP "
-            "A8: remaining layer families)")
+    if isinstance(mask, Mapping) and not mask:
+        mask = None
+    _restore_mask(mask, edge_mask)
     model.load_state_dict(from_flax_params(blob["params"]))
     groups = optimizer.param_groups
     if len(groups) not in (1, 2):

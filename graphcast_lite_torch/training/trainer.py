@@ -27,6 +27,13 @@ checkpoint``), resume (from this package's checkpoint or the JAX
 package's), and the logs (``training_log.txt``, ``metrics.jsonl``,
 ``results.json``).  A batch is a Python loop over its samples; the JAX
 package vmaps the model over it (the losses agree, the times do not).
+
+SparseGAT: ``TrainState.edge_mask`` carries the processing graph's pruned
+edge mask from step to step and epoch to epoch (it starts as the graph's
+own mask).  The epoch's ``attention_threshold_schedule`` threshold prunes
+on the epoch's first batch only, once it is positive, with the mask of
+the batch's first sample (as the JAX package does); evaluation and the
+checkpoints carry the mask.
 """
 
 from __future__ import annotations
@@ -147,42 +154,58 @@ class TrainStep:
         p = y.shape[-1] // spec.num_features
         return window, y.reshape(b, g, p, spec.num_features)
 
-    def _loss(self, window, targets) -> torch.Tensor:
-        """The fp32 loss of one batch, differentiable in the masters."""
+    def _loss(self, window, targets, edge_mask=None, thr=0.0,
+              prune: bool = False):
+        """(fp32 loss of one batch, differentiable in the masters; the new
+        edge mask in fp32, or None)."""
         model, graphs = self.model, self.graphs
         if self.compute_dtype == torch.float32:
-            def apply(inp):
-                return model(inp, graphs)[0]
+            def apply(*args):
+                return model(*args)
         else:
             params = {n: p.to(self.compute_dtype)
                       for n, p in model.named_parameters()}
+            if edge_mask is not None:
+                edge_mask = edge_mask.to(self.compute_dtype)
 
-            def apply(inp):
-                return functional_call(model, params, (inp, graphs))[0]
+            def apply(*args):
+                return functional_call(model, params, args)
 
-        def model_fn(inp, mask, thr, prune):
-            # The single-sample model over the batch; the graphs are shared.
-            return torch.stack([apply(sample) for sample in inp]), None
+        def model_fn(inp, mask, t, p):
+            # The single-sample model over the batch; the graphs and the
+            # edge mask are shared, the new mask is the first sample's.
+            outs = [apply(sample, graphs, mask, t, p) for sample in inp]
+            return torch.stack([o for o, _ in outs]), outs[0][1]
 
-        loss, _ = rollout_loss(
-            model_fn, window, targets, self.steps, self.spec,
-            lat_weights=self.lat_weights, chan_mask=self.chan_mask,
-            spatial_mask=self.spatial_mask,
+        loss, new_mask = rollout_loss(
+            model_fn, window, targets, self.steps, self.spec, edge_mask,
+            thr, prune, lat_weights=self.lat_weights,
+            chan_mask=self.chan_mask, spatial_mask=self.spatial_mask,
         )
-        return loss.float()
+        if new_mask is not None:
+            new_mask = new_mask.detach().float()
+        return loss.float(), new_mask
 
     def forward_loss(self, x, y) -> torch.Tensor:
         """The step's loss without gradients or an update."""
         with torch.no_grad():
-            return self._loss(*self._batch(x, y))
+            return self._loss(*self._batch(x, y))[0]
 
     def __call__(self, x, y) -> torch.Tensor:
         """One step on the batch (x [B, G, obs·C], y [B, G, P·C]); returns
         the fp32 loss before the update.  The fp32 gradients stay on the
         parameters' ``.grad`` until the next step."""
+        return self.run(x, y)[0]
+
+    def run(self, x, y, edge_mask=None, attention_threshold=0.0,
+            prune: bool = False):
+        """``__call__`` with the SparseGAT edge mask carried in and out:
+        (loss, new mask or None); ``prune`` prunes at
+        ``attention_threshold``."""
         window, targets = self._batch(x, y)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(window, targets)
+        loss, new_mask = self._loss(window, targets, edge_mask,
+                                    attention_threshold, prune)
         loss.backward()
         for p in self.model.parameters():
             if p.grad is None:
@@ -190,7 +213,7 @@ class TrainStep:
         if self.freeze_processor:
             _zero_processor_grads(self.model)
         self.optimizer.step()
-        return loss.detach()
+        return loss.detach(), new_mask
 
 
 def make_train_step(
@@ -238,11 +261,12 @@ def make_train_step(
 class TrainState:
     """What training carries from step to step: the model (fp32 master
     parameters, on the device) and its optimizer (Adam's moments and step),
-    both the ``Trainer``'s own.  The JAX package's SparseGAT edge mask
-    joins them with SparseGAT (ROADMAP A8)."""
+    both the ``Trainer``'s own, and SparseGAT's processing-edge mask
+    ([E_pad] fp32 on the device; None for the other families)."""
 
     model: WeatherModel
     optimizer: torch.optim.Optimizer
+    edge_mask: Optional[torch.Tensor] = None
 
 
 class Trainer:
@@ -268,12 +292,11 @@ class Trainer:
             raise NotImplementedError(
                 "sharded training (mesh= / graph_set=) is not ported yet "
                 "(ROADMAP A12: multi-device)")
-        if (config.pipeline is not None
-                and config.pipeline.processor.gcn.layer_type
-                == GraphLayerType.SparseGATConv):
-            raise NotImplementedError(
-                "SparseGAT pruning is not ported yet (ROADMAP A8: remaining "
-                "layer families)")
+        self.using_sparse_gat = (
+            config.pipeline is not None
+            and config.pipeline.processor.gcn.layer_type
+            == GraphLayerType.SparseGATConv
+        )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.graphs = graphs.to(self.device)
@@ -335,7 +358,11 @@ class Trainer:
         )
         self.model.load_state_dict(fresh.state_dict())
         self.optimizer.state.clear()
-        return TrainState(model=self.model, optimizer=self.optimizer)
+        mask = None
+        if self.using_sparse_gat:
+            mask = self.graphs.processing.edge_mask.detach().clone().float()
+        return TrainState(model=self.model, optimizer=self.optimizer,
+                          edge_mask=mask)
 
     @property
     def _compute_dtype(self) -> torch.dtype:
@@ -349,10 +376,11 @@ class Trainer:
             self._graphs_cast = self.graphs.to(self.device, dtype)
         return self._graphs_cast
 
-    def train_step(self, state: TrainState, x, y, steps: int,
-                   freeze_processor: bool = False):
+    def train_step(self, state: TrainState, x, y, steps: int, thr=0.0,
+                   prune: bool = False, freeze_processor: bool = False):
         """One BPTT + Adam step over ``steps`` AR steps on the batch ->
-        (state, fp32 loss tensor)."""
+        (state, fp32 loss tensor); with ``prune``, SparseGAT prunes the
+        state's edge mask at threshold ``thr``."""
         if state.model is not self.model or state.optimizer \
                 is not self.optimizer:
             raise ValueError("the state is not this Trainer's "
@@ -367,7 +395,8 @@ class Trainer:
                 spatial_mask=self.spatial_mask,
                 freeze_processor=freeze_processor, optimizer=self.optimizer,
             )
-        return state, step(x, y)
+        loss, mask = step.run(x, y, state.edge_mask, thr, prune)
+        return dataclasses.replace(state, edge_mask=mask), loss
 
     def _eval_batch(self, state: TrainState, x, y):
         """(loss, ACC, raw RMSE) of the one-step rollout of a batch, in fp32
@@ -383,8 +412,8 @@ class Trainer:
             # The single-sample model over the batch; the graphs are shared.
             return torch.stack([model(s, graphs, mask)[0] for s in inp]), None
 
-        preds = rollout_predict(model_fn, window, 1, spec, None, 0.0,
-                                forcing=targets)
+        preds = rollout_predict(model_fn, window, 1, spec, state.edge_mask,
+                                0.0, forcing=targets)
         out, tgt = preds[..., 0, :], targets[..., 0, :]
         loss = weighted_mse(out, tgt, *self._eval_masks)
         acc = anomaly_correlation(out, tgt, self._exclude)
@@ -404,15 +433,16 @@ class Trainer:
         return sum(losses) / n, sum(accs) / n, (sum(rmses) / n) ** 0.5
 
     def load_checkpoint(self, state: TrainState) -> Dict[str, Any]:
-        """Restore ``<results_dir>/checkpoint`` into the state's model and
-        optimizer (in place): this package's ``state.pt`` or, failing that,
-        the JAX package's ``state.msgpack``.  Returns the meta."""
+        """Restore ``<results_dir>/checkpoint`` into the state's model,
+        optimizer and edge mask (in place): this package's ``state.pt``
+        or, failing that, the JAX package's ``state.msgpack``.  Returns the
+        meta."""
         ckpt_dir = os.path.join(self.results_dir, "checkpoint")
         if os.path.exists(os.path.join(ckpt_dir, ckpt_lib.STATE_FILE)):
             load = ckpt_lib.load_checkpoint
         else:
             load = ckpt_lib.load_flax_checkpoint
-        return load(ckpt_dir, state.model, state.optimizer)
+        return load(ckpt_dir, state.model, state.optimizer, state.edge_mask)
 
     # ------------------------------------------------------------------ loop
     def fit(
@@ -486,7 +516,6 @@ class Trainer:
                 if print_losses:
                     print(f">>> Curriculum: AR level raised to {ar_steps}")
 
-            # Logged as the JAX package logs it; it prunes only SparseGAT.
             thr = attention_threshold_schedule(epoch)
             freeze = (
                 cfg.freeze_processor_epochs > 0
@@ -503,13 +532,14 @@ class Trainer:
             total, n_batches = 0.0, 0
             for i, (x, y) in enumerate(
                     itertools.islice(loader, max_steps_per_epoch or None)):
+                prune = self.using_sparse_gat and i == 0 and thr > 0
                 p_avail = y.shape[-1] // self.spec.num_features
                 steps = min(ar_steps, p_avail)
+                args = (state, x, y, steps, thr, prune, freeze)
                 if profile_dir and epoch == start_epoch and i == 1:
-                    state, loss = self._profiled_step(
-                        profile_dir, state, x, y, steps, freeze)
+                    state, loss = self._profiled_step(profile_dir, *args)
                 else:
-                    state, loss = self.train_step(state, x, y, steps, freeze)
+                    state, loss = self.train_step(*args)
                 total += float(loss)
                 n_batches += 1
             train_loss = total / max(n_batches, 1)
@@ -557,6 +587,7 @@ class Trainer:
                     "train_losses": train_losses,
                     "val_losses": val_losses,
                 },
+                edge_mask=state.edge_mask,
             )
 
             if patience >= cfg.early_stopping_patience:
@@ -572,8 +603,8 @@ class Trainer:
         self.final_state = state
         return results
 
-    def _profiled_step(self, profile_dir, state, x, y, steps, freeze):
-        """``train_step`` under ``torch.profiler``; the trace goes to
+    def _profiled_step(self, profile_dir, *args):
+        """``train_step(*args)`` under ``torch.profiler``; the trace goes to
         ``<profile_dir>/train_step_trace.json`` (``GCLT_PROFILE_DIR``)."""
         from torch.profiler import ProfilerActivity, profile
 
@@ -582,7 +613,7 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(profile_dir, exist_ok=True)
         with profile(activities=activities) as prof:
-            state, loss = self.train_step(state, x, y, steps, freeze)
+            state, loss = self.train_step(*args)
             float(loss)
         path = os.path.join(profile_dir, "train_step_trace.json")
         prof.export_chrome_trace(path)

@@ -9,7 +9,11 @@ flax names, so a path maps by joining its keys with dots
 exception: the InteractionNet steps run under ``nn.scan`` in JAX, which
 stacks their parameters on axis 0 under ``…/inet/steps/layer/…``; they are
 unstacked here into ``…inet.steps.{i}.…``.  Kernels keep their [in, out]
-layout.
+layout.  This covers every family: GAT's ``conv_i.core.{kernel, att_src,
+att_dst, bias}`` and the stack's one shared ``act``, the product-graph
+pre-encoder's ``product_model.*``, and the InteractionNet steps, lazy or
+plain (they share their names; PReLU adds ``edge_mlp.act`` and
+``edge_encoder_act``), so one tree loads into either processor.
 
 ``from_optax_adam_state(tree, model, processor_lr_factor)`` maps the JAX
 package's Adam state (as ``flax.serialization.to_state_dict`` lays it out)

@@ -151,20 +151,31 @@ def test_load_flax_checkpoint_maps_every_moment(jax_runs):
 
 
 def test_load_flax_checkpoint_refuses_an_edge_mask(jax_runs, tmp_path):
-    """A JAX checkpoint that carries a SparseGAT edge mask raises (ROADMAP
-    A8) instead of dropping the mask."""
+    """A JAX checkpoint's SparseGAT edge mask that has no place in the
+    state (no mask there, or one of another shape) raises instead of being
+    dropped, and leaves the model as it was; one that fits is copied in."""
     run = jax_runs["adam"]
     ckpt = tmp_path / "checkpoint"
     shutil.copytree(run["dir"] / "checkpoint", ckpt)
     with open(ckpt / "state.msgpack", "rb") as f:
         blob = serialization.msgpack_restore(f.read())
-    blob["edge_mask"] = np.ones(8, np.float32)
+    saved = (np.arange(8) % 3 > 0).astype(np.float32)
+    blob["edge_mask"] = saved
     with open(ckpt / "state.msgpack", "wb") as f:
         f.write(serialization.msgpack_serialize(blob))
     model = copy.deepcopy(run["port"][1])
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_ckpt.load_flax_checkpoint(
-            str(ckpt), model, torch.optim.Adam(model.parameters()))
+    before = copy.deepcopy(model.state_dict())
+    for template in (None, torch.ones(9)):
+        with pytest.raises(ValueError, match="edge mask"):
+            port_ckpt.load_flax_checkpoint(
+                str(ckpt), model, torch.optim.Adam(model.parameters()),
+                template)
+        for n, p in model.state_dict().items():
+            assert torch.equal(p, before[n]), n
+    mask = torch.ones(8)
+    port_ckpt.load_flax_checkpoint(
+        str(ckpt), model, torch.optim.Adam(model.parameters()), mask)
+    np.testing.assert_array_equal(mask.numpy(), saved)
 
 @pytest.mark.parametrize("factor", [1.0, 0.1])
 def test_optax_moments_are_torch_adams(tmp_path, factor):
@@ -356,8 +367,8 @@ def test_port_resume_equals_one_fit(tmp_path, monkeypatch):
         if interrupt:
             save = port_ckpt.save_checkpoint
 
-            def save_then_stop(ckpt_dir, *args):
-                save(ckpt_dir, *args)
+            def save_then_stop(ckpt_dir, *args, **kwargs):
+                save(ckpt_dir, *args, **kwargs)
                 if args[-1]["epoch"] == 1:
                     raise _Stopped
 

@@ -5,7 +5,7 @@ or with ``GCLT_REG_EDGE=0``, and within it one of three routes, picked by
 the reference's own switches: composed (segment sum), edge step
 (``GCLT_EDGE_STEP=1``) or mega (``GCLT_MEGA_EDGE=1``).  Each test sets the
 same switches for both packages, checks the route each took (the port's
-``_LazyINLayer.route``; on the JAX side, calls of its Pallas functions
+``InteractionNetLayer.route``; on the JAX side, calls of its Pallas functions
 while it traces), and compares in fp32 at atol 5e-5 / rtol 1e-4, with the
 weights carried by ``from_flax_params``.  The JAX package reads
 ``GCLT_EDGE_STEP`` also when it builds a graph (its step schedule), so its

@@ -22,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     """Every module of the package, and chip_smoke (whose main runs only
     under ``__main__``), imports without jax, flax, optax, pydantic,
-    msgpack or anything of graphcast_lite_tpu."""
+    msgpack, sklearn or anything of graphcast_lite_tpu."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import graphcast_lite_torch as pkg
@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
         import chip_smoke
         assert callable(chip_smoke.main)
         banned = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack",
-                  "graphcast_lite_tpu")
+                  "sklearn", "graphcast_lite_tpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in banned)
         print(len(names), "modules")
@@ -43,10 +43,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 43 since the trainer: utils.logs, utils.flax_msgpack,
-    # training.checkpoint, cli.make_demo and cli.train joined the walk (38
-    # with the train step, 35 with the COO routes).
-    assert int(proc.stdout.split()[0]) >= 43, proc.stdout
+    # 44 since the product graph (graphs.product); 43 with the trainer
+    # (utils.logs, utils.flax_msgpack, training.checkpoint, cli.make_demo
+    # and cli.train), 38 with the train step, 35 with the COO routes.
+    assert int(proc.stdout.split()[0]) >= 44, proc.stdout
 
 
 @pytest.fixture(scope="module")
@@ -121,3 +121,40 @@ def test_trainer_and_clis_need_a_card_unless_asked_for_cpu(tiny_serve,
         predict.main([exp, "--max-samples", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main([exp, "--device", "cuda"])
+
+
+def test_new_families_need_a_card_unless_asked_for_cpu(tiny_serve, tmp_path,
+                                                      monkeypatch):
+    """The GAT, SparseGAT and product-graph configurations (5 features,
+    hidden 16) build, train a step and serve on the CPU when asked, and
+    raise without a card otherwise."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.training.trainer import Trainer
+
+    _, test_ds, meta = tiny_serve
+    cfgs = [presets.gat_64x32(n_feat=N_FEAT, hidden=16, heads=2),
+            presets.sparse_gat_64x32(n_feat=N_FEAT, hidden=16),
+            presets.product_graph_64x32(n_feat=N_FEAT, obs=2, hidden=16)]
+    for i, cfg in enumerate(cfgs):
+        cfg.graph.mesh_levels = [1, 2]
+        model, graphs, _ = build_weather_model(cfg, meta, device="cpu")
+        trainer = Trainer(model, graphs, cfg, meta, str(tmp_path / str(i)),
+                          device="cpu")
+        state = trainer.init_state()
+        assert (state.edge_mask is not None) == trainer.using_sparse_gat
+        x, y = test_ds.get(0)
+        state, loss = trainer.train_step(state, x[None], y[None], 1, 0.1,
+                                         trainer.using_sparse_gat)
+        assert torch.isfinite(loss)
+        report = evaluate_model(model, graphs, test_ds, meta, device="cpu",
+                                max_samples=1, edge_mask=state.edge_mask)
+        assert np.isfinite(report.rmse)
+
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: False)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_weather_model(cfg, meta)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                Trainer(model, graphs, cfg, meta, str(tmp_path / "card"))
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                evaluate_model(model, graphs, test_ds, meta, max_samples=1)

@@ -242,19 +242,43 @@ def test_rollout_predict_ar4_bf16(lazy_edge):
         bf16_close(out[:, s], expect16[:, s], expect32[:, s])
 
 
-def test_unported_paths_raise():
-    from graphcast_lite_torch.config import GraphBlock, GraphLayerType
+def test_unported_paths_raise(tmp_path):
+    """Every layer family builds and runs now (GAT, SparseGAT, SimpleConv,
+    the PReLU InteractionNet, the processor under a runtime mask); what is
+    still to be ported raises and names its ROADMAP item: grid / U-Net
+    configs (A10), data assimilation (A11), sharded training (A12)."""
+    import json
+
+    from graphcast_lite_torch.config import GATProps, GraphBlock, \
+        GraphLayerType, load_experiment_config
+    from graphcast_lite_torch.inference.predict import evaluate_model
     from graphcast_lite_torch.models.gnn import InteractionNetProcessor
     from graphcast_lite_torch.models.weather import GraphLayerModule
+    from graphcast_lite_torch.training.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        GraphLayerModule(GraphBlock(layer_type=GraphLayerType.GATConv,
-                                    output_dim=8), 8)
-    with pytest.raises(NotImplementedError):
-        InteractionNetProcessor(8, 4, 8, 8, 2, activation="prelu")
-    proc = InteractionNetProcessor(8, 4, 8, 8, 1)
     _, tgs = graph_sets()
     pg = tgs.processing
-    with pytest.raises(NotImplementedError, match="A8"):
-        proc(torch.zeros(tgs.num_mesh_nodes, 8), pg,
-             edge_mask=torch.ones(pg.padded_num_edges))
+    x = torch.randn(tgs.num_mesh_nodes, 8)
+    mask = torch.ones(pg.padded_num_edges)
+    gat = GraphBlock(layer_type=GraphLayerType.GATConv, output_dim=8,
+                     gat_props=GATProps(num_heads=2, sparsity_thresholds=[]))
+    for block in (gat, GraphBlock(layer_type=GraphLayerType.SimpleConv),
+                  GraphBlock(layer_type=GraphLayerType.SparseGATConv,
+                             output_dim=8, gat_props=GATProps(
+                                 num_heads=1, sparsity_thresholds=[0.1]))):
+        out, _ = GraphLayerModule(block, 8)(x, pg, mask, 0.1, True)
+        assert out.shape == (tgs.num_mesh_nodes, 8)
+    out = InteractionNetProcessor(8, 4, 8, 8, 2, activation="prelu")(x, pg)
+    assert torch.isfinite(out).all()
+    assert torch.isfinite(InteractionNetProcessor(8, 4, 8, 8, 1)(
+        x, pg, edge_mask=mask)).all()
+
+    path = tmp_path / "config.json"
+    with open(path, "w") as f:
+        json.dump({"num_features": 5, "base_filters": 16}, f)
+    with pytest.raises(NotImplementedError, match="A10"):
+        load_experiment_config(str(path))
+    with pytest.raises(NotImplementedError, match="A11"):
+        evaluate_model(None, None, None, None, assimilator=lambda o, s: o)
+    with pytest.raises(NotImplementedError, match="A12"):
+        Trainer(None, None, None, None, str(tmp_path), mesh=object())
