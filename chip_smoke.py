@@ -104,11 +104,41 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    same mask, the product graph for 2 epochs, and ``cli.predict`` on
    each.
 
+7. The COO training units and the regional stack.  7a: the segment sum
+   on the CSRs of the dual-mesh head's reg-level-8 graphs over the
+   README's ROI (20-60 N, 60-140 E: processing receivers and senders,
+   cross, encoding and decoding receivers and senders, F = 256) and on the
+   flagship multimesh's sender CSR (the fused unit's d_xs), and
+   ``edge_mlp`` at the regional processing shape (R 41,046, E 228,276,
+   H = De = 256), each against its plain version in fp32 and bf16 and
+   timed (fp32 for the regional shapes, which ``train_regional`` trains
+   in; bf16 for the flagship's) against its bound, its plain version and
+   ``torch.segment_reduce``.  7b: the flagship bf16 train step on the
+   fused edge unit (``GCLT_REG_EDGE=0``: route ``fused``;
+   ``GCLT_LAZY_EDGE=0``: ``nonlazy_fused``; each also under
+   ``GCLT_MEGA_EDGE=1``, which launches ``edge_mlp`` in training) beside
+   the composed routes it replaces (``GCLT_FUSED_EDGE=0``) and
+   ``GCLT_GCN_AGG=1`` on the default route: exact launches every step by
+   CSR and shape, the route of every processor step, the loss falls, step
+   ms and peak memory; each switch's fp32 step (TF32 off) against the
+   same step without it: the loss and every gradient.  7c:
+   ``cli.train_regional`` through its ``main``: the dual-mesh head at
+   reg-level 8, hidden 256 (its processor on ``nonlazy_fused``), with and
+   without ``GCLT_MEGA_EDGE=1``, and the ROI-residual head, one epoch of
+   3 steps and ``--evaluate`` over a seeded flagship global model on an
+   11-frame synthetic set: exact launches every head step, finite losses,
+   step ms beside the global forward's, peak memory; one head step of
+   each head over the 64x32 architecture, card against CPU in fp32.  7d:
+   a regional-mesh model (61x41 grid at 0.25 deg, mesh [3, 5] pruned to
+   the region, 19 features, hidden 128, 8 steps) and the 64x32
+   architecture on a flat grid, card against CPU in fp32: one AR-4
+   request and one AR-4 train step each.
+
 Prints the card's name and power limit, ``{"serve": ...}``,
-``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}`` and
-``{"kernels": [...]}`` lines
-(the kernels' launches counted in the serve, the train step, the fit and
-the demo's training) and, last,
+``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
+``{"regional": ...}`` and ``{"kernels": [...]}`` lines
+(the kernels' launches counted in the serve, the train steps, the fit,
+the demo's training and the regional head steps) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
@@ -163,6 +193,8 @@ BF16_SERVE_RTOL = 2.0 ** -5
 # H100 SXM data-sheet rates: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
+# fp32 outside the tensor cores (the fp32 edge-MLP kernel's FMA design).
+FP32_FLOPS = 67e12
 # edge_step at the flagship processor shape before its Hopper redesign:
 # the wmma kernel of commit c6b0bb6, H100 80GB HBM3 at 700 W.
 EDGE_STEP_EARLIER_MS = 2.1121
@@ -206,7 +238,8 @@ COO_ROUTES = {
              {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0}),
 }
 _SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE",
-             "GCLT_LAZY_EDGE")
+             "GCLT_LAZY_EDGE", "GCLT_FUSED_EDGE", "GCLT_GCN_AGG",
+             "GCLT_FUSED_SAVE_HPRE")
 # The plain (non-lazy) InteractionNet step at the flagship: its routes, the
 # switches that pick them, their exact launches per AR-4 rollout and the
 # route its steps record.
@@ -246,6 +279,46 @@ SPARSE_EPOCHS = 12
 SPARSE_RESUME_AFTER = 10
 PRODUCT_EPOCHS = 2
 USER_STEPS = 4
+# Phase 7b: the flagship train step's routes with the fused edge unit and
+# the composed routes it replaces: (switches, the route every processor
+# step records, COO processor, GCLT_MEGA_EDGE, GCLT_GCN_AGG), and the
+# steps of each on one batch (a warm-up, then timed; the loss falls).
+FUSED_ROUTES = {
+    "fused": ({"GCLT_REG_EDGE": "0"}, "fused", True, False, False),
+    "fused_mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"}, "fused",
+                   True, True, False),
+    "composed": ({"GCLT_REG_EDGE": "0", "GCLT_FUSED_EDGE": "0"},
+                 "composed", True, False, False),
+    "nonlazy_fused": ({"GCLT_LAZY_EDGE": "0"}, "nonlazy_fused", True, False,
+                      False),
+    "nonlazy_fused_mega": ({"GCLT_LAZY_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
+                           "nonlazy_fused", True, True, False),
+    "nonlazy": ({"GCLT_LAZY_EDGE": "0", "GCLT_FUSED_EDGE": "0"}, "nonlazy",
+                True, False, False),
+    "gcn_agg": ({"GCLT_GCN_AGG": "1"}, "reg_block", False, False, True),
+}
+FUSED_TRAIN_STEPS = 4
+# The fp32 steps (TF32 off) held to each other in phase 7b: a switch's
+# step and the same step without it, on the same weights and batch (loss
+# within TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_RTOL of its
+# leaf's largest).  They compute the same function with the sums in other
+# orders.
+FP32_PAIRS = {
+    "fused": ({"GCLT_REG_EDGE": "0"},
+              {"GCLT_REG_EDGE": "0", "GCLT_FUSED_EDGE": "0"}),
+    "fused_mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
+                   {"GCLT_REG_EDGE": "0", "GCLT_FUSED_EDGE": "0"}),
+    "nonlazy_fused": ({"GCLT_LAZY_EDGE": "0"},
+                      {"GCLT_LAZY_EDGE": "0", "GCLT_FUSED_EDGE": "0"}),
+    "gcn_agg": ({"GCLT_GCN_AGG": "1"}, {}),
+}
+# Phase 7c: cli.train_regional over the README's ROI, the dual-mesh head
+# at reg-level 8 (41,046 regional mesh nodes, 228,276 processing edges:
+# the fused unit's size), hidden 256, head steps in its one epoch.
+REGIONAL_ROI = (20.0, 60.0, 60.0, 140.0)
+REGIONAL_LEVEL = 8
+REGIONAL_HIDDEN = 256
+REGIONAL_STEPS = 3
 
 
 def _log(*args):
@@ -2271,6 +2344,680 @@ def phase_user_loop(workdir, proc_edges):
             "wall_s": wall_s}
 
 
+# ---- phase 7: the COO training units and the regional stack -------------
+
+
+def _bound_fp32(nbytes: float, flops: float):
+    """``_bound`` for fp32 work done outside the tensor cores (the fp32
+    edge-MLP kernel's FMA design): operations over FP32_FLOPS."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _regional_graphs(gs):
+    """The dual-mesh head's graphs at ``REGIONAL_LEVEL`` over the ROI of
+    the README, on the flagship grid and its level-6 global mesh (as
+    ``cli.train_regional`` builds them)."""
+    from graphcast_lite_torch.graphs.regional import build_regional_graphs
+
+    return build_regional_graphs(
+        gs.mesh_lat, gs.mesh_lon, gs.grid_lat, gs.grid_lon, REGIONAL_ROI,
+        reg_mesh_level=REGIONAL_LEVEL, global_level=len(gs.meshes) - 1)
+
+
+def _regional_shapes(rg, gs):
+    """(label, perm or None, indptr, rows, R, F, dtype) of the segment sums
+    the regional head step and the fused unit's backward add: the
+    reg-level-8 graphs' receiver CSRs (aggregations, receiver-gather
+    adjoints, the fused d_xr) and sender CSRs (gather adjoints, the fused
+    d_xs) at F = 256 in fp32 (``train_regional`` trains in fp32), and the
+    flagship multimesh's sender CSR (the fused d_xs of the flagship train
+    step; its d_xr is phase 3's processor shape) in bf16."""
+    proc, cross, enc, dec = (rg.processing, rg.cross_g2r, rg.encoding,
+                             rg.decoding)
+    fp, f32, f = gs.processing, torch.float32, REGIONAL_HIDDEN
+    return [
+        ("regional processing receivers", None, proc.indptr,
+         proc.padded_num_edges, proc.num_receivers, f, f32),
+        ("regional processing senders", proc.s_perm, proc.s_indptr,
+         proc.padded_num_edges, proc.num_nodes, f, f32),
+        ("cross g2r receivers", None, cross.indptr, cross.padded_num_edges,
+         cross.num_receivers, f, f32),
+        ("encoding receivers", None, enc.indptr, enc.padded_num_edges,
+         enc.num_receivers, f, f32),
+        ("encoding senders", enc.s_perm, enc.s_indptr,
+         enc.padded_num_edges, enc.num_nodes, f, f32),
+        ("decoding receivers", None, dec.indptr, dec.padded_num_edges,
+         dec.num_receivers, f, f32),
+        ("decoding senders", dec.s_perm, dec.s_indptr,
+         dec.padded_num_edges, dec.num_nodes, f, f32),
+        ("flagship multimesh senders (fused d_xs)", fp.s_perm, fp.s_indptr,
+         fp.padded_num_edges, fp.num_nodes, 256, torch.bfloat16),
+    ]
+
+
+def phase_regional_kernels(gs):
+    """7a: the segment sum on the regional graphs' CSRs and the fused
+    backward's scatter, and ``edge_mlp`` at the reg-level-8 processing
+    shape, against their plain versions in fp32 and bf16 (two segment-sum
+    launches bitwise equal), each timed against its bound, its plain
+    version and (the segment sum) ``torch.segment_reduce``."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+
+    t0 = time.perf_counter()
+    rg = _regional_graphs(gs)
+    _log(f"phase 7a: the regional head's graphs at level {REGIONAL_LEVEL} "
+         f"over ROI {REGIONAL_ROI} ({time.perf_counter() - t0:.1f} s to "
+         f"build): mesh {rg.n_reg_mesh} nodes, processing E="
+         f"{rg.processing.num_edges} E_pad={rg.processing.padded_num_edges}"
+         f", cross E_pad={rg.cross_g2r.padded_num_edges}, encoding E_pad="
+         f"{rg.encoding.padded_num_edges}, decoding E_pad="
+         f"{rg.decoding.padded_num_edges} onto {rg.n_roi} ROI points; "
+         "segment_sum and edge_mlp against their plain versions, fp32 and "
+         "bf16, then timed")
+    gen = torch.Generator().manual_seed(17)
+    seg = {}
+    for label, perm, indptr, rows, r, f, timed in _regional_shapes(rg, gs):
+        ip = indptr.to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            msgs = _new_shape_msgs(gen, perm, rows, f, dtype)
+            _check_kernel(f"{label} F={f}", msgs, ip, r)
+            first = cuda_segment.segment_sum(msgs, ip, r)
+            if not torch.equal(first, cuda_segment.segment_sum(msgs, ip, r)):
+                raise AssertionError(f"{label} {dtype}: two launches differ")
+        seg[label] = dict(_time_segment_sum(
+            f"{label} {str(timed)[6:]}",
+            _new_shape_msgs(gen, perm, rows, f, timed), ip, r),
+            dtype=str(timed)[6:], rows=rows, receivers=r, features=f)
+
+    proc = rg.processing
+    r, e_pad, hid = proc.num_receivers, proc.padded_num_edges, REGIONAL_HIDDEN
+    label = f"regional processing E_pad={e_pad} R={r} H=De={hid}"
+    mlp = {}
+    for dtype, design in ((torch.float32, "tile16"),
+                          (torch.bfloat16, "hopper")):
+        t = _fused_case(gen, 0, r, hid, hid, dtype,
+                        recv=proc.receivers.long())
+        t["mask"] = proc.edge_mask.to("cuda", dtype)
+        err = _check_edge_mlp(label, t, r, design=design)
+        args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
+                "swish")
+        size = 2 if dtype == torch.bfloat16 else 4
+        nbytes = _nbytes(*args[:5]) + (e_pad + r) * hid * size
+        flops = 2 * e_pad * hid * hid
+        bound, by = (_bound(nbytes, flops) if dtype == torch.bfloat16
+                     else _bound_fp32(nbytes, flops))
+        ms = _time_ms(lambda: edge_mlp.edge_mlp(*args))
+        plain = _time_ms(lambda: edge_mlp.edge_mlp_reference(*args),
+                         iters=5, warmup=1)
+        key = str(dtype)[6:]
+        mlp[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by,
+                    "fraction_of_bound": bound / ms, "design": design,
+                    "library_ms": None}
+        _log(f"  edge_mlp {label} {key}: kernel {ms * 1e3:.1f} us ({design}"
+             f") | bound {bound * 1e3:.1f} us ({by}; {nbytes / 1e6:.1f} MB,"
+             f" {flops / 1e9:.1f} GFLOP) | plain {plain * 1e3:.1f} us")
+    return seg, mlp
+
+
+def _coo_train_launches(model, graphs, coo: bool, mega: bool,
+                        gcn: bool = False, ar_steps=AR_STEPS):
+    """(segment-sum launches by CSR label -> [key, count], edge_mlp
+    launches) of one flagship AR-``ar_steps`` train step.  Per AR step, as
+    ``_train_launches``, but with the processor on the COO layout
+    (``coo``): each step aggregates over the receiver CSR in the forward
+    and again in the recompute (``edge_mlp`` in their place under
+    ``mega``) and scatters over the receiver CSR (d_xr, or the receiver
+    gather's adjoint) and over the sender CSR (d_xs, or the sender
+    gather's adjoint) in the backward; ``gcn`` (``GCLT_GCN_AGG=1``) adds
+    the decoder's 128-multiple GCNConv aggregations over its receiver CSR
+    (forward and recompute; their backward scatter replaces the gather
+    adjoint)."""
+    if not coo:
+        parts = _train_launches(model, graphs, ar_steps)
+        mlp = 0
+    else:
+        enc, dec, proc = graphs.encoding, graphs.decoding, graphs.processing
+        parts = {}
+
+        def add(label, indptr, r, e, f, n):
+            entry = parts.setdefault(f"{label} F={f}",
+                                     [(indptr.data_ptr(), r, e, f), 0])
+            entry[1] += ar_steps * n
+
+        def widths(layer):
+            return [getattr(layer, f"conv_{i}").kernel.shape[1]
+                    for i in range(layer.num_convs)]
+
+        for f in widths(model.encoder.graph_layer):
+            add("encoder aggregation (forward + recompute)", enc.indptr,
+                enc.num_receivers, enc.padded_num_edges, f, 2)
+            add("encoder GCN gather adjoint", enc.s_indptr, enc.num_nodes,
+                enc.padded_num_edges, f, 1)
+        steps = model.processor.graph_layer.inet.steps
+        for s in steps:
+            add("processor receiver CSR", proc.indptr, proc.num_receivers,
+                proc.padded_num_edges, s.hidden_dim, 1 if mega else 3)
+            add("processor sender CSR", proc.s_indptr, proc.num_nodes,
+                proc.padded_num_edges, s.hidden_dim, 1)
+        for f in widths(model.decoder.graph_layer):
+            add("decoder GCN gather adjoint", dec.s_indptr, dec.num_nodes,
+                dec.padded_num_edges, f, 1)
+        mlp = 2 * len(steps) * ar_steps if mega else 0
+    if gcn:
+        dec = graphs.decoding
+        for i in range(model.decoder.graph_layer.num_convs):
+            f = getattr(model.decoder.graph_layer, f"conv_{i}").kernel.shape[1]
+            if f % 128 == 0:
+                entry = parts.setdefault(
+                    f"decoder aggregation (forward + recompute) F={f}",
+                    [(dec.indptr.data_ptr(), dec.num_receivers,
+                      dec.padded_num_edges, f), 0])
+                entry[1] += 2 * ar_steps
+    return parts, mlp
+
+
+def _flagship_step(ctx, base, dtype):
+    """(model copy of ``base`` on the card, its ``make_train_step``) for
+    the flagship in ``dtype``."""
+    import copy
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.training.loss import channel_mask, \
+        lat_weights_from_axis
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    cfg = presets.interaction_net_512x256()
+    cfg.tpu.compute_dtype = dtype
+    meta = ctx["meta"]
+    n_feat = cfg.data.num_features_used
+    spec = RolloutSpec(obs_window=cfg.data.obs_window_used,
+                       num_features=n_feat, use_residual=cfg.use_residual,
+                       remat=cfg.tpu.remat_rollout,
+                       static_channels=tuple(cfg.static_channels),
+                       forcing_channels=tuple(cfg.forcing_channels))
+    model = copy.deepcopy(base)
+    step = make_train_step(
+        model, ctx["graphs"], spec, cfg, device="cuda",
+        lat_weights=lat_weights_from_axis(meta.num_latitudes,
+                                          meta.num_longitudes),
+        chan_mask=channel_mask(n_feat, cfg.static_channels,
+                               cfg.forcing_channels))
+    return model, step
+
+
+def _grads_within(label, grads, ref, rtol=TRAIN_GRAD_RTOL):
+    """Raise unless every gradient is finite and within ``rtol`` of its
+    leaf's largest reference value (+ 1e-6); returns (worst share of the
+    tolerance, its leaf)."""
+    worst = (0.0, "")
+    for name, r in ref.items():
+        got = grads[name]
+        err = (got - r).abs().max().item()
+        tol = rtol * r.abs().max().item() + 1e-6
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"{label} {name}: gradient off by "
+                                 f"{err:.3e} > {tol:.3e}")
+        worst = max(worst, (err / tol, name))
+    return worst
+
+
+def phase_fused_train(ctx):
+    """7b: the flagship bf16 train step on the fused routes (lazy COO
+    ``fused`` and plain ``nonlazy_fused``, each also with
+    ``GCLT_MEGA_EDGE=1``) beside the composed routes they replace
+    (``GCLT_FUSED_EDGE=0``): exact launches every step by CSR and shape,
+    the route every processor step took, the loss falls over
+    FUSED_TRAIN_STEPS steps, step ms and peak memory; one fp32 step (TF32
+    off) of each fused route against ``GCLT_FUSED_EDGE=0`` on the same
+    weights and batch; ``GCLT_GCN_AGG=1`` on the default route: its
+    launches, and its fp32 gradients against the switch off.  Every
+    route starts from the same seeded weights (a fresh model, as phase
+    5c's)."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.models.weather import WeatherModel
+
+    cfg, gs = presets.interaction_net_512x256(), ctx["gs"]
+    base = WeatherModel(cfg.pipeline, cfg.data, gs.num_grid_nodes,
+                        gs.num_mesh_nodes,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    x, y = (torch.from_numpy(a[None]).cuda() for a in ctx["request"])
+    _log(f"phase 7b: flagship 512x256 AR-4 train step on the fused routes "
+         f"and the composed routes they replace, bf16 against fp32 masters,"
+         f" {FUSED_TRAIN_STEPS} steps each on one batch; fp32 (TF32 off) "
+         f"fused against GCLT_FUSED_EDGE=0 (loss rtol {TRAIN_LOSS_RTOL}, "
+         f"each gradient {TRAIN_GRAD_RTOL} x its largest + 1e-6); "
+         "GCLT_GCN_AGG=1 on the default route")
+    out = {}
+    for name, (env, route, coo, mega, gcn) in FUSED_ROUTES.items():
+        with _route(env):
+            model, step = _flagship_step(ctx, base, "bfloat16")
+            parts, n_mlp = _coo_train_launches(model, step.graphs, coo,
+                                               mega, gcn)
+            by_csr = {label: n for label, (_, n) in parts.items()}
+            expected = {"segment_sum": sum(by_csr.values()),
+                        "edge_mlp": n_mlp, "edge_step": 0, "by_csr": by_csr}
+            losses, ms = [], []
+            for i in range(FUSED_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                _reset_launches()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = step(x, y)
+                end.record()
+                torch.cuda.synchronize()
+                if i > 0:
+                    ms.append(start.elapsed_time(end))
+                counts = dict(_launches(), by_csr=_csr_launches(parts))
+                if counts != expected:
+                    raise AssertionError(f"{name} step {i}: launches "
+                                         f"{counts}, expected {expected}")
+                losses.append(loss.item())
+            peak = torch.cuda.max_memory_allocated()
+            took = {s.route for s in model.processor.graph_layer.inet.steps}
+            if took != {route}:
+                raise AssertionError(f"{name}: routes {took}, expected "
+                                     f"{route}")
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"{name}: losses {losses}")
+            del model, step
+        out[name] = {"route": route, "step_ms": sum(ms) / len(ms),
+                     "step_ms_runs": ms, "peak_mem_bytes": peak,
+                     "losses": losses,
+                     "launches_per_step": {k: v for k, v in counts.items()
+                                           if k != "by_csr"},
+                     "segment_sum_launches_by_csr": by_csr}
+        _log(f"  {name:<20s} route {route:<14s} step "
+             + ", ".join(f"{t:.2f}" for t in ms)
+             + f" ms (mean {out[name]['step_ms']:.2f}); peak "
+             f"{peak / 2**30:.3f} GiB; losses "
+             + ", ".join(f"{v:.6f}" for v in losses)
+             + f"; launches a step: segment_sum {expected['segment_sum']} ("
+             + ", ".join(f"{k} {v}" for k, v in by_csr.items())
+             + f"), edge_mlp {n_mlp}")
+
+    # fp32 (TF32 off): each fused route and the GCN switch against the
+    # same step without them, on the same weights and batch.
+    runs = {}
+
+    def fp32_step(env):
+        key = tuple(sorted(env.items()))
+        if key not in runs:
+            with _route(env):
+                model, step = _flagship_step(ctx, base, "float32")
+                loss = step(x, y).item()
+                runs[key] = (loss, _grads(model), sorted(
+                    {s.route for s in
+                     model.processor.graph_layer.inet.steps}))
+                del model, step
+        return runs[key]
+
+    fp32 = {}
+    for name, (on, off) in FP32_PAIRS.items():
+        (loss, grads, r_on), (loss_ref, grads_ref, r_off) = \
+            fp32_step(on), fp32_step(off)
+        if not (np.isfinite(loss)
+                and abs(loss - loss_ref) <= TRAIN_LOSS_RTOL * abs(loss_ref)):
+            raise AssertionError(f"{name} fp32: loss {loss} against "
+                                 f"{loss_ref}")
+        worst = _grads_within(f"{name} fp32", grads, grads_ref)
+        fp32[name] = {"loss": loss, "loss_ref": loss_ref, "routes": r_on,
+                      "routes_ref": r_off,
+                      "worst_grad_err_of_tol": worst[0],
+                      "worst_grad_leaf": worst[1]}
+        _log(f"  fp32 {name}: routes {r_on} against {r_off}: loss "
+             f"{loss:.7f} / {loss_ref:.7f}; {len(grads)} gradients, largest "
+             f"error {worst[0]:.2e} of its tolerance ({worst[1]})")
+    return {"bf16": out, "fp32": fp32}
+
+
+class _HeadRecorder:
+    """Wraps ``cli.train_regional.head_step`` to time each head step (CUDA
+    events), its peak memory and its kernel launches, the route of every
+    processor step of the head, and, on the first step, the frozen global
+    forward alone (CUDA events, 3 runs)."""
+
+    def __init__(self):
+        from graphcast_lite_torch.cli import train_regional
+
+        self.mod, self.step = train_regional, train_regional.head_step
+        self.steps, self.global_ms, self.model = [], None, None
+
+        def head_step(model, optimizer, x, y):
+            if self.model is None:
+                self.model = model
+                with torch.no_grad():
+                    self.global_ms = _time_ms(lambda: model._global(x),
+                                              iters=3, warmup=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = _launch_snapshot()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = self.step(model, optimizer, x, y)
+            end.record()
+            torch.cuda.synchronize()
+            counts, by_csr = _launch_diff(before, _launch_snapshot())
+            self.steps.append({
+                "ms": start.elapsed_time(end), "loss": loss.item(),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches": counts, "by_csr": by_csr,
+                "routes": sorted(_head_routes(model.head))})
+            return loss
+
+        train_regional.head_step = head_step
+
+    def close(self):
+        self.mod.head_step = self.step
+
+
+def _head_routes(head):
+    from graphcast_lite_torch.models.gnn import InteractionNetLayer
+
+    return {m.route for m in head.modules()
+            if isinstance(m, InteractionNetLayer)}
+
+
+def _head_step_launches(model, mega):
+    """(segment-sum launches by (indptr, R, E, F) key, edge_mlp launches)
+    of one head step of ``RegionalModel`` ``model``: the frozen global
+    forward's encoder aggregations (reg-block route, no gradient), and the
+    head's forward and backward.  Dual mesh: the encoder and cross
+    aggregations, the processor steps' aggregation (``edge_mlp`` under
+    ``mega``), d_xr and d_xs (the fused unit), the decoder's aggregation,
+    the cross receiver gather's and the encoder's and decoder's sender
+    gathers' adjoints.  ROI residual (lazy COO composed): each step's
+    aggregation and its receiver and sender gather adjoints."""
+    counts = {}
+
+    def add(g, f, n, senders=False):
+        key = ((g.s_indptr.data_ptr(), g.num_nodes) if senders
+               else (g.indptr.data_ptr(), g.num_receivers)) \
+            + (g.padded_num_edges, f)
+        counts[key] = counts.get(key, 0) + n
+
+    gm, genc = model.global_model, model.global_graphs.encoding
+    for i in range(gm.encoder.graph_layer.num_convs):
+        add(genc, getattr(gm.encoder.graph_layer, f"conv_{i}")
+            .kernel.shape[1], 1)
+    head, hg = model.head, model.head_graphs
+    if model.kind == "dual_mesh":
+        f, steps = head.reg_processor.step.hidden_dim, \
+            head.reg_processor.num_steps
+        add(hg.encoding, f, 1)
+        add(hg.encoding, f, 1, senders=True)
+        add(hg.cross_g2r, f, 2)
+        add(hg.processing, f, steps * (1 if mega else 2))
+        add(hg.processing, f, steps, senders=True)
+        add(hg.decoding, f, 1)
+        add(hg.decoding, f, 1, senders=True)
+        return counts, (steps if mega else 0)
+    steps = head.processor.steps
+    f = steps[0].hidden_dim
+    add(hg, f, 2 * len(steps))
+    add(hg, f, len(steps), senders=True)
+    return counts, 0
+
+
+def _regional_experiment(workdir, gs):
+    """An experiment of the flagship configuration over an 11-frame
+    synthetic 512x256x19 set, with a seeded global model (weights from
+    seed 3) saved as ``best_model.pt``."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+    from graphcast_lite_torch.models.weather import WeatherModel
+
+    cfg = presets.interaction_net_512x256()
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "regional_data"), n_time=FIT_FRAMES,
+        n_lon=512, n_lat=256, n_feat=cfg.data.num_features_used,
+        static_channels=list(cfg.static_channels), seed=2)
+    exp = _user_experiment(workdir, "regional", cfg, data_dir)
+    model = WeatherModel(cfg.pipeline, cfg.data, gs.num_grid_nodes,
+                         gs.num_mesh_nodes,
+                         generator=torch.Generator().manual_seed(3))
+    torch.save(model.state_dict(), os.path.join(exp, "best_model.pt"))
+    return exp
+
+
+def phase_regional_train(workdir, gs):
+    """7c: ``cli.train_regional`` at full width on the card: the dual-mesh
+    head at reg-level 8 (hidden 256) over the README's ROI for one epoch
+    of REGIONAL_STEPS steps and ``--evaluate``, with and without
+    ``GCLT_MEGA_EDGE=1``, then the ROI-residual head; exact launches every
+    head step, the route of every processor step, finite losses, step ms
+    beside the global forward's, peak memory; then one head step of each
+    head on a 64x32 global model, card against CPU in fp32."""
+    from graphcast_lite_torch.cli import train_regional
+
+    exp = _regional_experiment(workdir, gs)
+    roi = [str(v) for v in REGIONAL_ROI]
+    common = [exp, "--roi"] + roi + [
+        "--hidden", str(REGIONAL_HIDDEN), "--epochs", "1",
+        "--max-steps-per-epoch", str(REGIONAL_STEPS), "--evaluate"]
+    runs = {
+        "dual_mesh": ({}, ["--head", "dual_mesh", "--reg-level",
+                           str(REGIONAL_LEVEL)], "nonlazy_fused", False),
+        "dual_mesh_mega": ({"GCLT_MEGA_EDGE": "1"},
+                           ["--head", "dual_mesh", "--reg-level",
+                            str(REGIONAL_LEVEL)], "nonlazy_fused", True),
+        "roi_residual": ({}, ["--head", "roi_residual"], "composed", False),
+    }
+    _log(f"phase 7c: cli.train_regional on the card, ROI {REGIONAL_ROI}, "
+         f"hidden {REGIONAL_HIDDEN}, 1 epoch x {REGIONAL_STEPS} steps + "
+         "--evaluate, over a seeded flagship global model (fp32)")
+    out = {}
+    for name, (env, extra, route, mega) in runs.items():
+        rec = _HeadRecorder()
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with _route(env):
+                report = train_regional.main(common + extra
+                                             + ["--out-dir", os.path.join(
+                                                 exp, name)])
+        finally:
+            rec.close()
+        wall = time.perf_counter() - t0
+        want, n_mlp = _head_step_launches(rec.model, mega)
+        for i, st in enumerate(rec.steps):
+            got = (st["by_csr"], st["launches"]["edge_mlp"],
+                   st["launches"]["edge_step"])
+            if got != (want, n_mlp, 0):
+                raise AssertionError(f"{name} head step {i}: launches "
+                                     f"{got}, expected {(want, n_mlp, 0)}")
+            if st["routes"] != [route] or not np.isfinite(st["loss"]):
+                raise AssertionError(f"{name} head step {i}: {st}")
+        if len(rec.steps) != REGIONAL_STEPS or report is None \
+                or not np.isfinite(report.region["rmse"]):
+            raise AssertionError(f"{name}: {len(rec.steps)} steps, report "
+                                 f"{report}")
+        ms = [st["ms"] for st in rec.steps]
+        timed = ms[1:]
+        hg = rec.model.head_graphs
+        proc = hg.processing if name.startswith("dual") else hg
+        out[name] = {
+            "route": route, "step_ms_runs": ms,
+            "step_ms": sum(timed) / len(timed),
+            "global_forward_ms": rec.global_ms,
+            "global_share": rec.global_ms / (sum(timed) / len(timed)),
+            "peak_mem_bytes": max(st["peak_mem_bytes"] for st in rec.steps),
+            "losses": [st["loss"] for st in rec.steps],
+            "launches_per_step": rec.steps[-1]["launches"],
+            "processor_edges": proc.num_edges,
+            "processor_nodes": proc.num_receivers,
+            "roi_points": int(rec.model.roi_idx.numel()),
+            "region_rmse": report.region["rmse"], "wall_s": wall}
+        _log(f"  {name}: processor {proc.num_receivers} nodes / "
+             f"{proc.num_edges} edges, route {route}; head steps "
+             + ", ".join(f"{t:.2f}" for t in ms)
+             + f" ms, global forward alone {rec.global_ms:.2f} ms (share "
+             f"{out[name]['global_share']:.3f} of steps 2-{len(ms)}); peak "
+             f"{out[name]['peak_mem_bytes'] / 2**30:.3f} GiB; losses "
+             + ", ".join(f"{st['loss']:.6f}" for st in rec.steps)
+             + f"; launches a step {rec.steps[-1]['launches']}; region RMSE "
+             f"{report.region['rmse']:.6f}; CLI wall {wall:.1f} s")
+        rec.model = None
+    out["card_vs_cpu_64x32"] = _regional_card_vs_cpu()
+    return out
+
+
+def _regional_card_vs_cpu():
+    """One head step of each head over the 64x32 flagship architecture
+    (seeded weights, reg-level 6 over the README's ROI), card against
+    CPU in fp32: the loss and every head gradient."""
+    import copy
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.cli.train_regional import RegionalModel, \
+        build_head, head_step
+    from graphcast_lite_torch.graphs.build import build_graph_set
+    from graphcast_lite_torch.models.weather import ModelGraphs, WeatherModel
+
+    cfg = presets.interaction_net_64x32(n_feat=19)
+    lat, lon = presets.wb2_64x32_grid()
+    gs = build_graph_set(lat, lon, cfg.graph.mesh_levels,
+                         cfg.graph.grid2mesh_radius_query)
+    c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    model = WeatherModel(cfg.pipeline, cfg.data, gs.num_grid_nodes,
+                         gs.num_mesh_nodes,
+                         generator=torch.Generator().manual_seed(4))
+    graphs = ModelGraphs.from_graph_set(gs)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(gs.num_grid_nodes, obs * c)
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.randn(gs.num_grid_nodes, c).astype(np.float32))
+    out = {}
+    for kind in ("dual_mesh", "roi_residual"):
+        head, hg, roi = build_head(
+            kind, gs, REGIONAL_ROI, c, obs, model.latent_dim,
+            hidden=REGIONAL_HIDDEN, reg_level=max(cfg.graph.mesh_levels) + 1)
+        res = {}
+        for device in ("cuda", "cpu"):
+            composed = RegionalModel(copy.deepcopy(model), graphs,
+                                     copy.deepcopy(head), hg, roi).to(device)
+            opt = torch.optim.Adam(composed.head.parameters(), lr=3e-4)
+            loss = head_step(composed, opt, x.to(device), y.to(device))
+            res[device] = (loss.item(), _grads(composed.head))
+        (loss, grads), (loss_cpu, grads_cpu) = res["cuda"], res["cpu"]
+        if not (np.isfinite(loss)
+                and abs(loss - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)):
+            raise AssertionError(f"{kind} 64x32 head step: loss card {loss} "
+                                 f"cpu {loss_cpu}")
+        worst = _grads_within(f"{kind} 64x32 head step", grads, grads_cpu)
+        out[kind] = {"loss_card": loss, "loss_cpu": loss_cpu,
+                     "roi_points": int(roi.numel()),
+                     "worst_grad_err_of_tol": worst[0],
+                     "worst_grad_leaf": worst[1]}
+        _log(f"  {kind} head step over the 64x32 model, card vs CPU fp32: "
+             f"loss {loss:.7f} / {loss_cpu:.7f}; {len(grads)} gradients, "
+             f"largest error {worst[0]:.2e} of its tolerance ({worst[1]})")
+    return out
+
+
+def phase_regional_grids():
+    """7d: a regional-mesh model (BASELINE.md's regional GNN widths on a
+    61x41 grid at 0.25 deg, 50-60 N, 85-100 E: mesh [3, 5] pruned to the
+    region, 19 features, hidden 128, 8 InteractionNet steps) and the
+    flagship architecture on a flat 64x32 grid (per-node coordinates), fp32
+    with seeded weights: one AR-4 request and one AR-4 train step each,
+    card against CPU."""
+    import copy
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.graphs.build import build_graph_set
+    from graphcast_lite_torch.models.weather import ModelGraphs, WeatherModel
+    from graphcast_lite_torch.training.rollout import RolloutSpec, \
+        rollout_predict
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    _log("phase 7d: regional mesh (61x41 at 0.25 deg, mesh [3, 5] pruned, "
+         "hidden 128, 8 steps) and flat 64x32 grid, fp32, card vs CPU: one "
+         f"AR-4 request ({E2E_TOL}) and one AR-4 train step (loss rtol "
+         f"{TRAIN_LOSS_RTOL}, each gradient {TRAIN_GRAD_RTOL} x its largest "
+         "+ 1e-6)")
+    reg_cfg = presets.interaction_net_64x32(n_feat=19, hidden=128,
+                                            mp_steps=8)
+    lat = (50.0 + 0.25 * np.arange(41)).astype(np.float32)
+    lon = (85.0 + 0.25 * np.arange(61)).astype(np.float32)
+    reg_gs = build_graph_set(lat, lon, reg_cfg.graph.mesh_levels,
+                             reg_cfg.graph.grid2mesh_radius_query,
+                             region_bounds=(50.0, 60.0, 85.0, 100.0))
+    flat_cfg = presets.interaction_net_64x32(n_feat=19)
+    glat, glon = presets.wb2_64x32_grid()
+    lon2d, lat2d = np.meshgrid(glon, glat)
+    flat_gs = build_graph_set(lat2d.reshape(-1), lon2d.reshape(-1),
+                              flat_cfg.graph.mesh_levels,
+                              flat_cfg.graph.grid2mesh_radius_query,
+                              flat_grid=True)
+    out = {}
+    for name, cfg, gs, route in (("regional_61x41", reg_cfg, reg_gs,
+                                  "composed"),
+                                 ("flat_64x32", flat_cfg, flat_gs,
+                                  "reg_block")):
+        c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+        g = gs.num_grid_nodes
+        model = WeatherModel(cfg.pipeline, cfg.data, g, gs.num_mesh_nodes,
+                             generator=torch.Generator().manual_seed(5))
+        graphs = ModelGraphs.from_graph_set(gs)
+        spec = RolloutSpec(obs_window=obs, num_features=c,
+                           use_residual=cfg.use_residual, remat=True)
+        rng = np.random.RandomState(7)
+        x = rng.randn(1, g, obs * c).astype(np.float32)
+        y = rng.randn(1, g, AR_STEPS * c).astype(np.float32)
+        res = {}
+        for device in ("cuda", "cpu"):
+            m = copy.deepcopy(model).to(device)
+            gr = graphs.to(device)
+            window = torch.from_numpy(x[0].reshape(g, obs, c)).to(device)
+            _reset_launches()
+            with torch.inference_mode():
+                pred = rollout_predict(lambda inp, mk, t, p: m(inp, gr, mk),
+                                       window, AR_STEPS, spec)
+            req = _launches()
+            routes = {s.route for s in m.processor.graph_layer.inet.steps}
+            step = make_train_step(m, graphs, spec, cfg, device=device)
+            _reset_launches()
+            loss = step(x, y).item()
+            res[device] = (pred.cpu(), loss, _grads(m), req, _launches(),
+                           routes)
+        pred, loss, grads, req, train, routes = res["cuda"]
+        pred_cpu, loss_cpu, grads_cpu = res["cpu"][:3]
+        if routes != {route} or not torch.isfinite(pred).all() \
+                or req["segment_sum"] == 0 or train["segment_sum"] == 0:
+            raise AssertionError(f"{name}: routes {routes}, launches {req} "
+                                 f"/ {train}")
+        err = (pred - pred_cpu).abs().max().item()
+        torch.testing.assert_close(pred, pred_cpu, **E2E_TOL)
+        if abs(loss - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu):
+            raise AssertionError(f"{name}: loss card {loss} cpu {loss_cpu}")
+        worst = _grads_within(f"{name} train step", grads, grads_cpu)
+        out[name] = {"grid_points": g, "mesh_nodes": gs.num_mesh_nodes,
+                     "processor_edges": gs.processing.num_edges,
+                     "route": route, "max_abs_err_request": err,
+                     "loss_card": loss, "loss_cpu": loss_cpu,
+                     "worst_grad_err_of_tol": worst[0],
+                     "worst_grad_leaf": worst[1],
+                     "launches_per_request": req,
+                     "launches_per_train_step": train}
+        _log(f"  {name}: {g} grid points, mesh {gs.num_mesh_nodes} nodes / "
+             f"{gs.processing.num_edges} edges, route {route}; request "
+             f"max|card - cpu| {err:.3e}; loss {loss:.7f} / {loss_cpu:.7f};"
+             f" {len(grads)} gradients, largest error {worst[0]:.2e} of its "
+             f"tolerance ({worst[1]}); segment_sum launches "
+             f"{req['segment_sum']} a request, {train['segment_sum']} a "
+             "train step")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2309,15 +3056,26 @@ def main() -> int:
         phase_kernel_flagship(
         ctx["gs"], n_feat)
     seg_new = phase_kernel_new_shapes(graphs64)
+    seg_regional, mlp_regional = phase_regional_kernels(ctx["gs"])
     phase_numerics()
     baseline = phase_baseline_numerics(gs64, graphs64)
     phase_sender_scatter_cases(ctx["gs"], n_feat)
     train = phase_train_numerics()
     train = dict(phase_train(ctx), card_vs_cpu_64x32=train)
+    fused = phase_fused_train(ctx)
     with tempfile.TemporaryDirectory() as workdir:
         fit = {"flagship": phase_fit(workdir), "demo": phase_demo(workdir),
                "user_loop": phase_user_loop(
                    workdir, graphs64.processing.num_edges)}
+        regional = {"fused_train": fused,
+                    "train_regional": phase_regional_train(workdir,
+                                                           ctx["gs"]),
+                    "grids": phase_regional_grids()}
+    fused_steps = {name: row["launches_per_step"]
+                   for name, row in fused["bf16"].items()}
+    head_steps = {name: row["launches_per_step"]
+                  for name, row in regional["train_regional"].items()
+                  if "launches_per_step" in row}
 
     coo, plain = serve["coo_routes"], serve["plain_routes"]
     # Launches counted in a train step at each sender-sorted CSR and shape.
@@ -2351,7 +3109,12 @@ def main() -> int:
                    for name, row in baseline.items()},
                launches_in_user_loop={
                    name: fit["user_loop"][name]["launches"]
-                   for name in ("sparse_gat", "product_graph")})
+                   for name in ("sparse_gat", "product_graph")},
+               at_regional_shapes=seg_regional,
+               launches_per_train_step_phase7={
+                   name: n["segment_sum"] for name, n in fused_steps.items()},
+               launches_per_regional_head_step={
+                   name: n["segment_sum"] for name, n in head_steps.items()})
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -2361,9 +3124,15 @@ def main() -> int:
             "launches_per_rollout"][name]
         extra = {}
         if name == "edge_mlp":
-            # The plain step's mega route: _MegaEdgeMLP, its second caller.
+            # The plain step's mega route: _MegaEdgeMLP, its second caller;
+            # the fused edge unit's forward tail in training, its third.
             extra["launches_per_rollout_plain_mega"] = plain["mega"][
                 "launches_per_rollout"][name]
+            extra["launches_per_train_step_phase7"] = {
+                n: c[name] for n, c in fused_steps.items()}
+            extra["launches_per_regional_head_step"] = {
+                n: c[name] for n, c in head_steps.items()}
+            extra["at_regional_shape"] = mlp_regional
         kernels.append((name, src, tpu, dict(
             k, **extra, launches=n, launches_per_rollout=n,
             launches_per_train_step=train["launches_per_step"][name],
@@ -2375,6 +3144,7 @@ def main() -> int:
     _log(json.dumps({"train": train}))
     _log(json.dumps({"baseline_64x32": baseline}))
     _log(json.dumps({"fit": fit}))
+    _log(json.dumps({"regional": regional}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

@@ -96,9 +96,13 @@ def build_weather_model(
     auto_region: bool = True,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
+    mesh_buffer_deg: float = 15.0,
 ) -> Tuple[WeatherModel, ModelGraphs, GraphSet]:
     """Build the WeatherModel (fp32, weights drawn from a generator seeded
-    with ``seed``) and its graphs, both on ``device``."""
+    with ``seed``) and its graphs, both on ``device``.  A grid spanning
+    less than 90° in both axes (``detect_region_bounds``), or
+    ``region_bounds``, prunes the mesh to the region plus
+    ``mesh_buffer_deg``."""
     dev = resolve_device(device)
     if cfg.graph is None or cfg.pipeline is None:
         raise ValueError("GNN model construction requires graph+pipeline "
@@ -113,6 +117,7 @@ def build_weather_model(
         cfg.graph.grid2mesh_radius_query,
         flat_grid=meta.flat_grid,
         region_bounds=region_bounds,
+        mesh_buffer_deg=mesh_buffer_deg,
     )
     graphs = ModelGraphs.from_graph_set(
         gs, product_config=cfg.pipeline.product_graph,

@@ -229,7 +229,7 @@ def load_experiment_config(path: str) -> ExperimentConfig:
     if is_grid_config(raw):
         raise NotImplementedError(
             "grid / U-Net experiment configs are not ported yet "
-            "(ROADMAP A10: regional and grid stacks)"
+            "(ROADMAP A10: the grid and U-Net stacks)"
         )
     return from_dict(ExperimentConfig, raw)
 

@@ -133,20 +133,22 @@ class EvalReport:
         return "\n".join(lines)
 
 
-def serving_copy(model: WeatherModel, graphs: ModelGraphs,
+def serving_copy(model: WeatherModel, graphs: Optional[ModelGraphs],
                  device: torch.device, dtype: torch.dtype):
     """(model, graphs) on ``device`` with params and float graph arrays in
     ``dtype``.  The caller's model is copied, never modified, when it is
-    not already there."""
+    not already there; ``graphs`` None (a model that carries its own)
+    stays None."""
     p = next(model.parameters())
     if p.device != device or p.dtype != dtype:
         model = copy.deepcopy(model).to(device=device, dtype=dtype)
-    return model.eval(), graphs.to(device, dtype)
+    return model.eval(), (None if graphs is None
+                          else graphs.to(device, dtype))
 
 
 def evaluate_model(
-    model: WeatherModel,
-    graphs: ModelGraphs,
+    model: torch.nn.Module,
+    graphs: Optional[ModelGraphs],
     dataset: ChunkedTimeseriesDataset,
     meta: DatasetMetadata,
     ar_steps: int = 1,
@@ -168,6 +170,11 @@ def evaluate_model(
 ) -> EvalReport:
     """Run AR evaluation over `dataset` and return the metric report.
 
+    ``model(x [G, obs·C], graphs, edge_mask) -> (delta [G, C], mask)`` is a
+    ``WeatherModel`` on ``graphs``, or a model that carries its own graphs
+    (``graphs`` None), such as the regional composition
+    ``cli.train_regional.RegionalModel``, served with ``region=`` as the
+    JAX package's ``cli.train_regional`` serves its composed apply.
     Each sample is one whole-trajectory rollout on ``device`` (default
     ``cuda``; raises without a card unless ``device='cpu'``) with the
     params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``).

@@ -38,15 +38,22 @@ with its defaults, read when the step is called:
 The plain step splits the first edge-MLP layer by input block (the
 reference's ``_SplitEdgeMLP``) and, with ``GCLT_MEGA_EDGE=1``, runs the
 second layer and the aggregation in the edge-MLP kernel (its
-``_MegaEdgeMLP``).  The reference's ``_FusedEdgeMLP`` (a custom-VJP unit
-it takes in training at 131,072 edges or more) computes the same function
-as the split MLP, which the port takes there (ROADMAP A9).
+``_MegaEdgeMLP``).
 
 The two fused kernels are forward only: inside ``ops.fused_edge.
 training_trace()`` (set by ``training.rollout.rollout_loss``) both
-switches are ignored and the COO layout takes the composed route, as in
-the JAX package.  Every row gather passes its index's sorted CSR to
-``ops.gather.gather_rows``, so its adjoint is the segment-sum kernel.
+switches are ignored, as in the JAX package.  There, on the reference's
+conditions (``_use_fused_edge_path``: 131,072 real edges or more, both
+widths multiples of 128, a stateless activation, a unified node space),
+the plain step and the lazy COO step train through the fused edge unit
+(``ops.fused_edge.edge_pipeline``, the reference's ``_FusedEdgeMLP``:
+its backward scatters through the segment-sum kernel, and under
+``GCLT_MEGA_EDGE=1`` its forward tail is the edge-MLP kernel); below
+them the COO layout takes the composed route.  ``GCNConv`` aggregates
+through ``ops.gcn_agg.gcn_aggregate`` where ``GCLT_GCN_AGG=1`` opts in
+(``supports_gcn_aggregate``).  Every row gather passes its index's sorted
+CSR to ``ops.gather.gather_rows``, so its adjoint is the segment-sum
+kernel.
 """
 
 from __future__ import annotations
@@ -61,7 +68,8 @@ from torch import nn
 from ..graphs.structure import Graph
 from ..ops import edge_mlp, edge_step
 from ..ops import segment as seg_ops
-from ..ops.fused_edge import in_training
+from ..ops.fused_edge import edge_pipeline, in_training, use_fused_edge
+from ..ops.gcn_agg import gcn_aggregate, supports_gcn_aggregate
 from ..ops.gather import gather_rows
 from ..ops.reg_edge import RegStatic, reg_edge_tail
 from .nn import PReLU, PyGLayerNorm, TorchLinear, glorot_uniform_pyg, \
@@ -128,9 +136,14 @@ class GCNConv(nn.Module):
             norm = (gather_rows(dinv, graph.senders, _senders(graph))
                     * gather_rows(dinv, graph.receivers,
                                   _receivers(graph)))[:, 0]
-        msgs = gather_rows(xw, graph.senders, _senders(graph)) \
-            * norm[:, None]
-        agg = seg_ops.aggregate_sum(msgs, graph, mask)
+        if supports_gcn_aggregate(graph, xw.shape[-1]):
+            # Gather, scale and segment sum in one unit whose backward is
+            # the sender-CSR segment sum (opt-in, in training).
+            agg = gcn_aggregate(xw, norm * mask.to(norm.dtype), graph)
+        else:
+            msgs = gather_rows(xw, graph.senders, _senders(graph)) \
+                * norm[:, None]
+            agg = seg_ops.aggregate_sum(msgs, graph, mask)
         # Implicit self loop: norm_ii = 1/deg_i.
         out = agg + xw / deg[:, None]
         return out + self.bias if self.bias is not None else out
@@ -299,6 +312,20 @@ def _use_mega_edge_path(graph: Graph, hidden_dim: int, edge_dim: int,
             and graph.full_receiver_band)
 
 
+def _use_fused_edge_path(graph: Graph, hidden_dim: int, edge_dim: int,
+                         activation: str) -> bool:
+    """The fused edge unit (``ops.fused_edge.edge_pipeline``), on the
+    reference's conditions: a stateless activation, a unified node space,
+    131,072 real edges or more (below that the reference measured the
+    unit a loss), both widths multiples of 128, and ``use_fused_edge()``
+    (in training; ``GCLT_FUSED_EDGE=0/1`` overrides)."""
+    return (_stateless(activation)
+            and graph.num_receivers == graph.num_nodes
+            and graph.num_edges >= 131072
+            and hidden_dim % 128 == 0 and edge_dim % 128 == 0
+            and use_fused_edge())
+
+
 class InteractionNetLayer(nn.Module):
     """One GraphCast-style interaction step (parameters ``edge_mlp`` with
     ``lin_0``, ``lin_1`` and, for PReLU, ``act``; ``node_mlp``; with edge
@@ -324,8 +351,10 @@ class InteractionNetLayer(nn.Module):
 
     Each lazy route keeps the reference's own variance formula: E[v²] − μ²
     clamped at 0 on the reg-block and edge-step routes, E[(v − μ)²] on the
-    composed and mega routes.  ``route`` records the route the last call
-    took (``nonlazy`` / ``nonlazy_mega`` for the plain step).
+    fused, composed and mega routes.  ``route`` records the route the last
+    call took (``reg_block``, ``edge_step``, ``fused``, ``mega`` or
+    ``composed`` for the lazy step; ``nonlazy_fused``, ``nonlazy_mega`` or
+    ``nonlazy`` for the plain step).
     """
 
     def __init__(self, node_dim: int, edge_dim: int, hidden_dim: int,
@@ -360,6 +389,13 @@ class InteractionNetLayer(nn.Module):
         d, de, hid = self.node_dim, self.edge_dim, self.hidden_dim
         k0, b0 = self.edge_mlp.lin_0.kernel, self.edge_mlp.lin_0.bias
         k1, b1 = self.edge_mlp.lin_1.kernel, self.edge_mlp.lin_1.bias
+        if _use_fused_edge_path(graph, hid, de, self.activation):
+            self.route = "nonlazy_fused"
+            update, agg = edge_pipeline(
+                x, e, mask, k0[:d], k0[d:2 * d], k0[2 * d:], b0, k1, b1,
+                graph, self.activation,
+                deg=seg_ops.masked_in_degree(graph, mask))
+            return self._plain_tail(x, e, agg, update, mask)
         h = (gather_rows(x @ k0[:d], graph.senders, _senders(graph))
              + gather_rows(x @ k0[d:2 * d], graph.receivers,
                            _receivers(graph))
@@ -375,6 +411,10 @@ class InteractionNetLayer(nn.Module):
             self.route = "nonlazy"
             update = self._edge_act(h) @ k1 + b1
             agg = seg_ops.aggregate_mean(update, graph, mask)
+        return self._plain_tail(x, e, agg, update, mask)
+
+    def _plain_tail(self, x, e, agg, update, mask):
+        """The plain step's node update, residuals and LayerNorms."""
         new_x = x + self.node_mlp(torch.cat([x, agg], dim=-1))
         new_e = e + update
         if self.edge_norm is not None:
@@ -385,6 +425,9 @@ class InteractionNetLayer(nn.Module):
     def _node_step(self, x, agg_sum, graph: Graph, mask):
         deg = seg_ops.masked_in_degree(graph, mask)
         agg = agg_sum / deg.clamp(min=1.0)[:, None].to(agg_sum.dtype)
+        return self._node_update(x, agg)
+
+    def _node_update(self, x, agg):
         return self.node_norm(x + self.node_mlp(torch.cat([x, agg], dim=-1)))
 
     def _affine(self, mu, var):
@@ -443,19 +486,29 @@ class InteractionNetLayer(nn.Module):
             var = torch.clamp(stats[1] / denom - torch.square(mu), min=0.0)
             return (new_x, v_new) + self._affine(mu, var)
 
-        h = (gather_rows(x @ w1s, graph.senders, _senders(graph))
-             + gather_rows(x @ w1r, graph.receivers, _receivers(graph))
-             + v @ w1e_eff + b1_eff)
-        if _use_mega_edge_path(graph, hid, de, self.activation):
-            self.route = "mega"
-            u, agg_sum = edge_mlp.edge_mlp(h, k1, b1, mask, graph.indptr,
-                                           graph.num_receivers,
-                                           self.activation)
+        if _use_fused_edge_path(graph, hid, de, self.activation):
+            # The folded weights enter the unit as inputs: their gradients
+            # flow on to (a, c) and the previous LayerNorm through
+            # autograd.  The unit returns the mean aggregate.
+            self.route = "fused"
+            u, agg = edge_pipeline(
+                x, v, mask, w1s, w1r, w1e_eff, b1_eff, k1, b1, graph,
+                self.activation, deg=seg_ops.masked_in_degree(graph, mask))
+            new_x = self._node_update(x, agg)
         else:
-            self.route = "composed"
-            u = self._act(h) @ k1 + b1
-            agg_sum = seg_ops.aggregate_sum(u, graph, mask)
-        new_x = self._node_step(x, agg_sum, graph, mask)
+            h = (gather_rows(x @ w1s, graph.senders, _senders(graph))
+                 + gather_rows(x @ w1r, graph.receivers, _receivers(graph))
+                 + v @ w1e_eff + b1_eff)
+            if _use_mega_edge_path(graph, hid, de, self.activation):
+                self.route = "mega"
+                u, agg_sum = edge_mlp.edge_mlp(h, k1, b1, mask, graph.indptr,
+                                               graph.num_receivers,
+                                               self.activation)
+            else:
+                self.route = "composed"
+                u = self._act(h) @ k1 + b1
+                agg_sum = seg_ops.aggregate_sum(u, graph, mask)
+            new_x = self._node_step(x, agg_sum, graph, mask)
         # Residual in the pre-norm space + masked graph-mode stats (fp32,
         # PyGLayerNorm semantics: scalar mean/var over masked elements).
         v_new = a.to(v.dtype)[None, :] * v + c.to(v.dtype) + u

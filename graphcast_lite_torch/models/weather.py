@@ -239,6 +239,8 @@ class WeatherModel(nn.Module):
             enc_in = feats * data.obs_window_used + STATIC_NODE_FEATURES
         proc_in = model_output_dim(pipeline.encoder, enc_in)
         dec_in = model_output_dim(pipeline.processor, proc_in)
+        # Width of the encoder's grid latents (``with_latents``).
+        self.latent_dim = proc_in
         self.encoder = ModelBlock(pipeline.encoder, enc_in, generator)
         self.processor = ModelBlock(pipeline.processor, proc_in, generator)
         self.decoder = ModelBlock(pipeline.decoder, dec_in, generator)

@@ -13,7 +13,12 @@ layout.  This covers every family: GAT's ``conv_i.core.{kernel, att_src,
 att_dst, bias}`` and the stack's one shared ``act``, the product-graph
 pre-encoder's ``product_model.*``, and the InteractionNet steps, lazy or
 plain (they share their names; PReLU adds ``edge_mlp.act`` and
-``edge_encoder_act``), so one tree loads into either processor.
+``edge_encoder_act``), so one tree loads into either processor.  The
+regional heads carry the flax names too, so their trees map by the same
+rules: ``models.dual_mesh.DualMeshRegional`` (one shared step,
+``reg_processor.step.…``, not scanned) and
+``models.roi_residual.ROIResidualModule`` (``processor.steps.{i}.…``
+from its scanned ``processor/steps/layer``).
 
 ``from_optax_adam_state(tree, model, processor_lr_factor)`` maps the JAX
 package's Adam state (as ``flax.serialization.to_state_dict`` lays it out)

@@ -8,6 +8,7 @@ import pytest
 
 from graphcast_lite_tpu.graphs.build import build_graph_set as jax_build
 from graphcast_lite_torch.graphs.build import build_graph_set as port_build
+from torch_port_common import assert_graph_equal
 
 LAT = np.linspace(-87.1875, 87.1875, 32).astype(np.float32)
 LON = np.arange(0, 360, 5.625).astype(np.float32)
@@ -23,57 +24,24 @@ def _pair(levels):
     return _CACHE[key]
 
 
-def _eq(port_t, jax_a):
-    a = np.asarray(jax_a)
-    b = port_t.numpy()
-    assert b.shape == a.shape and b.dtype == a.dtype, (b.dtype, a.dtype)
-    np.testing.assert_array_equal(b, a)
+def _statics_equal(jgs, tgs):
+    for name in ("grid_static", "mesh_static", "grid_lat", "grid_lon",
+                 "mesh_lat", "mesh_lon"):
+        np.testing.assert_array_equal(getattr(tgs, name), getattr(jgs, name))
+    assert tgs.num_grid_nodes == jgs.num_grid_nodes
+    assert tgs.num_mesh_nodes == jgs.num_mesh_nodes
 
 
 @pytest.mark.parametrize("levels", [[1, 2], [3, 5]])
 @pytest.mark.parametrize("which", ["encoding", "processing", "decoding"])
 def test_graph_fields_equal_jax(levels, which):
     jgs, tgs = _pair(levels)
-    jg, tg = getattr(jgs, which), getattr(tgs, which)
-    for name in ("senders", "receivers", "edge_mask", "static_in_degree",
-                 "gcn_norm"):
-        _eq(getattr(tg, name), getattr(jg, name))
-    assert (jg.edge_attr is None) == (tg.edge_attr is None)
-    if jg.edge_attr is not None:
-        _eq(tg.edge_attr, jg.edge_attr)
-    for name in ("num_nodes", "num_receivers", "num_edges",
-                 "const_in_degree", "num_const_receivers"):
-        assert getattr(tg, name) == getattr(jg, name), name
-
-    # indptr: receiver CSR offsets over the padded, sorted rows.
-    recv = tg.receivers.numpy()
-    ip = tg.indptr.numpy()
-    assert ip.dtype == np.int32 and ip.shape == (tg.num_receivers + 1,)
-    assert ip[0] == 0 and ip[-1] == tg.padded_num_edges
-    np.testing.assert_array_equal(np.diff(ip), np.bincount(
-        recv, minlength=tg.num_receivers))
-    np.testing.assert_array_equal(
-        np.repeat(np.arange(tg.num_receivers), np.diff(ip)), recv)
-
-    assert (jg.reg_blocks is None) == (tg.reg_blocks is None)
-    if jg.reg_blocks is not None:
-        jr, tr = jg.reg_blocks, tg.reg_blocks
-        for name in ("senders", "mask", "edge_attr"):
-            _eq(getattr(tr, name), getattr(jr, name))
-        assert tr.block_recv == jr.block_recv
-        assert tr.block_k == jr.block_k
-        assert tr.num_nodes == jr.num_nodes
-        assert tr.rows_padded == jr.rows_padded
+    assert_graph_equal(getattr(jgs, which), getattr(tgs, which))
 
 
 @pytest.mark.parametrize("levels", [[1, 2], [3, 5]])
 def test_static_features_equal_jax(levels):
-    jgs, tgs = _pair(levels)
-    for name in ("grid_static", "mesh_static", "grid_lat", "grid_lon",
-                 "mesh_lat", "mesh_lon"):
-        np.testing.assert_array_equal(getattr(tgs, name), getattr(jgs, name))
-    assert tgs.num_grid_nodes == jgs.num_grid_nodes
-    assert tgs.num_mesh_nodes == jgs.num_mesh_nodes
+    _statics_equal(*_pair(levels))
 
 
 def _eq_bf16(port_t, jax_a):
@@ -121,8 +89,46 @@ def test_to_casts_float_arrays_only():
         _eq_bf16(getattr(hub, name), getattr(jhub, name))
 
 
+# A region of the WB2 64x32 grid with a 5° mesh buffer, and the same grid
+# given as per-node coordinates (a flat grid).
+REGION, BUFFER = (40.0, 60.0, 60.0, 90.0), 5.0
+FLAT_LON, FLAT_LAT = (a.reshape(-1) for a in np.meshgrid(LON, LAT))
+
+
+def _flat_or_regional(kind, levels):
+    key = (kind, tuple(levels))
+    if key not in _CACHE:
+        if kind == "regional":
+            args = (LAT, LON, levels, 0.6)
+            kw = dict(region_bounds=REGION, mesh_buffer_deg=BUFFER)
+        else:
+            args = (FLAT_LAT, FLAT_LON, levels, 0.6)
+            kw = dict(flat_grid=True)
+        _CACHE[key] = (jax_build(*args, **kw), port_build(*args, **kw))
+    return _CACHE[key]
+
+
 def test_regional_and_flat_grids_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_build(LAT, LON, [1, 2], 0.6, region_bounds=(40, 60, 60, 90))
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_build(LAT, LON, [1, 2], 0.6, flat_grid=True)
+    """The port builds regional meshes and flat grids (it raised for both
+    before they were ported; the name is kept): every array of both graph
+    sets equals the JAX package's, and the pruned mesh has no
+    constant-degree blocks."""
+    for kind in ("regional", "flat"):
+        jgs, tgs = _flat_or_regional(kind, [1, 2])
+        for which in ("encoding", "processing", "decoding"):
+            assert_graph_equal(getattr(jgs, which), getattr(tgs, which))
+        _statics_equal(jgs, tgs)
+    jgs, tgs = _flat_or_regional("regional", [1, 2])
+    assert tgs.processing.reg_blocks is None
+    assert tgs.num_mesh_nodes < _pair([1, 2])[1].num_mesh_nodes
+    flat, regular = _flat_or_regional("flat", [1, 2])[1], _pair([1, 2])[1]
+    np.testing.assert_array_equal(flat.grid_static, regular.grid_static)
+
+
+@pytest.mark.parametrize("kind", ["regional", "flat"])
+@pytest.mark.parametrize("which", ["encoding", "processing", "decoding"])
+def test_flat_and_regional_fields_equal_jax(kind, which):
+    """At mesh [3, 5], the flagship's 64x32 levels."""
+    jgs, tgs = _flat_or_regional(kind, [3, 5])
+    assert_graph_equal(getattr(jgs, which), getattr(tgs, which))
+    _statics_equal(jgs, tgs)

@@ -43,10 +43,13 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 44 since the product graph (graphs.product); 43 with the trainer
-    # (utils.logs, utils.flax_msgpack, training.checkpoint, cli.make_demo
-    # and cli.train), 38 with the train step, 35 with the COO routes.
-    assert int(proc.stdout.split()[0]) >= 44, proc.stdout
+    # 49 since the regional stack and the COO training units
+    # (ops.gcn_agg, graphs.regional, models.dual_mesh, models.roi_residual,
+    # cli.train_regional); 44 with the product graph (graphs.product); 43
+    # with the trainer (utils.logs, utils.flax_msgpack, training.checkpoint,
+    # cli.make_demo and cli.train), 38 with the train step, 35 with the COO
+    # routes.
+    assert int(proc.stdout.split()[0]) >= 49, proc.stdout
 
 
 @pytest.fixture(scope="module")
@@ -158,3 +161,24 @@ def test_new_families_need_a_card_unless_asked_for_cpu(tiny_serve, tmp_path,
                 Trainer(model, graphs, cfg, meta, str(tmp_path / "card"))
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 evaluate_model(model, graphs, test_ds, meta, max_samples=1)
+
+
+def test_train_regional_needs_a_card_unless_asked_for_cpu(tmp_path,
+                                                         monkeypatch):
+    """``cli.train_regional`` runs both heads on the CPU when asked, and
+    raises without a card otherwise."""
+    from graphcast_lite_torch.cli import make_demo, train_regional
+
+    exp = str(tmp_path / "demo")
+    make_demo.main([exp])
+    args = [exp, "--roi", "20", "60", "60", "140", "--reg-level", "3",
+            "--hidden", "16", "--processor-steps", "1", "--epochs", "1",
+            "--max-steps-per-epoch", "1"]
+    for head in ("dual_mesh", "roi_residual"):
+        report = train_regional.main(args + ["--head", head, "--device",
+                                             "cpu", "--evaluate"])
+        assert np.isfinite(report.region["rmse"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_regional.main(args + extra)

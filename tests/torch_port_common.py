@@ -143,9 +143,11 @@ def _cast(tree, dtype):
         if hasattr(a, "dtype") and a.dtype == jnp.float32 else a, tree)
 
 
-def jax_step(jmodel, params, jgraphs, x, y, lw, cm, dtype=jnp.float32):
+def jax_step(jmodel, params, jgraphs, x, y, lw, cm, dtype=jnp.float32,
+             ar=AR):
     """(loss, gradients as a port state dict) of the JAX package's
-    rollout_loss, in ``dtype`` against the fp32 ``params``."""
+    rollout_loss over ``ar`` AR steps, in ``dtype`` against the fp32
+    ``params``."""
     from graphcast_lite_tpu.training.rollout import RolloutSpec, \
         rollout_loss
 
@@ -161,7 +163,7 @@ def jax_step(jmodel, params, jgraphs, x, y, lw, cm, dtype=jnp.float32):
         def fn(inp, m, t, pr):
             return jmodel.apply(pc, inp[0], graphs)[0][None], None
 
-        loss, _ = rollout_loss(fn, window, targets, AR, spec, None, 0.0,
+        loss, _ = rollout_loss(fn, window, targets, ar, spec, None, 0.0,
                                False, jnp.asarray(lw), jnp.asarray(cm))
         return loss.astype(jnp.float32)
 
@@ -170,16 +172,17 @@ def jax_step(jmodel, params, jgraphs, x, y, lw, cm, dtype=jnp.float32):
     return float(loss), from_flax_params(flax_numpy(grads))
 
 
-def port_step(tmodel, tgraphs, x, y, lw, cm, dtype="float32", hidden=None):
+def port_step(tmodel, tgraphs, x, y, lw, cm, dtype="float32", hidden=None,
+              ar=AR):
     """(loss, {name: fp32 grad}, params before, params after) of one
-    ``make_train_step`` step on the CPU; a parameter the loss does not
-    reach has a zero gradient."""
+    ``make_train_step`` step over ``ar`` AR steps on the CPU; a parameter
+    the loss does not reach has a zero gradient."""
     from graphcast_lite_torch.training.rollout import RolloutSpec
     from graphcast_lite_torch.training.trainer import make_train_step
 
     _, cfg = small_configs() if hidden is None else small_configs(
         hidden=hidden)
-    cfg.max_ar_steps, cfg.learning_rate = AR, LR
+    cfg.max_ar_steps, cfg.learning_rate = ar, LR
     cfg.tpu.compute_dtype = dtype
     before = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
     step = make_train_step(tmodel, tgraphs, RolloutSpec(**SPEC), cfg,
@@ -261,3 +264,48 @@ def read_jsonl(path):
 
     with open(path) as f:
         return [json.loads(line) for line in f]
+
+
+# ---- graphs ------------------------------------------------------------
+
+
+def _eq(port_t, jax_a):
+    a = np.asarray(jax_a)
+    b = port_t.numpy()
+    assert b.shape == a.shape and b.dtype == a.dtype, (b.dtype, a.dtype)
+    np.testing.assert_array_equal(b, a)
+
+
+def assert_graph_equal(jg, tg):
+    """Every field of a port ``Graph`` equals the JAX package's ``Graph``
+    (``indptr`` checked against the receivers), and so do their
+    constant-degree blocks."""
+    for name in ("senders", "receivers", "edge_mask", "static_in_degree",
+                 "gcn_norm"):
+        _eq(getattr(tg, name), getattr(jg, name))
+    assert (jg.edge_attr is None) == (tg.edge_attr is None)
+    if jg.edge_attr is not None:
+        _eq(tg.edge_attr, jg.edge_attr)
+    for name in ("num_nodes", "num_receivers", "num_edges",
+                 "const_in_degree", "num_const_receivers"):
+        assert getattr(tg, name) == getattr(jg, name), name
+
+    # indptr: receiver CSR offsets over the padded, sorted rows.
+    recv = tg.receivers.numpy()
+    ip = tg.indptr.numpy()
+    assert ip.dtype == np.int32 and ip.shape == (tg.num_receivers + 1,)
+    assert ip[0] == 0 and ip[-1] == tg.padded_num_edges
+    np.testing.assert_array_equal(np.diff(ip), np.bincount(
+        recv, minlength=tg.num_receivers))
+    np.testing.assert_array_equal(
+        np.repeat(np.arange(tg.num_receivers), np.diff(ip)), recv)
+
+    assert (jg.reg_blocks is None) == (tg.reg_blocks is None)
+    if jg.reg_blocks is not None:
+        jr, tr = jg.reg_blocks, tg.reg_blocks
+        for name in ("senders", "mask", "edge_attr"):
+            _eq(getattr(tr, name), getattr(jr, name))
+        assert tr.block_recv == jr.block_recv
+        assert tr.block_k == jr.block_k
+        assert tr.num_nodes == jr.num_nodes
+        assert tr.rows_padded == jr.rows_padded
