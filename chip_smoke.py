@@ -19,9 +19,13 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    Hopper kernels meet (in-degree 1, alternating in-degrees 0 and 13,
    receivers of exactly 64 and 128 rows, one receiver, R = 33) and on bf16
    rows wider than those kernels take (H = 384), which run the 16-receiver
-   design.  Checks that the edge-MLP library's width selection
-   (``gclt_edge_mlp_wgmma``) and group size agree with the wrapper's Python
-   mirror and prints each layout's shared memory.
+   design.  ``edge_mlp`` at H, De in {128, 256} takes its Hopper design in
+   both dtypes (asserted: ``hopper_bf16``, ``hopper_fp32``); the fp32 one
+   also on rows up to |h| = 30 with W2 columns scaled by 2^10 and 2^-10 at
+   each of its widths, and two fp32 launches are compared bitwise.  Checks
+   that the edge-MLP library's design selection
+   (``gclt_edge_mlp_design``) and group size agree with the wrapper's
+   Python mirror and prints each layout's shared memory.
 1c. The segment sum against its plain version, fp32 and bf16, at the
    shapes the GAT, SparseGAT and product-graph families add on the WB2
    64x32 graphs: GAT aggregations (F = 256 at 4 heads x 64, 64 at one
@@ -113,7 +117,11 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    H = De = 256), each against its plain version in fp32 and bf16 and
    timed (fp32 for the regional shapes, which ``train_regional`` trains
    in; bf16 for the flagship's) against its bound, its plain version and
-   ``torch.segment_reduce``.  7b: the flagship bf16 train step on the
+   ``torch.segment_reduce``; fp32 ``edge_mlp`` and ``edge_step`` at the
+   flagship processor shape the same way (fp32 ``edge_mlp`` also beside
+   ``torch.addmm`` of its product alone, TF32 off, and its FMA bound), and
+   the ``edge_step`` launches of an fp32 AR-4 rollout on the COO
+   edge-step route.  7b: the flagship bf16 train step on the
    fused edge unit (``GCLT_REG_EDGE=0``: route ``fused``;
    ``GCLT_LAZY_EDGE=0``: ``nonlazy_fused``; each also under
    ``GCLT_MEGA_EDGE=1``, which launches ``edge_mlp`` in training) beside
@@ -193,8 +201,10 @@ BF16_SERVE_RTOL = 2.0 ** -5
 # H100 SXM data-sheet rates: HBM3 bytes/s and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
-# fp32 outside the tensor cores (the fp32 edge-MLP kernel's FMA design).
+# fp32 outside the tensor cores (the fp32 edge step's FMA design), and
+# dense TF32 on the tensor cores (the fp32 edge MLP's 3xTF32 products).
 FP32_FLOPS = 67e12
+TF32_TC_FLOPS = 495e12
 # edge_step at the flagship processor shape before its Hopper redesign:
 # the wmma kernel of commit c6b0bb6, H100 80GB HBM3 at 700 W.
 EDGE_STEP_EARLIER_MS = 2.1121
@@ -560,14 +570,16 @@ def _fused_case(gen, num_edges, num_receivers, hid, de, dtype, recv=None):
     return out
 
 
-def _close(label, out, ref, tol, extra=None) -> float:
-    """Raise unless |out - ref| <= atol + rtol |ref| (+ extra) everywhere
-    and out is finite; returns the max abs error."""
+def _close(label, out, ref, tol, extra=None, unit=None) -> float:
+    """Raise unless |out - ref| <= atol * unit + rtol |ref| (+ extra)
+    everywhere and out is finite (``unit``: 1, or a per-column scale that
+    broadcasts against the output); returns the max abs error."""
     out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{label}: non-finite kernel output")
     diff = (out - ref).abs()
-    allowed = tol["atol"] + tol["rtol"] * ref.abs()
+    atol = tol["atol"] if unit is None else tol["atol"] * unit
+    allowed = atol + tol["rtol"] * ref.abs()
     if extra is not None:
         allowed = allowed + extra
     if (diff > allowed).any():
@@ -582,28 +594,29 @@ def _close(label, out, ref, tol, extra=None) -> float:
 
 def _mlp_design(dtype, hid, de) -> str:
     """The design the built edge_mlp library takes at these widths
-    ("hopper" or "tile16"); raises unless it and its receivers per group
-    agree with the wrapper's Python mirror."""
+    ("hopper_bf16", "hopper_fp32" or "tile16"); raises unless it and its
+    receivers per group agree with the wrapper's Python mirror."""
     from graphcast_lite_torch.ops import edge_mlp, nvcc_build
 
     lib = nvcc_build.load(edge_mlp.SOURCE, edge_mlp.SIGNATURES)
     code = nvcc_build.DTYPE_CODES[dtype]
-    wgmma = bool(lib.gclt_edge_mlp_wgmma(code, hid, de))
+    took = edge_mlp.DESIGNS[lib.gclt_edge_mlp_design(code, hid, de)]
     tile = lib.gclt_edge_mlp_tile_receivers(code, hid, de)
-    if (wgmma != edge_mlp.wgmma_design(dtype, hid, de)
+    if (took != edge_mlp.design(dtype, hid, de)
             or tile != edge_mlp.tile_receivers(dtype, hid, de)):
         raise AssertionError(
-            f"edge_mlp {dtype} H={hid} De={de}: library says wgmma {wgmma}, "
+            f"edge_mlp {dtype} H={hid} De={de}: library says {took}, "
             f"{tile} receivers; Python says "
-            f"{edge_mlp.wgmma_design(dtype, hid, de)}, "
+            f"{edge_mlp.design(dtype, hid, de)}, "
             f"{edge_mlp.tile_receivers(dtype, hid, de)}")
-    return "hopper" if wgmma else "tile16"
+    return took
 
 
-def _check_edge_mlp(label, t, r, act="swish", design=None):
+def _check_edge_mlp(label, t, r, act="swish", design=None, unit=None):
     """edge_mlp kernel against its plain version, and the design it took
-    against ``design`` where given; returns the max abs error over u and
-    agg."""
+    against ``design`` where given; ``unit`` scales atol per column (a
+    case whose W2 columns are scaled by powers of two); returns the max
+    abs error over u and agg."""
     from graphcast_lite_torch.ops import cuda_segment, edge_mlp
 
     args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r, act)
@@ -618,12 +631,25 @@ def _check_edge_mlp(label, t, r, act="swish", design=None):
         u_ref.float().abs() * t["mask"].float()[:, None], t["indptr"], r)
     torch.cuda.synchronize()
     tol = FUSED_FP32_TOL if u.dtype == torch.float32 else FUSED_BF16_TOL
-    err = max(_close(f"edge_mlp {label} u", u, u_ref, tol),
+    err = max(_close(f"edge_mlp {label} u", u, u_ref, tol, unit=unit),
               _close(f"edge_mlp {label} agg", agg, agg_ref, tol,
-                     ORDER_RTOL * mag))
+                     ORDER_RTOL * mag, unit=unit))
     _log(f"  edge_mlp  {label:<46s} {str(u.dtype):<15s} max|err| "
          f"{err:.3e} ok ({took})")
     return err
+
+
+def _bitwise_edge_mlp(label, t, r):
+    """Two launches of edge_mlp on the same inputs give the same bits."""
+    from graphcast_lite_torch.ops import edge_mlp
+
+    args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
+            "swish")
+    u1, agg1 = edge_mlp.edge_mlp(*args)
+    u2, agg2 = edge_mlp.edge_mlp(*args)
+    if not (torch.equal(u1, u2) and torch.equal(agg1, agg2)):
+        raise AssertionError(f"edge_mlp {label}: two launches differ")
+    _log(f"  edge_mlp  {label}: two launches bitwise equal")
 
 
 def _check_edge_step(label, t, r, act="swish"):
@@ -667,7 +693,7 @@ def phase_fused_cases():
         for hid in (128, 256, 384, 512):
             for de in (128, 256, 384, 512):
                 _mlp_design(dtype, hid, de)
-    _log("  edge_mlp width selection: library and Python agree on fp32 and "
+    _log("  edge_mlp design selection: library and Python agree on fp32 and "
          "bf16 at H, De in {128, 256, 384, 512}; shared memory a block: "
          + ", ".join(
              f"{str(dt)[6:]} {hid}x{de} "
@@ -679,34 +705,54 @@ def phase_fused_cases():
                                  (torch.bfloat16, 256, 256),
                                  (torch.bfloat16, 384, 384),
                                  (torch.bfloat16, 384, 128),
-                                 (torch.float32, 256, 256))))
+                                 (torch.float32, 128, 128),
+                                 (torch.float32, 256, 256),
+                                 (torch.float32, 384, 384))))
     gen = torch.Generator().manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
+        # H, De in {128, 256}: the Hopper design of the dtype, asserted.
+        hop = "hopper_fp32" if dtype == torch.float32 else "hopper_bf16"
         for hid, de in ((128, 128), (256, 256), (128, 256)):
             label = f"E=60000 R=20001 H={hid} De={de}"
             t = _fused_case(gen, 60_000, 20_001, hid, de, dtype)
-            _check_edge_mlp(label, t, 20_001)
+            _check_edge_mlp(label, t, 20_001, design=hop)
             _check_edge_step(label, t, 20_001)
         t = _fused_case(gen, 0, 12_003, 256, 256, dtype,
                         recv=torch.sort(torch.randint(
                             5_000, 7_000, (20_001,), generator=gen)).values)
         label = "empty receivers + padding rows, R=12003"
-        _check_edge_mlp(label, t, 12_003, "relu")
+        _check_edge_mlp(label, t, 12_003, "relu", design=hop)
         _check_edge_step(label, t, 12_003, "relu")
         hog = torch.cat([torch.zeros(2_500, dtype=torch.int64),
                          torch.sort(torch.randint(1, 4_001, (9_000,),
                                                   generator=gen)).values])
         t = _fused_case(gen, 0, 4_001, 256, 256, dtype, recv=hog)
         label = "receiver with 2500 edges, R=4001"
-        _check_edge_mlp(label, t, 4_001)
+        _check_edge_mlp(label, t, 4_001, design=hop)
         _check_edge_step(label, t, 4_001)
+        if dtype == torch.float32:
+            _bitwise_edge_mlp(label, t, 4_001)
         for label, r, recv in _tiling_cases(gen):
             t = _fused_case(gen, 0, r, 256, 256, dtype, recv=recv)
-            _check_edge_mlp(label, t, r)
+            _check_edge_mlp(label, t, r, design=hop)
             _check_edge_step(label, t, r)
-    # bf16 rows wider than the Hopper kernels' shared memory holds take the
-    # 16-receiver wmma design (fp32 at these widths needs more than a block
-    # may have).
+    # The fp32 Hopper design (3xTF32 products) on rows up to |h| = 30 with
+    # W2's and b2's columns 0, 4, 8, ... scaled by 2^10 and 1, 5, 9, ... by
+    # 2^-10, at each of its widths: atol in each column's unit (scaling a
+    # column by a power of two scales both versions' results exactly).
+    for hid, de in ((128, 128), (256, 128), (128, 256), (256, 256)):
+        t = _fused_case(gen, 60_000, 20_001, hid, de, torch.float32)
+        unit = torch.ones(de, device="cuda")
+        unit[0::4] = 2.0 ** 10
+        unit[1::4] = 2.0 ** -10
+        t["h_pre"] = (t["h_pre"] * 5.0).clamp(-30.0, 30.0)
+        t["w2"] = t["w2"] * unit
+        t["b2"] = t["b2"] * unit
+        label = f"|h|<=30, W2 cols x 2^+-10, H={hid} De={de}"
+        _check_edge_mlp(label, t, 20_001, design="hopper_fp32", unit=unit)
+        _bitwise_edge_mlp(label, t, 20_001)
+    # bf16 rows wider than the Hopper kernels take run the 16-receiver wmma
+    # design.
     for hid, de in ((384, 384), (384, 128)):
         t = _fused_case(gen, 20_000, 6_001, hid, de, torch.bfloat16)
         label = f"E=20000 R=6001 H={hid} De={de}"
@@ -1096,7 +1142,7 @@ def phase_kernel_flagship(gs, n_feat):
             indptr.to("cuda"), n)
 
     label = f"flagship multimesh E_pad={e_pad} R={r} H=De={hid}"
-    mlp_err = _check_edge_mlp(label, t, r, design="hopper")
+    mlp_err = _check_edge_mlp(label, t, r, design="hopper_bf16")
     mlp_args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
                 "swish")
     mlp_bytes = _nbytes(t["h_pre"], t["w2"], t["b2"], t["mask"],
@@ -1106,7 +1152,8 @@ def phase_kernel_flagship(gs, n_feat):
            "ms": _time_ms(lambda: edge_mlp.edge_mlp(*mlp_args)),
            "plain_ms": _time_ms(lambda: edge_mlp.edge_mlp_reference(
                *mlp_args), iters=5, warmup=1),
-           "bound_ms": mlp_bound, "bound_by": mlp_by, "design": "hopper"}
+           "bound_ms": mlp_bound, "bound_by": mlp_by,
+           "design": "hopper_bf16"}
     mlp["fraction_of_bound"] = mlp["bound_ms"] / mlp["ms"]
 
     step_err, stats_err = _check_edge_step(label, t, r)
@@ -2349,9 +2396,20 @@ def phase_user_loop(workdir, proc_edges):
 
 def _bound_fp32(nbytes: float, flops: float):
     """``_bound`` for fp32 work done outside the tensor cores (the fp32
-    edge-MLP kernel's FMA design): operations over FP32_FLOPS."""
+    edge step's 16-receiver design, and the FMA figure beside the fp32
+    edge-MLP kernel's 3xTF32 bound): operations over FP32_FLOPS."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _bound_tf32x3(nbytes: float, flops: float):
+    """``_bound`` for fp32 products in 3xTF32 on the tensor cores (the fp32
+    edge-MLP kernel's Hopper design): three TF32 products, 3 * flops over
+    TF32_TC_FLOPS."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * flops / TF32_TC_FLOPS * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -2403,8 +2461,9 @@ def phase_regional_kernels(gs):
     backward's scatter, and ``edge_mlp`` at the reg-level-8 processing
     shape, against their plain versions in fp32 and bf16 (two segment-sum
     launches bitwise equal), each timed against its bound, its plain
-    version and (the segment sum) ``torch.segment_reduce``."""
-    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+    version and (the segment sum) ``torch.segment_reduce``; fp32
+    ``edge_mlp`` also against the FMA bound and ``torch.addmm``."""
+    from graphcast_lite_torch.ops import cuda_segment
 
     t0 = time.perf_counter()
     rg = _regional_graphs(gs)
@@ -2436,31 +2495,113 @@ def phase_regional_kernels(gs):
     r, e_pad, hid = proc.num_receivers, proc.padded_num_edges, REGIONAL_HIDDEN
     label = f"regional processing E_pad={e_pad} R={r} H=De={hid}"
     mlp = {}
-    for dtype, design in ((torch.float32, "tile16"),
-                          (torch.bfloat16, "hopper")):
+    for dtype in (torch.float32, torch.bfloat16):
         t = _fused_case(gen, 0, r, hid, hid, dtype,
                         recv=proc.receivers.long())
         t["mask"] = proc.edge_mask.to("cuda", dtype)
-        err = _check_edge_mlp(label, t, r, design=design)
-        args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
-                "swish")
-        size = 2 if dtype == torch.bfloat16 else 4
-        nbytes = _nbytes(*args[:5]) + (e_pad + r) * hid * size
-        flops = 2 * e_pad * hid * hid
-        bound, by = (_bound(nbytes, flops) if dtype == torch.bfloat16
-                     else _bound_fp32(nbytes, flops))
-        ms = _time_ms(lambda: edge_mlp.edge_mlp(*args))
-        plain = _time_ms(lambda: edge_mlp.edge_mlp_reference(*args),
-                         iters=5, warmup=1)
-        key = str(dtype)[6:]
-        mlp[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": bound, "bound_by": by,
-                    "fraction_of_bound": bound / ms, "design": design,
-                    "library_ms": None}
-        _log(f"  edge_mlp {label} {key}: kernel {ms * 1e3:.1f} us ({design}"
-             f") | bound {bound * 1e3:.1f} us ({by}; {nbytes / 1e6:.1f} MB,"
-             f" {flops / 1e9:.1f} GFLOP) | plain {plain * 1e3:.1f} us")
+        mlp[str(dtype)[6:]] = _time_edge_mlp(label, t, r)
     return seg, mlp
+
+
+def _time_edge_mlp(label, t, r):
+    """``edge_mlp`` on ``t`` against its plain version, then timed against
+    its bound and its plain version; in fp32 also the product alone
+    through ``torch.addmm`` (TF32 off; context: one call does not compute
+    the fused function) and the bound on the FMA units beside the 3xTF32
+    one."""
+    from graphcast_lite_torch.ops import edge_mlp
+
+    dtype = t["h_pre"].dtype
+    e_pad, hid = t["h_pre"].shape
+    de = t["w2"].shape[1]
+    design = edge_mlp.design(dtype, hid, de)
+    err = _check_edge_mlp(label, t, r, design=design)
+    args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r,
+            "swish")
+    nbytes = _nbytes(*args[:5]) + (e_pad + r) * de * t["h_pre"].element_size()
+    flops = 2 * e_pad * hid * de
+    ms = _time_ms(lambda: edge_mlp.edge_mlp(*args))
+    plain = _time_ms(lambda: edge_mlp.edge_mlp_reference(*args),
+                     iters=5, warmup=1)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "design": design, "library_ms": None}
+    if dtype == torch.bfloat16:
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
+        extra = ""
+    else:
+        row["bound_ms"], row["bound_by"] = _bound_tf32x3(nbytes, flops)
+        row["fma_bound_ms"] = _bound_fp32(nbytes, flops)[0]
+        a = edge_mlp.act_fn("swish")(t["h_pre"])
+        row["addmm_fp32_ms"] = _time_ms(
+            lambda: torch.addmm(t["b2"], a, t["w2"]))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        steps = edge_mlp.fp32_steps_per_block(t["indptr"], sms)
+        row["steps_per_block"] = [int(steps.min()), int(steps.max())]
+        extra = (f" | FMA bound {row['fma_bound_ms'] * 1e3:.1f} us | "
+                 f"addmm alone (TF32 off) {row['addmm_fp32_ms'] * 1e3:.1f} "
+                 f"us | {int(steps.sum())} steps of "
+                 f"{edge_mlp.F32_STEP_ROWS} rows on {steps.numel()} blocks, "
+                 f"{int(steps.min())}-{int(steps.max())} a block")
+    row["fraction_of_bound"] = row["bound_ms"] / ms
+    _log(f"  edge_mlp {label} {str(dtype)[6:]}: kernel {ms * 1e3:.1f} us "
+         f"({design}) | bound {row['bound_ms'] * 1e3:.1f} us "
+         f"({row['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
+         f"GFLOP; fraction {row['fraction_of_bound']:.3f}) | plain "
+         f"{plain * 1e3:.1f} us" + extra)
+    return row
+
+
+def phase_fp32_kernels(ctx):
+    """7a, fp32 at the flagship processor shape (E_pad 261,120, R 40,962,
+    H = De = 256; ``Trainer.fit``'s evaluation and the fp32 train-step
+    pairs run these): ``edge_mlp`` and ``edge_step`` against their plain
+    versions and timed, and the ``edge_step`` launches of one fp32 AR-4
+    rollout on the COO edge-step route."""
+    from graphcast_lite_torch.ops import edge_step
+
+    gs = ctx["gs"]
+    proc = gs.processing
+    r, e_pad, hid = proc.num_receivers, proc.padded_num_edges, 256
+    label = f"flagship processing E_pad={e_pad} R={r} H=De={hid}"
+    _log(f"phase 7a: fp32 at the {label}")
+    gen = torch.Generator().manual_seed(23)
+    t = _fused_case(gen, 0, r, hid, hid, torch.float32,
+                    recv=proc.receivers.long())
+    t["mask"] = proc.edge_mask.to("cuda", torch.float32)
+    mlp = _time_edge_mlp(label, t, r)
+
+    step_err, stats_err = _check_edge_step(label, t, r)
+    args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
+            t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r, "swish")
+    nbytes = _nbytes(*args[:11]) + (e_pad + r) * hid * 4 + 3 * 4
+    flops = 4 * e_pad * hid * hid
+    bound, by = _bound_fp32(nbytes, flops)
+    ms = _time_ms(lambda: edge_step.edge_step(*args))
+    plain = _time_ms(lambda: edge_step.edge_step_reference(*args), iters=5,
+                     warmup=1)
+    env, _ = COO_ROUTES["edge_step"]
+    with _route(env):
+        rollout, _ = _rollout(ctx, torch.float32)
+        _reset_launches()
+        out = rollout()
+        torch.cuda.synchronize()
+        counts = _launches()
+    if not torch.isfinite(out).all():
+        raise AssertionError("fp32 edge-step rollout: non-finite output")
+    if counts != {"segment_sum": 8, "edge_mlp": 0, "edge_step": 48}:
+        raise AssertionError(f"fp32 edge-step rollout launches {counts}")
+    step = {"max_abs_err": step_err, "stats_abs_err": stats_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "fraction_of_bound": bound / ms, "library_ms": None,
+            "launches_per_fp32_rollout": counts["edge_step"],
+            "route": env}
+    _log(f"  edge_step {label} float32: kernel {ms * 1e3:.1f} us "
+         f"(16-receiver FMA design) | bound {bound * 1e3:.1f} us ({by} at "
+         f"{FP32_FLOPS:.3g} FLOP/s; {nbytes / 1e6:.1f} MB, "
+         f"{flops / 1e9:.1f} GFLOP; fraction {bound / ms:.3f}) | plain "
+         f"{plain * 1e3:.1f} us | {counts['edge_step']} launches a fp32 "
+         f"AR-4 rollout on {env}")
+    return {"edge_mlp": mlp, "edge_step": step}
 
 
 def _coo_train_launches(model, graphs, coo: bool, mega: bool,
@@ -2866,6 +3007,14 @@ def phase_regional_train(workdir, gs):
              + f"; launches a step {rec.steps[-1]['launches']}; region RMSE "
              f"{report.region['rmse']:.6f}; CLI wall {wall:.1f} s")
         rec.model = None
+    # The fp32 edge-MLP kernel runs 4 times a mega head step (forward,
+    # recompute); the step without mega runs the composed tail instead.
+    mega = out["dual_mesh_mega"]
+    mega["minus_dual_mesh_step_ms"] = (mega["step_ms"]
+                                       - out["dual_mesh"]["step_ms"])
+    _log(f"  dual-mesh head step with GCLT_MEGA_EDGE=1 minus without, "
+         f"steps 2-{REGIONAL_STEPS}: "
+         f"{mega['minus_dual_mesh_step_ms']:+.2f} ms")
     out["card_vs_cpu_64x32"] = _regional_card_vs_cpu()
     return out
 
@@ -3057,6 +3206,7 @@ def main() -> int:
         ctx["gs"], n_feat)
     seg_new = phase_kernel_new_shapes(graphs64)
     seg_regional, mlp_regional = phase_regional_kernels(ctx["gs"])
+    flagship32 = phase_fp32_kernels(ctx)
     phase_numerics()
     baseline = phase_baseline_numerics(gs64, graphs64)
     phase_sender_scatter_cases(ctx["gs"], n_feat)
@@ -3133,6 +3283,11 @@ def main() -> int:
             extra["launches_per_regional_head_step"] = {
                 n: c[name] for n, c in head_steps.items()}
             extra["at_regional_shape"] = mlp_regional
+            extra["designs"] = {
+                "bf16, H and De in {128, 256}": "hopper_bf16",
+                "fp32, H and De in {128, 256}": "hopper_fp32",
+                "wider rows": "tile16"}
+        extra["at_flagship_fp32"] = flagship32[name]
         kernels.append((name, src, tpu, dict(
             k, **extra, launches=n, launches_per_rollout=n,
             launches_per_train_step=train["launches_per_step"][name],

@@ -19,19 +19,24 @@
 // the aggregate sums the cast u in fp32 and is cast to T once.  Padding
 // rows (receiver R-1's range, mask 0) get a u row and add nothing.
 //
-// Bound: bytes.  Per edge row it reads H values and writes De values and
-// does 2*H*De operations: at H = De = 256 in bf16, 131,072 operations per
-// 1 KB moved, 128 per byte, below the H100's 295.  At the flagship
-// processor shape (E_pad 261,120, R 40,962, H = De = 256, bf16) the least
-// traffic is 133.7 MB of h_pre read, 133.7 MB of u and 21.0 MB of agg
-// written: about 86 us at 3.35 TB/s; the 34.2 GFLOP would take 35 us.
+// Bound.  Per edge row it reads H values and writes De values and does
+// 2*H*De operations.  In bf16 at H = De = 256: 131,072 operations per 1 KB
+// moved, 128 per byte, below the H100's 295, so bytes: at the flagship
+// processor shape (E_pad 261,120, R 40,962) the least traffic is 133.7 MB
+// of h_pre read, 133.7 MB of u and 21.0 MB of agg written, about 86 us at
+// 3.35 TB/s; the 34.2 GFLOP would take 35 us.  In fp32 the bytes double
+// (0.172 ms at the flagship) and the products, in 3xTF32 (three TF32
+// products at 495 TFLOP/s), bound it: 0.207 ms at the flagship, 0.181 ms
+// at the regional head's processing shape (E_pad 228,352, R 41,046).
 //
-// Two designs.  fp32 (not the serve dtype), and bf16 rows wider than 256,
-// keep the 16-receiver design of edge_tile.cuh: a block per 16 receivers,
-// wmma or FMA products into an fp32 tile in shared memory with W2 re-read
-// from L2 for every 64-row sub-tile, epilogue and aggregate between
-// barriers.  bf16 at H and De in {128, 256} (the serve dtype and the
-// flagship's widths) takes a design built for Hopper (hopper() below):
+// Three designs (design() below).  Rows wider than 256 keep the
+// 16-receiver design of edge_tile.cuh: a block per 16 receivers, wmma (bf16)
+// or FMA (fp32) products into an fp32 tile in shared memory with W2
+// re-read from L2 for every 64-row sub-tile, epilogue and aggregate
+// between barriers.  At H and De in {128, 256} (the flagship's widths) bf16
+// and fp32 each take a design built for Hopper.
+//
+// bf16 (edge_mlp_bf16_kernel):
 //
 // * W2 resident.  W2 (128 KB at 256 x 256) fits in shared memory beside two
 //   row stages, so each persistent block (one an SM, two warpgroups) loads
@@ -85,6 +90,57 @@
 // ms): with W2 resident only two row stages fit, so a stage goes back to
 // the loader only once its u is out, and the next rows' load is exposed.
 
+// fp32 (edge_mlp_f32_kernel).  fp32's W2 is 256 KB at 256 x 256, 512 KB
+// split, and cannot stay resident; the fp32 tolerance rules out one TF32
+// pass (about three digits).
+//
+// * Products in 3xTF32 on the tensor cores: wgmma.mma_async
+//   m64n{De}k8 tf32 with fp32 accumulation, both operands from shared
+//   memory, K-major.  Each operand is split into its TF32 big part
+//   (cvt.rna.tf32.f32) and the TF32 of the remainder, and each k8 step
+//   adds a_s b_b, a_b b_s, then a_b b_b into the same accumulators: the
+//   dropped a_s b_s and the remainders' remainders are about 2^-22 of
+//   each term, of the order of fp32's own rounding of the running sum
+//   (one TF32 product alone keeps about 2^-11).
+// * W2 streamed.  The wrapper hands the kernel W2's big and small parts as
+//   K-slabs (ops/edge_mlp.py: tf32x3_b_image: 32 K values by De rows,
+//   128-byte-swizzled, 64 KB a slab at De = 256).  Thread 0 copies them
+//   by cp.async.bulk into a two-slot ring counted in on "full" mbarriers;
+//   each warp arrives on the slot's "empty" mbarrier once
+//   wgmma.wait_group shows its products of that slab done, and warp 0
+//   waits for all eight before slab c + 1 replaces slab c - 1.
+// * Rows.  Two warpgroups each own one 64-row M tile of a
+//   128-row step, so each W2 slab serves 128 rows: about 0.95 GB of L2
+//   reads a regional launch.  A warpgroup loads its rows' K-slab from
+//   global memory into registers one slab ahead, activates it in fp32
+//   (x / (1 + expf(-x)), or relu, as the reference), splits it and stores
+//   both parts into a double-buffered 128-byte-swizzled A slab.
+// * Blocks.  One persistent block an SM (256 threads) owns the receivers
+//   whose rows start in its equal share of the rows (a receiver's rows are
+//   never split) and walks their rows in 128-row steps across receiver
+//   boundaries, so every step but a block's last is full: the 16- or
+//   32-receiver groups of the other designs would leave 64-row tiles
+//   30-40% empty at these in-degrees (5.6 and 6.4 rows a receiver), and a
+//   group's fp32 aggregate rows would not fit beside the W2 ring.
+// * Epilogue, per 128 columns: + b2 in fp32 from the accumulators into a
+//   u tile over the warpgroup's A buffers; each u row out once with
+//   16-byte stores; then each thread sums u * mask for two columns over
+//   its receivers' rows of the step, in row order.  A receiver that ends
+//   in the step is written once; the one that runs on keeps its partial
+//   sum in shared memory (two buffers, alternating by step) and adds it to
+//   its next step's sum.  No atomics: two launches are bitwise equal.
+//
+// Shared memory at H = De = 256: W2 ring 128 KB, A slabs and u tiles
+// 64 KB, b2, the carried sums and the barriers: 200,752 bytes with the
+// 1 KB alignment slack.
+//
+// What holds it (NVIDIA H100 80GB HBM3, 700 W; scripts/
+// torch_edge_mlp_time.py --dtype float32): 0.47 ms at the regional shape,
+// 0.36 of its 3xTF32 bound, 8.8x faster than the 16-receiver FMA design.
+// The products alone take 0.25 ms; the epilogue's u stores and sums
+// (0.11-0.13 ms) overlap nothing, since both warpgroups run it at once
+// while the tensor cores idle.  The W2 stream costs nothing measurable.
+//
 #include <stdint.h>
 
 #include "edge_tile.cuh"
@@ -429,25 +485,371 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
   }
 }
 
-// The widths the Hopper bf16 kernel takes.  Wider rows do not fit its
-// shared memory (at H = De = 384, W2 alone is 288 KB); bf16 at those widths
-// and fp32 (whose W2 alone is 256 KB at 256 x 256) run the 16-receiver
-// design of edge_tile.cuh.
-bool hopper(int dtype, int hid, int de) {
-  return dtype == 1 && (hid == 128 || hid == 256) && (de == 128 || de == 256);
+// ---------------------------------------------------------------------------
+// fp32 on Hopper: 3xTF32 wgmma products, W2 streamed in K-slabs, persistent
+// blocks over row-balanced receiver ranges.
+
+constexpr int kF32Threads = 256;            // two warpgroups
+constexpr int kF32StepRows = 2 * kSubRows;  // a step: one 64-row tile each
+constexpr int kF32Parts = 4;     // threads that sum one column pair
+
+// Byte offsets of the fp32 kernel's dynamic shared memory, from a
+// 1024-aligned base.
+template <int H, int DE>
+struct F32Layout {
+  // One K-slab of W2's image (ops/edge_mlp.py: tf32x3_b_image): the TF32
+  // big part, then the small part, each DE rows of 32 K values.
+  static constexpr int kPart = DE * 128;
+  static constexpr int kSlab = 2 * kPart;
+  static constexpr int kA = kSubRows * 128;  // one part of a 64 x 32 A slab
+  static constexpr int ring = 0;             // [2 slots][kSlab]
+  // [2 warpgroups][2 buffers][big, small][kA]; in the epilogue each
+  // warpgroup's 32 KB hold its u tile, 64 rows x 128 columns.
+  static constexpr int a = ring + 2 * kSlab;
+  static constexpr int b2 = a + 8 * kA;
+  static constexpr int carry = b2 + DE * 4;       // [2][DE] fp32
+  static constexpr int bounds = carry + 2 * DE * 4;  // rb0, rb1
+  static constexpr int bar = bounds + 16;            // full[2], empty[2]
+  static constexpr int bytes = bar + 4 * 8 + 1024;   // + alignment slack
+};
+static_assert(F32Layout<256, 256>::bytes <= 232448,
+              "the fp32 layout must fit one block's shared memory");
+
+// Offset of column `col` of row `row` in a warpgroup's u tile (64 rows of
+// 128 fp32, 512 bytes a row): the 16-byte chunk index XORed with
+// 2 (row % 4), so that the accumulator fragment's 8 rows of a store fall
+// on all 32 banks.
+__device__ __forceinline__ int ut_off(int row, int col) {
+  return row * 512 + ((((col >> 2) ^ ((row & 3) << 1))) << 4) +
+         ((col & 3) << 2);
+}
+
+// The first receiver r with indptr[r] >= t (indptr[num_receivers] >= t),
+// found by one warp, 32 probes a load.
+__device__ inline int lower_receiver(const int* __restrict__ indptr,
+                                     int num_receivers, int t) {
+  const int lane = threadIdx.x & 31;
+  int lo = -1, hi = num_receivers;  // indptr[lo] < t <= indptr[hi]
+  while (hi - lo > 1) {
+    const int n = hi - lo - 1;
+    const int p =
+        lo + 1 + static_cast<int>(static_cast<long long>(lane) * n / 32);
+    const unsigned m = __ballot_sync(0xffffffffu, indptr[p] >= t);
+    if (m) {
+      const int k = __ffs(m) - 1;
+      const int lo_k = __shfl_sync(0xffffffffu, p, k > 0 ? k - 1 : 0);
+      hi = __shfl_sync(0xffffffffu, p, k);
+      if (k > 0) lo = lo_k;
+    } else {
+      lo = __shfl_sync(0xffffffffu, p, 31);
+    }
+  }
+  return hi;
+}
+
+// The first receiver r in [rc, rb1) whose rows run past e1, or rb1: the
+// receivers before it end within the step.  One warp, 32 receivers a load.
+__device__ inline int first_open(const int* __restrict__ indptr, int rc,
+                                 int rb1, int e1) {
+  const int lane = threadIdx.x & 31;
+  for (int r = rc;; r += 32) {
+    const int j = r + lane;
+    const unsigned m =
+        __ballot_sync(0xffffffffu, j >= rb1 || indptr[j + 1] > e1);
+    if (m) return r + __ffs(m) - 1;
+  }
+}
+
+template <int H, int DE, int ACT>
+__global__ void __launch_bounds__(kF32Threads, 1)
+edge_mlp_f32_kernel(const float* __restrict__ h,
+                    const float* __restrict__ w2_img,
+                    const float* __restrict__ b2,
+                    const float* __restrict__ mask,
+                    const int* __restrict__ indptr, float* __restrict__ u,
+                    float* __restrict__ agg, int num_receivers) {
+  using L = F32Layout<H, DE>;
+  constexpr int NK = H / 32;    // K-slabs of W2
+  constexpr int NH = DE / 128;  // column halves of the epilogue
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sp = smem + (base - raw);
+  float* b2_s = reinterpret_cast<float*>(sp + L::b2);
+  float* carry_s = reinterpret_cast<float*>(sp + L::carry);
+  int* bounds_s = reinterpret_cast<int*>(sp + L::bounds);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sp + L::bar);
+  uint64_t* empty = full + 2;
+
+  // This block's receivers [rb0, rb1): block b starts at the first
+  // receiver whose rows start at or after row b E / gridDim.x.
+  if (warp < 2) {
+    const int b = blockIdx.x + warp;
+    const int r =
+        b == static_cast<int>(gridDim.x)
+            ? num_receivers
+            : lower_receiver(indptr, num_receivers,
+                             static_cast<int>(
+                                 static_cast<long long>(b) *
+                                 indptr[num_receivers] / gridDim.x));
+    if (lane == 0) bounds_s[warp] = r;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kF32Threads / 32);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < DE; i += kF32Threads) b2_s[i] = b2[i];
+  __syncthreads();
+  const int rb0 = bounds_s[0];
+  const int rb1 = bounds_s[1];
+  const int eb = indptr[rb0];
+  const int ee = indptr[rb1];
+  const int nsteps = (ee - eb + kF32StepRows - 1) / kF32StepRows;
+  const int nslabs = nsteps * NK;  // each step's pass over W2
+
+  if (nsteps == 0) {  // no rows: zero aggregates
+    float4* dst = reinterpret_cast<float4*>(agg + static_cast<size_t>(rb0) *
+                                                      DE);
+    for (int i = tid; i < (rb1 - rb0) * (DE / 4); i += kF32Threads) {
+      dst[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    return;
+  }
+
+  // K-slab c of the block's sequence (slab c % NK of a pass) into ring slot
+  // c % 2, counted in on full[c % 2]; thread 0 issues every copy.
+  auto fill = [&](int c) {
+    const float* src = w2_img + static_cast<size_t>(c % NK) * (L::kSlab / 4);
+    const uint32_t dst = base + L::ring + (c & 1) * L::kSlab;
+    mbar_expect_tx(full + (c & 1), L::kSlab);
+    bulk_copy(dst, src, L::kPart, full + (c & 1));
+    bulk_copy(dst + L::kPart, src + L::kPart / 4, L::kPart, full + (c & 1));
+  };
+  if (tid == 0) {
+    fill(0);
+    if (nslabs > 1) fill(1);
+  }
+  __syncwarp();
+
+  // The warpgroup, broadcast from lane 0 so that the compiler sees it
+  // uniform.
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wt = tid & 127;
+  const int row_a = 16 * (wt >> 5) + (lane >> 2);  // and row_a + 8
+  const int cq = 2 * (lane & 3);
+  const int prow = wt >> 3;  // this thread's A rows: prow + 16 k, k < 4,
+  const int pch = wt & 7;    // and their 16-byte chunk of a K-slab
+  const uint32_t a_wg = base + L::a + wg * 4 * L::kA;
+  unsigned char* a_wg_p = sp + L::a + wg * 4 * L::kA;
+
+  // K-slab i of this warpgroup's rows of the step at e0, into registers
+  // (rows past ee: 0).
+  float4 x[4];
+  auto load_raw = [&](int e0, int i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + kSubRows * wg + prow + 16 * k;
+      x[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e < ee) {
+        x[k] = __ldg(reinterpret_cast<const float4*>(
+            h + static_cast<size_t>(e) * H + 32 * i + 4 * pch));
+      }
+    }
+  };
+  // act(x) in fp32, split into its TF32 big part and the TF32 of the
+  // remainder, into A buffer buf (big, then small), K-major, swizzled.
+  auto put_a = [&](int buf) {
+    unsigned char* dst = a_wg_p + buf * 2 * L::kA;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = prow + 16 * k;
+      const float v[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+      float big[4], small[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float a = activate(v[q], ACT);
+        big[q] = tf32_rna(a);
+        small[q] = tf32_rna(a - big[q]);
+      }
+      const int off = row * 128 + ((pch ^ (row & 7)) << 4);
+      *reinterpret_cast<float4*>(dst + off) =
+          make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(dst + L::kA + off) =
+          make_float4(small[0], small[1], small[2], small[3]);
+    }
+  };
+
+  float acc[DE / 2];
+  int c = 0;       // K-slabs consumed, in the producer's order
+  int rc = rb0;    // the first receiver not yet written
+  int e0 = eb;
+  load_raw(e0, 0);
+  for (int t = 0; t < nsteps; ++t, e0 += kF32StepRows) {
+    const int e1 = min(e0 + kF32StepRows, ee);
+    const bool busy = e0 + kSubRows * wg < e1;  // this warpgroup has rows
+#pragma unroll 1
+    for (int i = 0; i < NK; ++i, ++c) {
+      const int slot = c & 1;
+      const int buf = i & 1;
+      // Every warp of the warpgroup is past the products of K-slab i - 2,
+      // which read buffer buf.
+      named_barrier(1 + wg, 128);
+      if (busy) {
+        put_a(buf);
+        fence_async_smem();
+      }
+      if (i + 1 < NK) {
+        load_raw(e0, i + 1);
+      } else if (t + 1 < nsteps) {
+        load_raw(e0 + kF32StepRows, 0);
+      }
+      named_barrier(1 + wg, 128);
+      mbar_wait(full + slot, (c >> 1) & 1);
+      // a_s b_b + a_b b_s + a_b b_b, small terms first, each k8 step.  A
+      // warpgroup without rows multiplies what its buffer holds and
+      // discards it: wgmma in a branch would be serialized.
+      const uint32_t at = a_wg + buf * 2 * L::kA;
+      const uint32_t bt = base + L::ring + slot * L::kSlab;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        wgmma_tf32(acc, sw128_desc(at + L::kA + 32 * s),
+                   sw128_desc(bt + 32 * s), (i | s) != 0);
+        wgmma_tf32(acc, sw128_desc(at + 32 * s),
+                   sw128_desc(bt + L::kPart + 32 * s), 1);
+        wgmma_tf32(acc, sw128_desc(at + 32 * s), sw128_desc(bt + 32 * s),
+                   1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // K-slab c - 1's products are done
+      if (c > 0) {
+        if (i > 0 && lane == 0) mbar_arrive(empty + (slot ^ 1));
+        // Once every warp is past K-slab c - 1, its slot takes c + 1.  The
+        // whole of warp 0 waits, so that it reaches the next barrier
+        // converged.
+        if (tid < 32 && c + 1 < nslabs) {
+          mbar_wait(empty + (slot ^ 1), ((c - 1) >> 1) & 1);
+          if (tid == 0) fill(c + 1);
+          __syncwarp();
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lane == 0) mbar_arrive(empty + ((c - 1) & 1));
+
+    // The receivers [rc, rf) end within this step; rf (if below rb1) runs
+    // on, its partial sum carried into the next step.
+    const int rf = first_open(indptr, rc, rb1, e1);
+    const int rlast = rf < rb1 ? rf : rb1 - 1;
+    const float* carry_in = carry_s + (t & 1) * DE;
+    float* carry_out = carry_s + ((t + 1) & 1) * DE;
+    const int pair = tid & 63;  // aggregate columns 2 pair, 2 pair + 1
+    const int part = tid >> 6;  // receivers rc + part + kF32Parts n
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      // Both warpgroups' products are done (hh = 0), or every thread is
+      // past the last half's u tiles.
+      __syncthreads();
+      // u = acc + b2 in fp32, columns [128 hh, 128 hh + 128), into this
+      // warpgroup's u tile.
+      if (busy) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 8 * j + cq;
+          const float2 bb =
+              *reinterpret_cast<const float2*>(b2_s + 128 * hh + col);
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const int a0 = 4 * (16 * hh + j) + 2 * r2;
+            *reinterpret_cast<float2*>(a_wg_p + ut_off(row_a + 8 * r2, col)) =
+                make_float2(acc[a0] + bb.x, acc[a0 + 1] + bb.y);
+          }
+        }
+      }
+      __syncthreads();
+      // Each u row out once, 16 bytes a thread.
+      for (int q = tid; q < (e1 - e0) * 32; q += kF32Threads) {
+        const int lr = q >> 5;
+        const int k = q & 31;
+        *reinterpret_cast<float4*>(u + static_cast<size_t>(e0 + lr) * DE +
+                                   128 * hh + 4 * k) =
+            *reinterpret_cast<const float4*>(
+                sp + L::a + (lr >> 6) * 4 * L::kA + ut_off(lr & 63, 4 * k));
+      }
+      // agg[r] = (carry) + sum of u * mask over r's rows of the step, in
+      // row order, two columns a thread; each finished row written once.
+      const int col = 128 * hh + 2 * pair;
+      for (int r = rc + part; r <= rlast; r += kF32Parts) {
+        const int r_lo = indptr[r];
+        const int hi = min(indptr[r + 1], e1);
+        float s0 = 0.0f, s1 = 0.0f;
+        for (int e = max(r_lo, e0); e < hi; ++e) {
+          const int lr = e - e0;
+          const float2 v = *reinterpret_cast<const float2*>(
+              sp + L::a + (lr >> 6) * 4 * L::kA + ut_off(lr & 63, 2 * pair));
+          const float m = __ldg(mask + e);
+          s0 += v.x * m;
+          s1 += v.y * m;
+        }
+        if (r_lo < e0) {  // rows in earlier steps
+          s0 = carry_in[col] + s0;
+          s1 = carry_in[col + 1] + s1;
+        }
+        if (r < rf) {
+          *reinterpret_cast<float2*>(agg + static_cast<size_t>(r) * DE +
+                                     col) = make_float2(s0, s1);
+        } else {
+          carry_out[col] = s0;
+          carry_out[col + 1] = s1;
+        }
+      }
+    }
+    // The u tiles are read: the buffers take the next step's rows.
+    __syncthreads();
+    rc = rf;
+  }
+}
+
+// The design a launch takes (kTile16, kHopperBf16, kHopperF32).  The two
+// Hopper designs take H and De in {128, 256}: wider rows do not fit their
+// shared memory (bf16 at H = De = 384: W2 alone is 288 KB; fp32 keeps
+// 64-row operand slabs of 32 K values and a u tile of 128 columns whose
+// layouts are written for these widths), and run the 16-receiver design of
+// edge_tile.cuh.
+enum Design { kTile16 = 0, kHopperBf16 = 1, kHopperF32 = 2 };
+
+Design design(int dtype, int hid, int de) {
+  if ((hid != 128 && hid != 256) || (de != 128 && de != 256)) return kTile16;
+  return dtype == 1 ? kHopperBf16 : kHopperF32;
+}
+
+template <template <int, int> class Layout>
+int hopper_bytes(int hid, int de) {
+  if (hid == 128 && de == 128) return Layout<128, 128>::bytes;
+  if (hid == 128) return Layout<128, 256>::bytes;
+  if (de == 128) return Layout<256, 128>::bytes;
+  return Layout<256, 256>::bytes;
 }
 
 // Dynamic shared memory of one block; -1 for a dtype the kernels do not
 // take.
 int smem_bytes(int dtype, int hid, int de) {
   if (dtype != 0 && dtype != 1) return -1;
-  if (!hopper(dtype, hid, de)) {
-    return make_layout(dtype == 0 ? 4 : 2, hid, de, false).total;
+  switch (design(dtype, hid, de)) {
+    case kHopperBf16:
+      return hopper_bytes<MlpLayout>(hid, de);
+    case kHopperF32:
+      return hopper_bytes<F32Layout>(hid, de);
+    default:
+      return make_layout(dtype == 0 ? 4 : 2, hid, de, false).total;
   }
-  if (hid == 128 && de == 128) return MlpLayout<128, 128>::bytes;
-  if (hid == 128) return MlpLayout<128, 256>::bytes;
-  if (de == 128) return MlpLayout<256, 128>::bytes;
-  return MlpLayout<256, 256>::bytes;
 }
 
 template <typename T>
@@ -466,30 +868,48 @@ cudaError_t launch_tile(int bytes, const void* h, const void* w2,
   return cudaGetLastError();
 }
 
-template <int H, int DE>
-cudaError_t launch_bf16(const void* h, const void* w2_img, const void* b2,
-                        const void* mask, const int* indptr, void* u,
-                        void* agg, int num_receivers, int act,
-                        cudaStream_t stream) {
-  const int bytes = MlpLayout<H, DE>::bytes;
-  const auto kernel = act == 0 ? edge_mlp_bf16_kernel<H, DE, 0>
-                               : edge_mlp_bf16_kernel<H, DE, 1>;
+// One persistent block an SM (at most one fits), or one a work item
+// (receiver group, receiver) where there are fewer.
+template <typename T, typename Kernel>
+cudaError_t launch_persistent(Kernel kernel, int threads, int bytes,
+                              int items, const void* h, const void* w2,
+                              const void* b2, const void* mask,
+                              const int* indptr, void* u, void* agg,
+                              int num_receivers, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  // One persistent block an SM (at most one fits), each walking its groups.
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int groups = (num_receivers + kMlpReceivers - 1) / kMlpReceivers;
-  const int blocks = groups < sms ? groups : sms;
-  kernel<<<blocks, kMlpThreads, bytes, stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w2_img),
-      static_cast<const bf16*>(b2), static_cast<const bf16*>(mask), indptr,
-      static_cast<bf16*>(u), static_cast<bf16*>(agg), num_receivers);
+  kernel<<<items < sms ? items : sms, threads, bytes, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w2),
+      static_cast<const T*>(b2), static_cast<const T*>(mask), indptr,
+      static_cast<T*>(u), static_cast<T*>(agg), num_receivers);
   return cudaGetLastError();
+}
+
+template <int H, int DE>
+cudaError_t launch_hopper(int dtype, const void* h, const void* w2_img,
+                          const void* b2, const void* mask,
+                          const int* indptr, void* u, void* agg,
+                          int num_receivers, int act, cudaStream_t stream) {
+  if (dtype == 1) {
+    // Block b walks receiver groups b, b + blocks, ...
+    return launch_persistent<bf16>(
+        act == 0 ? edge_mlp_bf16_kernel<H, DE, 0>
+                 : edge_mlp_bf16_kernel<H, DE, 1>,
+        kMlpThreads, MlpLayout<H, DE>::bytes,
+        (num_receivers + kMlpReceivers - 1) / kMlpReceivers, h, w2_img, b2,
+        mask, indptr, u, agg, num_receivers, stream);
+  }
+  // Block b takes the receivers of its share of the rows.
+  return launch_persistent<float>(
+      act == 0 ? edge_mlp_f32_kernel<H, DE, 0> : edge_mlp_f32_kernel<H, DE, 1>,
+      kF32Threads, F32Layout<H, DE>::bytes, num_receivers, h, w2_img, b2,
+      mask, indptr, u, agg, num_receivers, stream);
 }
 
 }  // namespace
@@ -500,21 +920,30 @@ extern "C" int gclt_edge_mlp_smem(int dtype, int hid, int de) {
   return smem_bytes(dtype, hid, de);
 }
 
-// 1 where a launch takes the Hopper bf16 design, with W2 as its wgmma
-// image; 0 where it takes the 16-receiver design, with W2 row-major.
-extern "C" int gclt_edge_mlp_wgmma(int dtype, int hid, int de) {
-  return hopper(dtype, hid, de) ? 1 : 0;
+// The design a launch takes: 0, the 16-receiver design with W2 row-major;
+// 1, the Hopper bf16 design with W2 as its wgmma image (ops/edge_mlp.py:
+// wgmma_b_image); 2, the Hopper fp32 design with W2 as its 3xTF32 image
+// (tf32x3_b_image).
+extern "C" int gclt_edge_mlp_design(int dtype, int hid, int de) {
+  return static_cast<int>(design(dtype, hid, de));
 }
 
 // Receivers per group: a block's (the 16-receiver design) or a group's
-// that a persistent block walks (the Hopper bf16 design).
+// that a persistent block walks (the Hopper bf16 design); 0 for the Hopper
+// fp32 design, whose blocks split the rows, not receiver groups.
 extern "C" int gclt_edge_mlp_tile_receivers(int dtype, int hid, int de) {
-  return hopper(dtype, hid, de) ? kMlpReceivers : kTileReceivers;
+  switch (design(dtype, hid, de)) {
+    case kHopperBf16:
+      return kMlpReceivers;
+    case kHopperF32:
+      return 0;
+    default:
+      return kTileReceivers;
+  }
 }
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = swish/silu, 1 = relu.  w2
-// [H, De] is row-major, or the wgmma image that ops/edge_mlp.py:
-// wgmma_b_image makes of it where gclt_edge_mlp_wgmma says so.  Returns
+// [H, De] is row-major, or the image gclt_edge_mlp_design names.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int gclt_edge_mlp(const void* h, const void* w2, const void* b2,
                              const void* mask, const void* indptr, void* u,
@@ -525,24 +954,23 @@ extern "C" int gclt_edge_mlp(const void* h, const void* w2, const void* b2,
   const int bytes = smem_bytes(dtype, hid, de);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (dtype == 0) {
-    err = launch_tile<float>(bytes, h, w2, b2, mask, ip, u, agg,
-                             num_receivers, hid, de, act, s);
-  } else if (!hopper(dtype, hid, de)) {
-    err = launch_tile<bf16>(bytes, h, w2, b2, mask, ip, u, agg,
-                            num_receivers, hid, de, act, s);
+  if (design(dtype, hid, de) == kTile16) {
+    err = dtype == 0 ? launch_tile<float>(bytes, h, w2, b2, mask, ip, u, agg,
+                                          num_receivers, hid, de, act, s)
+                     : launch_tile<bf16>(bytes, h, w2, b2, mask, ip, u, agg,
+                                         num_receivers, hid, de, act, s);
   } else if (hid == 128 && de == 128) {
-    err = launch_bf16<128, 128>(h, w2, b2, mask, ip, u, agg, num_receivers,
-                                act, s);
+    err = launch_hopper<128, 128>(dtype, h, w2, b2, mask, ip, u, agg,
+                                  num_receivers, act, s);
   } else if (hid == 128) {
-    err = launch_bf16<128, 256>(h, w2, b2, mask, ip, u, agg, num_receivers,
-                                act, s);
+    err = launch_hopper<128, 256>(dtype, h, w2, b2, mask, ip, u, agg,
+                                  num_receivers, act, s);
   } else if (de == 128) {
-    err = launch_bf16<256, 128>(h, w2, b2, mask, ip, u, agg, num_receivers,
-                                act, s);
+    err = launch_hopper<256, 128>(dtype, h, w2, b2, mask, ip, u, agg,
+                                  num_receivers, act, s);
   } else {
-    err = launch_bf16<256, 256>(h, w2, b2, mask, ip, u, agg, num_receivers,
-                                act, s);
+    err = launch_hopper<256, 256>(dtype, h, w2, b2, mask, ip, u, agg,
+                                  num_receivers, act, s);
   }
   return static_cast<int>(err);
 }

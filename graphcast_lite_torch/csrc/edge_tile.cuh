@@ -1,5 +1,9 @@
-// Shared building blocks of the fused edge kernels (edge_mlp.cu,
-// edge_step.cu), for Hopper (sm_90a).
+// Shared building blocks of the fused edge kernels' 16-receiver design
+// (edge_mlp.cu, edge_step.cu), for Hopper (sm_90a).  It runs the fp32 edge
+// step and both kernels' bf16 rows wider than 256, and the edge MLP's fp32
+// rows wider than 256; the edge MLP at H and De in {128, 256} (both
+// dtypes) and the bf16 edge step there run designs of their own
+// (hopper.cuh).
 //
 // Both kernels walk receiver-sorted edge rows by CSR ranges: one block of
 // kThreads threads owns kTileReceivers consecutive receivers and every edge
@@ -8,7 +12,8 @@
 // by a weight matrix W [K, N] read from L2 (the weights are small and stay
 // resident), kChunk output columns at a time, into an fp32 tile in shared
 // memory.  bf16 runs on the tensor cores (nvcuda::wmma 16x16x16, fp32
-// accumulation); fp32 runs in full fp32 on the FMA units (no TF32).
+// accumulation); fp32 runs in full fp32 on the FMA units (no TF32) here,
+// where the edge MLP's fp32 Hopper design multiplies in 3xTF32.
 // The block sums each receiver's rows into its own fp32 rows in shared
 // memory, in row order, and writes each aggregate row once: no atomics, so
 // results are deterministic.

@@ -16,13 +16,19 @@ which take the place of the reference's chunk schedule.
 
 * On a CPU tensor the wrapper runs ``edge_mlp_reference``.
 * On a CUDA tensor it launches ``csrc/edge_mlp.cu`` (built by
-  ``ops.nvcc_build`` at first use) or raises; it never falls back.  In
-  bf16 at H and De in {128, 256} (``wgmma_design``; the flagship's widths)
-  the kernel keeps W2 resident in shared memory as wgmma's B operand, and
-  the wrapper hands it W2 as a ``wgmma_b_image``; persistent blocks walk
-  groups of ``HOPPER_RECEIVERS`` receivers (``hopper_geometry``).  fp32
-  and wider bf16 rows, whose W2 does not fit beside the row stages, run the
-  16-receiver design of ``edge_tile.cuh`` on row-major W2.
+  ``ops.nvcc_build`` at first use) or raises; it never falls back.  Three
+  designs (``design``):
+
+  - ``hopper_bf16``, bf16 at H and De in {128, 256} (the flagship's
+    widths): W2 resident in shared memory as wgmma's B operand, handed
+    over as a ``wgmma_b_image``; persistent blocks walk groups of
+    ``HOPPER_RECEIVERS`` receivers (``hopper_geometry``).
+  - ``hopper_fp32``, fp32 at the same widths: 3xTF32 wgmma products, W2
+    streamed through shared memory in K-slabs of its ``tf32x3_b_image``;
+    persistent blocks take the receivers of equal shares of the rows
+    (``fp32_bounds``) and walk them in steps of ``F32_STEP_ROWS`` rows.
+  - ``tile16``, wider rows in either dtype: the 16-receiver design of
+    ``edge_tile.cuh`` on row-major W2.
 
 ``launches`` counts kernel launches (never plain-version calls).  There is
 no backward: the reference kernel has none either.
@@ -40,10 +46,12 @@ import torch.nn.functional as F
 
 from . import cuda_segment, nvcc_build
 
-__all__ = ["SOURCE", "SIGNATURES", "ACTIVATIONS", "MAX_SMEM",
-           "TILE_RECEIVERS", "HOPPER_RECEIVERS", "launches", "act_fn",
-           "supports", "wgmma_design", "tile_receivers", "hopper_geometry",
-           "subtiles_per_block", "wgmma_b_image", "check_inputs", "edge_mlp",
+__all__ = ["SOURCE", "SIGNATURES", "ACTIVATIONS", "MAX_SMEM", "DESIGNS",
+           "TILE_RECEIVERS", "HOPPER_RECEIVERS", "F32_STEP_ROWS", "launches",
+           "act_fn", "supports", "design", "tile_receivers",
+           "hopper_geometry", "subtiles_per_block", "fp32_bounds",
+           "fp32_steps_per_block", "wgmma_b_image", "tf32_round",
+           "tf32_split", "tf32x3_b_image", "check_inputs", "edge_mlp",
            "edge_mlp_reference"]
 
 SOURCE = os.path.join(nvcc_build.CSRC, "edge_mlp.cu")
@@ -52,15 +60,18 @@ launches = 0
 # The activations the kernels take, with their codes.
 ACTIVATIONS = {"swish": 0, "silu": 0, "relu": 1}
 MAX_SMEM = 232448  # dynamic shared memory one H100 block may use
+# The designs by the code csrc/edge_mlp.cu's gclt_edge_mlp_design returns.
+DESIGNS = ("tile16", "hopper_bf16", "hopper_fp32")
 # Receivers per block of the 16-receiver design, and per group of the
 # Hopper bf16 design (csrc/edge_mlp.cu: kTileReceivers, kMlpReceivers).
 TILE_RECEIVERS = 16
 HOPPER_RECEIVERS = 32
-SUB_ROWS = 64  # rows per sub-tile of both designs
+SUB_ROWS = 64  # rows per sub-tile of the group designs
+F32_STEP_ROWS = 128  # rows a step of the fp32 Hopper design (kF32StepRows)
 # The C interface of csrc/edge_mlp.cu.
 SIGNATURES = {
     "gclt_edge_mlp_smem": (ctypes.c_int, [ctypes.c_int] * 3),
-    "gclt_edge_mlp_wgmma": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gclt_edge_mlp_design": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_mlp_tile_receivers": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_mlp": (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p]),
@@ -79,19 +90,21 @@ def supports(hidden_dim: int, out_dim: int, activation: str) -> bool:
             and out_dim % 128 == 0)
 
 
-def wgmma_design(dtype: torch.dtype, hidden_dim: int, out_dim: int) -> bool:
-    """Whether a launch takes the Hopper bf16 design (csrc/edge_mlp.cu:
-    ``hopper()``; ``gclt_edge_mlp_wgmma`` answers for the built library):
-    bf16 with H and De in {128, 256}.  Wider rows do not fit its shared
-    memory beside W2; fp32's W2 alone is 256 KB at 256 x 256."""
-    return (dtype == torch.bfloat16 and hidden_dim in (128, 256)
-            and out_dim in (128, 256))
+def design(dtype: torch.dtype, hidden_dim: int, out_dim: int) -> str:
+    """The design a launch takes (csrc/edge_mlp.cu: ``design()``;
+    ``gclt_edge_mlp_design`` answers for the built library): at H and De in
+    {128, 256} ``hopper_bf16`` or ``hopper_fp32`` by dtype, else
+    ``tile16``.  Wider rows do not fit the Hopper designs' shared memory."""
+    if hidden_dim in (128, 256) and out_dim in (128, 256):
+        return "hopper_bf16" if dtype == torch.bfloat16 else "hopper_fp32"
+    return "tile16"
 
 
 def tile_receivers(dtype: torch.dtype, hidden_dim: int, out_dim: int) -> int:
-    """Receivers per block (16-receiver design) or per group (Hopper)."""
-    return (HOPPER_RECEIVERS if wgmma_design(dtype, hidden_dim, out_dim)
-            else TILE_RECEIVERS)
+    """Receivers per block (``tile16``) or per group (``hopper_bf16``); 0
+    for ``hopper_fp32``, whose blocks split the rows instead."""
+    return {"tile16": TILE_RECEIVERS, "hopper_bf16": HOPPER_RECEIVERS,
+            "hopper_fp32": 0}[design(dtype, hidden_dim, out_dim)]
 
 
 def hopper_geometry(num_receivers: int, sms: int) -> Tuple[int, int]:
@@ -115,6 +128,28 @@ def subtiles_per_block(indptr: torch.Tensor, sms: int) -> torch.Tensor:
     tiles = (bounds[1:] - bounds[:-1] + SUB_ROWS - 1) // SUB_ROWS
     out = torch.zeros(blocks, dtype=torch.long)
     return out.index_add_(0, torch.arange(groups) % blocks, tiles)
+
+
+def fp32_bounds(indptr: torch.Tensor, blocks: int) -> torch.Tensor:
+    """[blocks + 1] receiver boundaries of an ``hopper_fp32`` launch of
+    ``blocks`` blocks: block ``b`` owns receivers ``[rb[b], rb[b + 1])``,
+    ``rb[b]`` the first receiver whose rows start at or after row
+    ``b * E // blocks`` (E = ``indptr[-1]``), and ``rb[blocks] = R``.  A
+    receiver's rows never split between blocks."""
+    ip = indptr.cpu().long()
+    e = int(ip[-1])
+    starts = torch.arange(blocks, dtype=torch.long) * e // blocks
+    rb = torch.searchsorted(ip, starts, side="left")
+    return torch.cat([rb, torch.tensor([ip.numel() - 1])])
+
+
+def fp32_steps_per_block(indptr: torch.Tensor, sms: int) -> torch.Tensor:
+    """Steps of ``F32_STEP_ROWS`` rows each block of an ``hopper_fp32``
+    launch (``min(R, sms)`` blocks) computes; each streams W2 once."""
+    r = indptr.numel() - 1
+    rb = fp32_bounds(indptr, min(r, sms))
+    rows = indptr.cpu().long()[rb]
+    return (rows[1:] - rows[:-1] + F32_STEP_ROWS - 1) // F32_STEP_ROWS
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,6 +177,50 @@ def wgmma_b_image(w: torch.Tensor) -> torch.Tensor:
     k, n = w.shape
     order = _image_order(k, n, w.device)
     return w.reshape(-1).index_select(0, order).view(n // 64, k // 64, 64, 64)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as the kernel's ``cvt.rna.tf32.f32``: add half of the
+    13 dropped bits' unit to the magnitude, then clear them (finite
+    inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small): ``big = tf32(x)``, ``small = tf32(x - big)``, the
+    3xTF32 operand parts; ``x - big`` is exact in fp32."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_image_order(k: int, n: int, device: torch.device) -> torch.Tensor:
+    """Flat index into a row-major [K, N] matrix of each place of one
+    part of its ``tf32x3_b_image``: [K / 32, N, 32]."""
+    ks, nl, q, e = torch.meshgrid(
+        torch.arange(k // 32), torch.arange(n), torch.arange(8),
+        torch.arange(4), indexing="ij")
+    rows = 32 * ks + 4 * (q ^ (nl % 8)) + e
+    return (rows * n + nl).reshape(-1).to(device)
+
+
+def tf32x3_b_image(w: torch.Tensor) -> torch.Tensor:
+    """fp32 ``w`` [K, N] as the fp32 Hopper kernel's W2 K-slabs: [K / 32,
+    2, N, 32].
+
+    Slab ``i``, part ``p`` (0: ``tf32_split``'s big part, 1: its small
+    part) is the shared-memory image of ``part[32 i : 32 i + 32, :]`` as
+    wgmma's tf32 B operand, K-major with the 128-byte swizzle: row ``n``
+    holds the 32 values of column ``n`` in 8 chunks of 4, chunk ``q``
+    stored at place ``q ^ (n % 8)``.  The kernel copies one slab (both
+    parts, 256 N bytes) at a time.  K is a multiple of 32, N of 8."""
+    k, n = w.shape
+    order = _tf32_image_order(k, n, w.device)
+    parts = [p.reshape(-1).index_select(0, order).view(k // 32, n, 32)
+             for p in tf32_split(w.float())]
+    return torch.stack(parts, 1)
 
 
 def edge_mlp_reference(h_pre: torch.Tensor, w2: torch.Tensor,
@@ -209,8 +288,11 @@ def edge_mlp(h_pre: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     if smem > MAX_SMEM:
         raise ValueError(f"edge_mlp: H {hid} / De {de} need {smem} bytes of "
                          "shared memory per block")
-    if lib.gclt_edge_mlp_wgmma(code, hid, de):
+    kind = DESIGNS[lib.gclt_edge_mlp_design(code, hid, de)]
+    if kind == "hopper_bf16":
         w2 = wgmma_b_image(w2)
+    elif kind == "hopper_fp32":
+        w2 = tf32x3_b_image(w2)
     u = torch.empty((e_pad, de), dtype=h_pre.dtype, device=h_pre.device)
     agg = torch.empty((num_receivers, de), dtype=h_pre.dtype,
                       device=h_pre.device)
