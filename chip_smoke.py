@@ -19,13 +19,15 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    Hopper kernels meet (in-degree 1, alternating in-degrees 0 and 13,
    receivers of exactly 64 and 128 rows, one receiver, R = 33) and on bf16
    rows wider than those kernels take (H = 384), which run the 16-receiver
-   design.  ``edge_mlp`` at H, De in {128, 256} takes its Hopper design in
-   both dtypes (asserted: ``hopper_bf16``, ``hopper_fp32``); the fp32 one
-   also on rows up to |h| = 30 with W2 columns scaled by 2^10 and 2^-10 at
-   each of its widths, and two fp32 launches are compared bitwise.  Checks
-   that the edge-MLP library's design selection
-   (``gclt_edge_mlp_design``) and group size agree with the wrapper's
-   Python mirror and prints each layout's shared memory.
+   design.  Both fused kernels at H, De in {128, 256} take their Hopper
+   design in both dtypes (asserted: ``hopper_bf16``, ``hopper_fp32``); the
+   fp32 ones also on rows up to |h| = 30 (``edge_mlp``: h_pre; ``edge_step``:
+   h, with W1e's columns scaled by 2^10 and 2^-10) with W2's columns
+   scaled by 2^10 and 2^-10 at each of their widths, and two fp32 launches
+   of each are compared bitwise.  Checks that both libraries' design
+   selection (``gclt_edge_mlp_design``, ``gclt_edge_step_design``) and
+   group sizes agree with the wrappers' Python mirrors and prints each
+   layout's shared memory.
 1c. The segment sum against its plain version, fp32 and bf16, at the
    shapes the GAT, SparseGAT and product-graph families add on the WB2
    64x32 graphs: GAT aggregations (F = 256 at 4 heads x 64, 64 at one
@@ -118,10 +120,12 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    timed (fp32 for the regional shapes, which ``train_regional`` trains
    in; bf16 for the flagship's) against its bound, its plain version and
    ``torch.segment_reduce``; fp32 ``edge_mlp`` and ``edge_step`` at the
-   flagship processor shape the same way (fp32 ``edge_mlp`` also beside
-   ``torch.addmm`` of its product alone, TF32 off, and its FMA bound), and
-   the ``edge_step`` launches of an fp32 AR-4 rollout on the COO
-   edge-step route.  7b: the flagship bf16 train step on the
+   flagship processor shape the same way (both against their 3xTF32 bound
+   with the FMA bound beside it, fp32 ``edge_mlp`` also beside
+   ``torch.addmm`` of its product alone, TF32 off), and an fp32 AR-4
+   rollout on the COO edge-step route (exactly 48 ``edge_step`` launches)
+   and on the COO composed route (56 segment sums), timed in turns,
+   profiled and held to each other.  7b: the flagship bf16 train step on the
    fused edge unit (``GCLT_REG_EDGE=0``: route ``fused``;
    ``GCLT_LAZY_EDGE=0``: ``nonlazy_fused``; each also under
    ``GCLT_MEGA_EDGE=1``, which launches ``edge_mlp`` in training) beside
@@ -592,6 +596,86 @@ def _close(label, out, ref, tol, extra=None, unit=None) -> float:
     return diff.max().item()
 
 
+def _tol_share(out, ref, tol, extra=None, unit=None) -> float:
+    """The largest share of its tolerance (as ``_close`` states it) that
+    any element of ``out`` takes: 1.0 would be at the limit."""
+    out, ref = out.float(), ref.float()
+    atol = tol["atol"] if unit is None else tol["atol"] * unit
+    allowed = atol + tol["rtol"] * ref.abs()
+    if extra is not None:
+        allowed = allowed + extra
+    return ((out - ref).abs() / allowed).max().item()
+
+
+def _step_fp64(t, r, act="swish"):
+    """The edge step evaluated in float64 on the card: (v', agg) and the
+    magnitude each element's error is measured against, |a v| + |c| + the
+    sum of u's terms' magnitudes (|act(h)| @ |W2| + |b2|) for v', that
+    sum masked and summed by receiver for agg."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+
+    d = {k: t[k].double() for k in ("xsg", "v", "xr", "w1e", "b_eff", "w2",
+                                     "b2", "a", "c", "mask")}
+    counts = (t["indptr"][1:] - t["indptr"][:-1]).long()
+    recv = torch.repeat_interleave(torch.arange(r, device="cuda"), counts,
+                                   output_size=d["v"].shape[0])
+    h = ((d["xsg"] + d["xr"][recv]) + d["v"] @ d["w1e"]) + d["b_eff"]
+    ha = edge_mlp.act_fn(act)(h)
+    u = ha @ d["w2"] + d["b2"]
+    umag = ha.abs() @ d["w2"].abs() + d["b2"].abs()
+    w = d["mask"][:, None]
+    v_new = (d["a"] * d["v"] + d["c"]) + u
+    vmag = (d["a"] * d["v"]).abs() + d["c"].abs() + umag
+    agg = cuda_segment.segment_sum_reference(u * w, t["indptr"], r)
+    aggmag = cuda_segment.segment_sum_reference(umag * w, t["indptr"], r)
+    return v_new, vmag, agg, aggmag
+
+
+def _rel_errs(out, ref, mag):
+    """(max, RMS) over the elements of |out - ref| / mag (0 where mag is
+    0: empty receivers, whose aggregate is exactly 0 in every version)."""
+    diff = (out.double() - ref).abs()
+    rel = torch.where(mag > 0, diff / mag.clamp_min(1e-300), diff)
+    return rel.max().item(), rel.square().mean().sqrt().item()
+
+
+def _mlp_fp64(t, r, act="swish"):
+    """The edge MLP tail evaluated in float64 on the card: (u, agg) and the
+    magnitudes their errors are measured against, as ``_step_fp64``."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+
+    ha = edge_mlp.act_fn(act)(t["h_pre"].double())
+    w2, b2 = t["w2"].double(), t["b2"].double()
+    u = ha @ w2 + b2
+    umag = ha.abs() @ w2.abs() + b2.abs()
+    w = t["mask"].double()[:, None]
+    return (u, umag, cuda_segment.segment_sum_reference(u * w, t["indptr"], r),
+            cuda_segment.segment_sum_reference(umag * w, t["indptr"], r))
+
+
+def _fp64_errs(label, oracle, kernel, plain):
+    """A fp32 kernel's and its plain fp32 version's (rows, agg) against
+    their float64 evaluation ``oracle`` (``_step_fp64``, ``_mlp_fp64``):
+    max and RMS of the per-element error over the terms' magnitudes, each
+    of the four, and the kernel's over the plain version's; logged, and
+    returned.  A measurement, not a check: on the card the 3xTF32 products
+    accumulate in the tensor cores, whose sums round otherwise than IEEE
+    fp32 addition (PERF.md), and the kernels are held to their plain
+    versions at FUSED_FP32_TOL instead."""
+    errs = {}
+    for name, out in (("kernel", kernel), ("plain", plain)):
+        errs[name] = (_rel_errs(out[0], oracle[0], oracle[1])
+                      + _rel_errs(out[1], oracle[2], oracle[3]))
+    names = ("rows max", "rows RMS", "agg max", "agg RMS")
+    ratios = [k / p if p > 0 else (0.0 if k == 0 else float("inf"))
+              for k, p in zip(errs["kernel"], errs["plain"])]
+    _log(f"    vs fp64 {label}: " + "; ".join(
+        f"{n} {k:.2e} (plain {p:.2e}, x{q:.2f})"
+        for n, k, p, q in zip(names, errs["kernel"], errs["plain"], ratios)))
+    return {"kernel": errs["kernel"], "plain": errs["plain"],
+            "ratios": ratios}
+
+
 def _mlp_design(dtype, hid, de) -> str:
     """The design the built edge_mlp library takes at these widths
     ("hopper_bf16", "hopper_fp32" or "tile16"); raises unless it and its
@@ -612,11 +696,32 @@ def _mlp_design(dtype, hid, de) -> str:
     return took
 
 
+def _step_design(dtype, hid, de) -> str:
+    """The design the built edge_step library takes at these widths
+    ("hopper_bf16", "hopper_fp32" or "tile16"); raises unless it and its
+    receivers per group agree with the wrapper's Python mirror."""
+    from graphcast_lite_torch.ops import edge_step, nvcc_build
+
+    lib = nvcc_build.load(edge_step.SOURCE, edge_step.SIGNATURES)
+    code = nvcc_build.DTYPE_CODES[dtype]
+    took = edge_step.DESIGNS[lib.gclt_edge_step_design(code, hid, de)]
+    tile = lib.gclt_edge_step_tile_receivers(code, hid, de)
+    if (took != edge_step.design(dtype, hid, de)
+            or tile != edge_step.tile_receivers(dtype, hid, de)):
+        raise AssertionError(
+            f"edge_step {dtype} H={hid} De={de}: library says {took}, "
+            f"{tile} receivers; Python says "
+            f"{edge_step.design(dtype, hid, de)}, "
+            f"{edge_step.tile_receivers(dtype, hid, de)}")
+    return took
+
+
 def _check_edge_mlp(label, t, r, act="swish", design=None, unit=None):
     """edge_mlp kernel against its plain version, and the design it took
     against ``design`` where given; ``unit`` scales atol per column (a
-    case whose W2 columns are scaled by powers of two); returns the max
-    abs error over u and agg."""
+    case whose W2 columns are scaled by powers of two); fp32: both
+    versions' distance to the float64 tail is measured and logged
+    (``_fp64_errs``).  Returns the max abs error over u and agg."""
     from graphcast_lite_torch.ops import cuda_segment, edge_mlp
 
     args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r, act)
@@ -634,8 +739,13 @@ def _check_edge_mlp(label, t, r, act="swish", design=None, unit=None):
     err = max(_close(f"edge_mlp {label} u", u, u_ref, tol, unit=unit),
               _close(f"edge_mlp {label} agg", agg, agg_ref, tol,
                      ORDER_RTOL * mag, unit=unit))
+    share = max(_tol_share(u, u_ref, tol, unit=unit),
+                _tol_share(agg, agg_ref, tol, ORDER_RTOL * mag, unit=unit))
     _log(f"  edge_mlp  {label:<46s} {str(u.dtype):<15s} max|err| "
-         f"{err:.3e} ok ({took})")
+         f"{err:.3e} ({share:.3f} of the tolerance) ok ({took})")
+    if u.dtype == torch.float32:
+        _fp64_errs(f"edge_mlp {label}", _mlp_fp64(t, r, act), (u, agg),
+                   (u_ref, agg_ref))
     return err
 
 
@@ -652,13 +762,28 @@ def _bitwise_edge_mlp(label, t, r):
     _log(f"  edge_mlp  {label}: two launches bitwise equal")
 
 
-def _check_edge_step(label, t, r, act="swish"):
-    """edge_step kernel against its plain version; returns the max abs
-    error over v_new and agg, and that of the stats."""
+def _step_args(t, r, act="swish"):
+    return (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
+            t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r, act)
+
+
+def _check_edge_step(label, t, r, act="swish", design=None, unit=None,
+                     details=None):
+    """edge_step kernel against its plain version, and the design it took
+    against ``design`` where given; ``unit`` scales atol per column (a
+    case whose W2 columns are scaled by powers of two).  fp32: both
+    versions' distance to the float64 step is measured and logged
+    (``_fp64_errs``).  Returns the max abs error over v_new and agg,
+    and that of the stats; ``details``, a dict, takes the largest share of
+    the tolerance used and the fp64 figures."""
     from graphcast_lite_torch.ops import cuda_segment, edge_step
 
-    args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
-            t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r, act)
+    args = _step_args(t, r, act)
+    de, hid = t["w1e"].shape
+    took = _step_design(t["v"].dtype, hid, de)
+    if design is not None and took != design:
+        raise AssertionError(f"edge_step {label}: design {took}, expected "
+                             f"{design}")
     v_new, agg, stats = edge_step.edge_step(*args)
     v_ref, agg_ref, stats_ref = edge_step.edge_step_reference(*args)
     w = t["mask"].float()[:, None]
@@ -669,30 +794,77 @@ def _check_edge_step(label, t, r, act="swish"):
                              w.sum()])
     torch.cuda.synchronize()
     tol = FUSED_FP32_TOL if v_new.dtype == torch.float32 else FUSED_BF16_TOL
-    err = max(_close(f"edge_step {label} v_new", v_new, v_ref, tol),
+    err = max(_close(f"edge_step {label} v_new", v_new, v_ref, tol,
+                     unit=unit),
               _close(f"edge_step {label} agg", agg, agg_ref, tol,
-                     ORDER_RTOL * agg_mag))
+                     ORDER_RTOL * agg_mag, unit=unit))
     stats_err = _close(f"edge_step {label} stats", stats, stats_ref,
                        dict(atol=0.0, rtol=0.0), STATS_RTOL * stats_mag)
     if stats.dtype != torch.float32 or stats[2].item() != stats_ref[2].item():
         raise AssertionError(f"edge_step {label}: row count {stats[2]} "
                              f"!= {stats_ref[2]}")
+    share = max(_tol_share(v_new, v_ref, tol, unit=unit),
+                _tol_share(agg, agg_ref, tol, ORDER_RTOL * agg_mag,
+                           unit=unit))
     _log(f"  edge_step {label:<46s} {str(v_new.dtype):<15s} max|err| "
-         f"{err:.3e}, stats {stats_err:.3e} ok")
+         f"{err:.3e} ({share:.3f} of the tolerance), stats {stats_err:.3e} "
+         f"ok ({took})")
+    fp64 = None
+    if v_new.dtype == torch.float32:
+        fp64 = _fp64_errs(f"edge_step {label}", _step_fp64(t, r, act),
+                          (v_new, agg), (v_ref, agg_ref))
+    if details is not None:
+        details.update(tolerance_share=share, fp64=fp64)
     return err, stats_err
+
+
+def _bitwise_edge_step(label, t, r):
+    """Two launches of edge_step on the same inputs give the same bits."""
+    from graphcast_lite_torch.ops import edge_step
+
+    args = _step_args(t, r)
+    out1 = edge_step.edge_step(*args)
+    out2 = edge_step.edge_step(*args)
+    if not all(torch.equal(x, y) for x, y in zip(out1, out2)):
+        raise AssertionError(f"edge_step {label}: two launches differ")
+    _log(f"  edge_step {label}: two launches bitwise equal (v_new, agg, "
+         "stats)")
+
+
+def _scaled_step_case(gen, hid, de):
+    """The fp32 edge step on rows whose h reaches about |h| = 30, with
+    W1e's columns 0, 4, 8, ... scaled by 2^10 and 1, 5, 9, ... by 2^-10
+    (and the whole of W1e by 2^-10, so that h stays near that range) and
+    W2's and b2's columns scaled the same way by ``unit``; returns (case,
+    unit)."""
+    t = _fused_case(gen, 60_000, 20_001, hid, de, torch.float32)
+    unit1 = torch.ones(hid, device="cuda")
+    unit1[0::4] = 2.0 ** 10
+    unit1[1::4] = 2.0 ** -10
+    unit = torch.ones(de, device="cuda")
+    unit[0::4] = 2.0 ** 10
+    unit[1::4] = 2.0 ** -10
+    t["xsg"] = (t["xsg"] * 5.0).clamp(-12.0, 12.0)
+    t["xr"] = (t["xr"] * 5.0).clamp(-12.0, 12.0)
+    t["w1e"] = t["w1e"] * (unit1 * 2.0 ** -10)
+    t["w2"] = t["w2"] * unit
+    t["b2"] = t["b2"] * unit
+    return t, unit
 
 
 def phase_fused_cases():
     _log("phase 1b: edge_mlp and edge_step kernels vs plain versions on the "
          f"card (fp32 {FUSED_FP32_TOL}, bf16 {FUSED_BF16_TOL}; aggregates "
          f"+ {ORDER_RTOL} * sum|u|, stats {STATS_RTOL} * sum of magnitudes)")
-    from graphcast_lite_torch.ops import edge_mlp, nvcc_build
+    from graphcast_lite_torch.ops import edge_mlp, edge_step, nvcc_build
 
     lib = nvcc_build.load(edge_mlp.SOURCE, edge_mlp.SIGNATURES)
+    step_lib = nvcc_build.load(edge_step.SOURCE, edge_step.SIGNATURES)
     for dtype in (torch.float32, torch.bfloat16):
         for hid in (128, 256, 384, 512):
             for de in (128, 256, 384, 512):
                 _mlp_design(dtype, hid, de)
+                _step_design(dtype, hid, de)
     _log("  edge_mlp design selection: library and Python agree on fp32 and "
          "bf16 at H, De in {128, 256, 384, 512}; shared memory a block: "
          + ", ".join(
@@ -708,6 +880,20 @@ def phase_fused_cases():
                                  (torch.float32, 128, 128),
                                  (torch.float32, 256, 256),
                                  (torch.float32, 384, 384))))
+    _log("  edge_step design selection: library and Python agree on fp32 "
+         "and bf16 at H, De in {128, 256, 384, 512}; shared memory a block: "
+         + ", ".join(
+             f"{str(dt)[6:]} {hid}x{de} "
+             f"{step_lib.gclt_edge_step_smem(nvcc_build.DTYPE_CODES[dt], hid,
+                                             de)}"
+             f" ({_step_design(dt, hid, de)})"
+             for dt, hid, de in ((torch.bfloat16, 256, 256),
+                                 (torch.bfloat16, 384, 384),
+                                 (torch.float32, 128, 128),
+                                 (torch.float32, 128, 256),
+                                 (torch.float32, 256, 128),
+                                 (torch.float32, 256, 256),
+                                 (torch.float32, 384, 384))))
     gen = torch.Generator().manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
         # H, De in {128, 256}: the Hopper design of the dtype, asserted.
@@ -716,26 +902,27 @@ def phase_fused_cases():
             label = f"E=60000 R=20001 H={hid} De={de}"
             t = _fused_case(gen, 60_000, 20_001, hid, de, dtype)
             _check_edge_mlp(label, t, 20_001, design=hop)
-            _check_edge_step(label, t, 20_001)
+            _check_edge_step(label, t, 20_001, design=hop)
         t = _fused_case(gen, 0, 12_003, 256, 256, dtype,
                         recv=torch.sort(torch.randint(
                             5_000, 7_000, (20_001,), generator=gen)).values)
         label = "empty receivers + padding rows, R=12003"
         _check_edge_mlp(label, t, 12_003, "relu", design=hop)
-        _check_edge_step(label, t, 12_003, "relu")
+        _check_edge_step(label, t, 12_003, "relu", design=hop)
         hog = torch.cat([torch.zeros(2_500, dtype=torch.int64),
                          torch.sort(torch.randint(1, 4_001, (9_000,),
                                                   generator=gen)).values])
         t = _fused_case(gen, 0, 4_001, 256, 256, dtype, recv=hog)
         label = "receiver with 2500 edges, R=4001"
         _check_edge_mlp(label, t, 4_001, design=hop)
-        _check_edge_step(label, t, 4_001)
+        _check_edge_step(label, t, 4_001, design=hop)
         if dtype == torch.float32:
             _bitwise_edge_mlp(label, t, 4_001)
+            _bitwise_edge_step(label, t, 4_001)
         for label, r, recv in _tiling_cases(gen):
             t = _fused_case(gen, 0, r, 256, 256, dtype, recv=recv)
             _check_edge_mlp(label, t, r, design=hop)
-            _check_edge_step(label, t, r)
+            _check_edge_step(label, t, r, design=hop)
     # The fp32 Hopper design (3xTF32 products) on rows up to |h| = 30 with
     # W2's and b2's columns 0, 4, 8, ... scaled by 2^10 and 1, 5, 9, ... by
     # 2^-10, at each of its widths: atol in each column's unit (scaling a
@@ -751,13 +938,36 @@ def phase_fused_cases():
         label = f"|h|<=30, W2 cols x 2^+-10, H={hid} De={de}"
         _check_edge_mlp(label, t, 20_001, design="hopper_fp32", unit=unit)
         _bitwise_edge_mlp(label, t, 20_001)
-    # bf16 rows wider than the Hopper kernels take run the 16-receiver wmma
-    # design.
-    for hid, de in ((384, 384), (384, 128)):
-        t = _fused_case(gen, 20_000, 6_001, hid, de, torch.bfloat16)
-        label = f"E=20000 R=6001 H={hid} De={de}"
-        _check_edge_mlp(label, t, 6_001, design="tile16")
-        _check_edge_step(label, t, 6_001)
+    # The fp32 edge step's Hopper design (3xTF32 products, both of them) the
+    # same way: h up to about |h| = 30, W1e's columns and W2's and b2's
+    # scaled by 2^10 and 2^-10, atol in each output column's unit.
+    for hid, de in ((128, 128), (256, 128), (128, 256), (256, 256)):
+        t, unit = _scaled_step_case(gen, hid, de)
+        label = f"|h|<=30, W1e, W2 cols x 2^+-10, H={hid} De={de}"
+        _check_edge_step(label, t, 20_001, design="hopper_fp32", unit=unit)
+        _bitwise_edge_step(label, t, 20_001)
+    # Rows wider than the Hopper kernels take run the 16-receiver design
+    # (wmma products in bf16, FMA in fp32), where its shared memory holds
+    # them: the fp32 edge step at 384 x 384 needs 284,416 bytes, and its
+    # wrapper raises.
+    for dtype in (torch.float32, torch.bfloat16):
+        for hid, de in ((384, 384), (384, 128), (128, 384)):
+            t = _fused_case(gen, 20_000, 6_001, hid, de, dtype)
+            label = f"E=20000 R=6001 H={hid} De={de}"
+            _check_edge_mlp(label, t, 6_001, design="tile16")
+            smem = step_lib.gclt_edge_step_smem(
+                nvcc_build.DTYPE_CODES[dtype], hid, de)
+            if smem <= edge_mlp.MAX_SMEM:
+                _check_edge_step(label, t, 6_001, design="tile16")
+                continue
+            try:
+                edge_step.edge_step(*_step_args(t, 6_001))
+            except ValueError as exc:
+                _log(f"  edge_step {label:<46s} {str(dtype):<15s} raises: "
+                     f"{exc}")
+            else:
+                raise AssertionError(f"edge_step {label} {dtype}: {smem} "
+                                     "bytes a block, and no error")
 
 
 def _tiling_cases(gen):
@@ -1156,17 +1366,16 @@ def phase_kernel_flagship(gs, n_feat):
            "design": "hopper_bf16"}
     mlp["fraction_of_bound"] = mlp["bound_ms"] / mlp["ms"]
 
-    step_err, stats_err = _check_edge_step(label, t, r)
-    step_args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
-                 t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r,
-                 "swish")
+    step_err, stats_err = _check_edge_step(label, t, r, design="hopper_bf16")
+    step_args = _step_args(t, r)
     step_bytes = _nbytes(*step_args[:11]) + (e_pad + r) * hid * 2 + 3 * 4
     step_bound, step_by = _bound(step_bytes, 4 * e_pad * hid * hid)
     step = {"max_abs_err": step_err, "stats_abs_err": stats_err,
             "ms": _time_ms(lambda: edge_step.edge_step(*step_args)),
             "plain_ms": _time_ms(lambda: edge_step.edge_step_reference(
                 *step_args), iters=5, warmup=1),
-            "bound_ms": step_bound, "bound_by": step_by}
+            "bound_ms": step_bound, "bound_by": step_by,
+            "design": "hopper_bf16"}
     step["fraction_of_bound"] = step["bound_ms"] / step["ms"]
     for name, k, nbytes in (("edge_mlp", mlp, mlp_bytes),
                             ("edge_step", step, step_bytes)):
@@ -2555,8 +2764,9 @@ def phase_fp32_kernels(ctx):
     """7a, fp32 at the flagship processor shape (E_pad 261,120, R 40,962,
     H = De = 256; ``Trainer.fit``'s evaluation and the fp32 train-step
     pairs run these): ``edge_mlp`` and ``edge_step`` against their plain
-    versions and timed, and the ``edge_step`` launches of one fp32 AR-4
-    rollout on the COO edge-step route."""
+    versions and timed, and one fp32 AR-4 rollout on the COO edge-step
+    route (its 48 ``edge_step`` launches) and on the COO composed route
+    (its 56 segment sums), each timed, the two held to each other."""
     from graphcast_lite_torch.ops import edge_step
 
     gs = ctx["gs"]
@@ -2570,37 +2780,74 @@ def phase_fp32_kernels(ctx):
     t["mask"] = proc.edge_mask.to("cuda", torch.float32)
     mlp = _time_edge_mlp(label, t, r)
 
-    step_err, stats_err = _check_edge_step(label, t, r)
-    args = (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
-            t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r, "swish")
+    design = edge_step.design(torch.float32, hid, hid)
+    details = {}
+    step_err, stats_err = _check_edge_step(label, t, r, design=design,
+                                           details=details)
+    args = _step_args(t, r)
     nbytes = _nbytes(*args[:11]) + (e_pad + r) * hid * 4 + 3 * 4
     flops = 4 * e_pad * hid * hid
-    bound, by = _bound_fp32(nbytes, flops)
+    bound, by = _bound_tf32x3(nbytes, flops)
+    fma_bound = _bound_fp32(nbytes, flops)[0]
     ms = _time_ms(lambda: edge_step.edge_step(*args))
     plain = _time_ms(lambda: edge_step.edge_step_reference(*args), iters=5,
                      warmup=1)
-    env, _ = COO_ROUTES["edge_step"]
-    with _route(env):
-        rollout, _ = _rollout(ctx, torch.float32)
-        _reset_launches()
-        out = rollout()
-        torch.cuda.synchronize()
-        counts = _launches()
-    if not torch.isfinite(out).all():
-        raise AssertionError("fp32 edge-step rollout: non-finite output")
-    if counts != {"segment_sum": 8, "edge_mlp": 0, "edge_step": 48}:
-        raise AssertionError(f"fp32 edge-step rollout launches {counts}")
     step = {"max_abs_err": step_err, "stats_abs_err": stats_err, "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "fraction_of_bound": bound / ms, "library_ms": None,
-            "launches_per_fp32_rollout": counts["edge_step"],
-            "route": env}
+            "fraction_of_bound": bound / ms, "fma_bound_ms": fma_bound,
+            "design": design, "library_ms": None, **details}
     _log(f"  edge_step {label} float32: kernel {ms * 1e3:.1f} us "
-         f"(16-receiver FMA design) | bound {bound * 1e3:.1f} us ({by} at "
-         f"{FP32_FLOPS:.3g} FLOP/s; {nbytes / 1e6:.1f} MB, "
-         f"{flops / 1e9:.1f} GFLOP; fraction {bound / ms:.3f}) | plain "
-         f"{plain * 1e3:.1f} us | {counts['edge_step']} launches a fp32 "
-         f"AR-4 rollout on {env}")
+         f"({design}) | bound {bound * 1e3:.1f} us ({by}, 3xTF32 at "
+         f"{TF32_TC_FLOPS:.3g} FLOP/s; {nbytes / 1e6:.1f} MB, "
+         f"{flops / 1e9:.1f} GFLOP; fraction {bound / ms:.3f}) | FMA bound "
+         f"{fma_bound * 1e3:.1f} us | plain {plain * 1e3:.1f} us")
+    # The fp32 AR-4 rollout of the flagship request on the edge-step route
+    # and on the composed route, in turns (edge-step, composed, composed,
+    # edge-step) after a counted run of each.
+    runs = {}
+    for route in ("edge_step", "composed"):
+        env, expected = COO_ROUTES[route]
+        with _route(env):
+            rollout, _ = _rollout(ctx, torch.float32)
+            _reset_launches()
+            out = rollout()
+            torch.cuda.synchronize()
+            counts = _launches()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"fp32 {route} rollout: non-finite output")
+        if counts != expected:
+            raise AssertionError(f"fp32 {route} rollout launches {counts}, "
+                                 f"expected {expected}")
+        runs[route] = {"env": env, "rollout": rollout, "out": out,
+                       "counts": counts, "ms": []}
+    for route in ("edge_step", "composed", "composed", "edge_step"):
+        with _route(runs[route]["env"]):
+            runs[route]["ms"].append(
+                _time_ms(runs[route]["rollout"], iters=2, warmup=0))
+    # Both routes compute the same step; the edge-step route's LayerNorm
+    # variance is E[v^2] - mu^2 where the composed route's is
+    # E[(v - mu)^2] (ROADMAP Queue C, trap 2), a few fp32 roundings apart.
+    rel = _rel_rms(runs["edge_step"]["out"], runs["composed"]["out"],
+                   "fp32 edge-step rollout", ref="the fp32 composed rollout",
+                   tol=NONLAZY_FP32_RTOL, what="fp32")
+    rollouts = {}
+    for route, run in runs.items():
+        with _route(run["env"]):
+            busy_ms, wall_ms, top = _profile(run["rollout"], top_n=3)
+        rollouts[route] = {
+            "switches": run["env"], "launches_per_rollout": run["counts"],
+            "rollout_ms": run["ms"], "profiled_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms}
+        _log(f"  fp32 AR-4 rollout, {route} {run['env']}: "
+             + ", ".join(f"{x:.2f}" for x in run["ms"]) + " ms (mean of 2 "
+             f"each, in turns); launches {run['counts']}; torch.profiler: "
+             f"device busy {busy_ms:.2f} of {wall_ms:.2f} ms wall; top "
+             "kernels: " + "; ".join(f"{name[:40]} {n} calls {t_ms:.2f} ms"
+                                     for name, n, t_ms in top))
+    step.update(launches_per_fp32_rollout=runs["edge_step"]["counts"][
+        "edge_step"], route=runs["edge_step"]["env"],
+                fp32_rollouts=rollouts, edge_step_vs_composed_rel_rms=rel)
     return {"edge_mlp": mlp, "edge_step": step}
 
 
@@ -3283,10 +3530,10 @@ def main() -> int:
             extra["launches_per_regional_head_step"] = {
                 n: c[name] for n, c in head_steps.items()}
             extra["at_regional_shape"] = mlp_regional
-            extra["designs"] = {
-                "bf16, H and De in {128, 256}": "hopper_bf16",
-                "fp32, H and De in {128, 256}": "hopper_fp32",
-                "wider rows": "tile16"}
+        extra["designs"] = {
+            "bf16, H and De in {128, 256}": "hopper_bf16",
+            "fp32, H and De in {128, 256}": "hopper_fp32",
+            "wider rows": "tile16"}
         extra["at_flagship_fp32"] = flagship32[name]
         kernels.append((name, src, tpu, dict(
             k, **extra, launches=n, launches_per_rollout=n,

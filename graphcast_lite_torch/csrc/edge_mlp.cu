@@ -92,7 +92,9 @@
 
 // fp32 (edge_mlp_f32_kernel).  fp32's W2 is 256 KB at 256 x 256, 512 KB
 // split, and cannot stay resident; the fp32 tolerance rules out one TF32
-// pass (about three digits).
+// pass (about three digits).  Its machinery (the row shares, the ring, the
+// product pass, the staging and the carried aggregate) lives in hopper.cuh,
+// shared with the fp32 edge step.
 //
 // * Products in 3xTF32 on the tensor cores: wgmma.mma_async
 //   m64n{De}k8 tf32 with fp32 accumulation, both operands from shared
@@ -101,7 +103,11 @@
 //   adds a_s b_b, a_b b_s, then a_b b_b into the same accumulators: the
 //   dropped a_s b_s and the remainders' remainders are about 2^-22 of
 //   each term, of the order of fp32's own rounding of the running sum
-//   (one TF32 product alone keeps about 2^-11).
+//   (one TF32 product alone keeps about 2^-11).  On the card the kernel
+//   sits 1.9-13.8x as far from a float64 evaluation as cuBLAS fp32 does
+//   (chip_smoke.py phase 1b, "vs fp64"), within FUSED_FP32_TOL of it: the
+//   tensor cores' own rounding of the accumulator, which this reckoning
+//   leaves out, is the suspect (PERF.md section 6).
 // * W2 streamed.  The wrapper hands the kernel W2's big and small parts as
 //   K-slabs (ops/edge_mlp.py: tf32x3_b_image: 32 K values by De rows,
 //   128-byte-swizzled, 64 KB a slab at De = 256).  Thread 0 copies them
@@ -489,24 +495,19 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
 // fp32 on Hopper: 3xTF32 wgmma products, W2 streamed in K-slabs, persistent
 // blocks over row-balanced receiver ranges.
 
-constexpr int kF32Threads = 256;            // two warpgroups
-constexpr int kF32StepRows = 2 * kSubRows;  // a step: one 64-row tile each
-constexpr int kF32Parts = 4;     // threads that sum one column pair
-
 // Byte offsets of the fp32 kernel's dynamic shared memory, from a
-// 1024-aligned base.
+// 1024-aligned base (kF32Threads, kF32StepRows, kF32A: hopper.cuh).
 template <int H, int DE>
 struct F32Layout {
   // One K-slab of W2's image (ops/edge_mlp.py: tf32x3_b_image): the TF32
   // big part, then the small part, each DE rows of 32 K values.
   static constexpr int kPart = DE * 128;
   static constexpr int kSlab = 2 * kPart;
-  static constexpr int kA = kSubRows * 128;  // one part of a 64 x 32 A slab
-  static constexpr int ring = 0;             // [2 slots][kSlab]
-  // [2 warpgroups][2 buffers][big, small][kA]; in the epilogue each
+  static constexpr int ring = 0;  // [2 slots][kSlab]
+  // [2 warpgroups][2 buffers][big, small][kF32A]; in the epilogue each
   // warpgroup's 32 KB hold its u tile, 64 rows x 128 columns.
   static constexpr int a = ring + 2 * kSlab;
-  static constexpr int b2 = a + 8 * kA;
+  static constexpr int b2 = a + 8 * kF32A;
   static constexpr int carry = b2 + DE * 4;       // [2][DE] fp32
   static constexpr int bounds = carry + 2 * DE * 4;  // rb0, rb1
   static constexpr int bar = bounds + 16;            // full[2], empty[2]
@@ -514,51 +515,6 @@ struct F32Layout {
 };
 static_assert(F32Layout<256, 256>::bytes <= 232448,
               "the fp32 layout must fit one block's shared memory");
-
-// Offset of column `col` of row `row` in a warpgroup's u tile (64 rows of
-// 128 fp32, 512 bytes a row): the 16-byte chunk index XORed with
-// 2 (row % 4), so that the accumulator fragment's 8 rows of a store fall
-// on all 32 banks.
-__device__ __forceinline__ int ut_off(int row, int col) {
-  return row * 512 + ((((col >> 2) ^ ((row & 3) << 1))) << 4) +
-         ((col & 3) << 2);
-}
-
-// The first receiver r with indptr[r] >= t (indptr[num_receivers] >= t),
-// found by one warp, 32 probes a load.
-__device__ inline int lower_receiver(const int* __restrict__ indptr,
-                                     int num_receivers, int t) {
-  const int lane = threadIdx.x & 31;
-  int lo = -1, hi = num_receivers;  // indptr[lo] < t <= indptr[hi]
-  while (hi - lo > 1) {
-    const int n = hi - lo - 1;
-    const int p =
-        lo + 1 + static_cast<int>(static_cast<long long>(lane) * n / 32);
-    const unsigned m = __ballot_sync(0xffffffffu, indptr[p] >= t);
-    if (m) {
-      const int k = __ffs(m) - 1;
-      const int lo_k = __shfl_sync(0xffffffffu, p, k > 0 ? k - 1 : 0);
-      hi = __shfl_sync(0xffffffffu, p, k);
-      if (k > 0) lo = lo_k;
-    } else {
-      lo = __shfl_sync(0xffffffffu, p, 31);
-    }
-  }
-  return hi;
-}
-
-// The first receiver r in [rc, rb1) whose rows run past e1, or rb1: the
-// receivers before it end within the step.  One warp, 32 receivers a load.
-__device__ inline int first_open(const int* __restrict__ indptr, int rc,
-                                 int rb1, int e1) {
-  const int lane = threadIdx.x & 31;
-  for (int r = rc;; r += 32) {
-    const int j = r + lane;
-    const unsigned m =
-        __ballot_sync(0xffffffffu, j >= rb1 || indptr[j + 1] > e1);
-    if (m) return r + __ffs(m) - 1;
-  }
-}
 
 template <int H, int DE, int ACT>
 __global__ void __launch_bounds__(kF32Threads, 1)
@@ -572,8 +528,6 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
   constexpr int NK = H / 32;    // K-slabs of W2
   constexpr int NH = DE / 128;  // column halves of the epilogue
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
 
   const uint32_t raw = smem_u32(smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -584,26 +538,7 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
   uint64_t* full = reinterpret_cast<uint64_t*>(sp + L::bar);
   uint64_t* empty = full + 2;
 
-  // This block's receivers [rb0, rb1): block b starts at the first
-  // receiver whose rows start at or after row b E / gridDim.x.
-  if (warp < 2) {
-    const int b = blockIdx.x + warp;
-    const int r =
-        b == static_cast<int>(gridDim.x)
-            ? num_receivers
-            : lower_receiver(indptr, num_receivers,
-                             static_cast<int>(
-                                 static_cast<long long>(b) *
-                                 indptr[num_receivers] / gridDim.x));
-    if (lane == 0) bounds_s[warp] = r;
-  }
-  if (tid == 0) {
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kF32Threads / 32);  // one arrival a warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  f32_block_setup(indptr, num_receivers, bounds_s, full, empty);
   for (int i = tid; i < DE; i += kF32Threads) b2_s[i] = b2[i];
   __syncthreads();
   const int rb0 = bounds_s[0];
@@ -614,11 +549,7 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
   const int nslabs = nsteps * NK;  // each step's pass over W2
 
   if (nsteps == 0) {  // no rows: zero aggregates
-    float4* dst = reinterpret_cast<float4*>(agg + static_cast<size_t>(rb0) *
-                                                      DE);
-    for (int i = tid; i < (rb1 - rb0) * (DE / 4); i += kF32Threads) {
-      dst[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
+    f32_zero_agg<DE>(agg, rb0, rb1);
     return;
   }
 
@@ -641,12 +572,10 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
   // uniform.
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int wt = tid & 127;
-  const int row_a = 16 * (wt >> 5) + (lane >> 2);  // and row_a + 8
-  const int cq = 2 * (lane & 3);
   const int prow = wt >> 3;  // this thread's A rows: prow + 16 k, k < 4,
   const int pch = wt & 7;    // and their 16-byte chunk of a K-slab
-  const uint32_t a_wg = base + L::a + wg * 4 * L::kA;
-  unsigned char* a_wg_p = sp + L::a + wg * 4 * L::kA;
+  const uint32_t a_wg = base + L::a + wg * 4 * kF32A;
+  unsigned char* a_wg_p = sp + L::a + wg * 4 * kF32A;
 
   // K-slab i of this warpgroup's rows of the step at e0, into registers
   // (rows past ee: 0).
@@ -662,96 +591,35 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
       }
     }
   };
-  // act(x) in fp32, split into its TF32 big part and the TF32 of the
-  // remainder, into A buffer buf (big, then small), K-major, swizzled.
-  auto put_a = [&](int buf) {
-    unsigned char* dst = a_wg_p + buf * 2 * L::kA;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int row = prow + 16 * k;
-      const float v[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
-      float big[4], small[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float a = activate(v[q], ACT);
-        big[q] = tf32_rna(a);
-        small[q] = tf32_rna(a - big[q]);
-      }
-      const int off = row * 128 + ((pch ^ (row & 7)) << 4);
-      *reinterpret_cast<float4*>(dst + off) =
-          make_float4(big[0], big[1], big[2], big[3]);
-      *reinterpret_cast<float4*>(dst + L::kA + off) =
-          make_float4(small[0], small[1], small[2], small[3]);
-    }
+  // act(x) in fp32, split and stored into A buffer i % 2.
+  auto put_a = [&](int i) {
+    f32_put_a(a_wg_p + (i & 1) * 2 * kF32A, x, prow, pch,
+              [](float v) { return activate(v, ACT); });
   };
 
+  const F32Ring ring{base + L::ring, L::kSlab, full, empty, nslabs};
   float acc[DE / 2];
-  int c = 0;       // K-slabs consumed, in the producer's order
+  int slab = 0;    // K-slabs consumed, in the producer's order
   int rc = rb0;    // the first receiver not yet written
   int e0 = eb;
   load_raw(e0, 0);
   for (int t = 0; t < nsteps; ++t, e0 += kF32StepRows) {
     const int e1 = min(e0 + kF32StepRows, ee);
     const bool busy = e0 + kSubRows * wg < e1;  // this warpgroup has rows
-#pragma unroll 1
-    for (int i = 0; i < NK; ++i, ++c) {
-      const int slot = c & 1;
-      const int buf = i & 1;
-      // Every warp of the warpgroup is past the products of K-slab i - 2,
-      // which read buffer buf.
-      named_barrier(1 + wg, 128);
-      if (busy) {
-        put_a(buf);
-        fence_async_smem();
-      }
-      if (i + 1 < NK) {
-        load_raw(e0, i + 1);
-      } else if (t + 1 < nsteps) {
-        load_raw(e0 + kF32StepRows, 0);
-      }
-      named_barrier(1 + wg, 128);
-      mbar_wait(full + slot, (c >> 1) & 1);
-      // a_s b_b + a_b b_s + a_b b_b, small terms first, each k8 step.  A
-      // warpgroup without rows multiplies what its buffer holds and
-      // discards it: wgmma in a branch would be serialized.
-      const uint32_t at = a_wg + buf * 2 * L::kA;
-      const uint32_t bt = base + L::ring + slot * L::kSlab;
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        wgmma_tf32(acc, sw128_desc(at + L::kA + 32 * s),
-                   sw128_desc(bt + 32 * s), (i | s) != 0);
-        wgmma_tf32(acc, sw128_desc(at + 32 * s),
-                   sw128_desc(bt + L::kPart + 32 * s), 1);
-        wgmma_tf32(acc, sw128_desc(at + 32 * s), sw128_desc(bt + 32 * s),
-                   1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // K-slab c - 1's products are done
-      if (c > 0) {
-        if (i > 0 && lane == 0) mbar_arrive(empty + (slot ^ 1));
-        // Once every warp is past K-slab c - 1, its slot takes c + 1.  The
-        // whole of warp 0 waits, so that it reaches the next barrier
-        // converged.
-        if (tid < 32 && c + 1 < nslabs) {
-          mbar_wait(empty + (slot ^ 1), ((c - 1) >> 1) & 1);
-          if (tid == 0) fill(c + 1);
-          __syncwarp();
-        }
-      }
-    }
-    wgmma_wait<0>();
-    fence_operands(acc);
-    if (lane == 0) mbar_arrive(empty + ((c - 1) & 1));
+    f32_product(acc, NK, L::kPart, busy, slab, ring, a_wg, put_a,
+                [&](int i) {
+                  if (i + 1 < NK) {
+                    load_raw(e0, i + 1);
+                  } else if (t + 1 < nsteps) {
+                    load_raw(e0 + kF32StepRows, 0);
+                  }
+                },
+                fill);
 
     // The receivers [rc, rf) end within this step; rf (if below rb1) runs
     // on, its partial sum carried into the next step.
     const int rf = first_open(indptr, rc, rb1, e1);
     const int rlast = rf < rb1 ? rf : rb1 - 1;
-    const float* carry_in = carry_s + (t & 1) * DE;
-    float* carry_out = carry_s + ((t + 1) & 1) * DE;
-    const int pair = tid & 63;  // aggregate columns 2 pair, 2 pair + 1
-    const int part = tid >> 6;  // receivers rc + part + kF32Parts n
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) {
       // Both warpgroups' products are done (hh = 0), or every thread is
@@ -759,20 +627,7 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
       __syncthreads();
       // u = acc + b2 in fp32, columns [128 hh, 128 hh + 128), into this
       // warpgroup's u tile.
-      if (busy) {
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 8 * j + cq;
-          const float2 bb =
-              *reinterpret_cast<const float2*>(b2_s + 128 * hh + col);
-#pragma unroll
-          for (int r2 = 0; r2 < 2; ++r2) {
-            const int a0 = 4 * (16 * hh + j) + 2 * r2;
-            *reinterpret_cast<float2*>(a_wg_p + ut_off(row_a + 8 * r2, col)) =
-                make_float2(acc[a0] + bb.x, acc[a0 + 1] + bb.y);
-          }
-        }
-      }
+      if (busy) f32_stage<true>(acc, hh, b2_s, a_wg_p);
       __syncthreads();
       // Each u row out once, 16 bytes a thread.
       for (int q = tid; q < (e1 - e0) * 32; q += kF32Threads) {
@@ -781,35 +636,11 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
         *reinterpret_cast<float4*>(u + static_cast<size_t>(e0 + lr) * DE +
                                    128 * hh + 4 * k) =
             *reinterpret_cast<const float4*>(
-                sp + L::a + (lr >> 6) * 4 * L::kA + ut_off(lr & 63, 4 * k));
+                f32_tile_at(sp + L::a, lr, 4 * k));
       }
-      // agg[r] = (carry) + sum of u * mask over r's rows of the step, in
-      // row order, two columns a thread; each finished row written once.
-      const int col = 128 * hh + 2 * pair;
-      for (int r = rc + part; r <= rlast; r += kF32Parts) {
-        const int r_lo = indptr[r];
-        const int hi = min(indptr[r + 1], e1);
-        float s0 = 0.0f, s1 = 0.0f;
-        for (int e = max(r_lo, e0); e < hi; ++e) {
-          const int lr = e - e0;
-          const float2 v = *reinterpret_cast<const float2*>(
-              sp + L::a + (lr >> 6) * 4 * L::kA + ut_off(lr & 63, 2 * pair));
-          const float m = __ldg(mask + e);
-          s0 += v.x * m;
-          s1 += v.y * m;
-        }
-        if (r_lo < e0) {  // rows in earlier steps
-          s0 = carry_in[col] + s0;
-          s1 = carry_in[col + 1] + s1;
-        }
-        if (r < rf) {
-          *reinterpret_cast<float2*>(agg + static_cast<size_t>(r) * DE +
-                                     col) = make_float2(s0, s1);
-        } else {
-          carry_out[col] = s0;
-          carry_out[col + 1] = s1;
-        }
-      }
+      f32_aggregate<DE>(indptr, mask, agg, sp + L::a, tid, rc, rf, rlast,
+                        e0, e1, hh, carry_s + (t & 1) * DE,
+                        carry_s + ((t + 1) & 1) * DE);
     }
     // The u tiles are read: the buffers take the next step's rows.
     __syncthreads();

@@ -1,9 +1,7 @@
 // Shared building blocks of the fused edge kernels' 16-receiver design
-// (edge_mlp.cu, edge_step.cu), for Hopper (sm_90a).  It runs the fp32 edge
-// step and both kernels' bf16 rows wider than 256, and the edge MLP's fp32
-// rows wider than 256; the edge MLP at H and De in {128, 256} (both
-// dtypes) and the bf16 edge step there run designs of their own
-// (hopper.cuh).
+// (edge_mlp.cu, edge_step.cu), for Hopper (sm_90a).  It runs both kernels'
+// rows wider than 256, in fp32 and bf16; at H and De in {128, 256} both
+// kernels run designs of their own in both dtypes (hopper.cuh).
 //
 // Both kernels walk receiver-sorted edge rows by CSR ranges: one block of
 // kThreads threads owns kTileReceivers consecutive receivers and every edge
@@ -13,7 +11,7 @@
 // resident), kChunk output columns at a time, into an fp32 tile in shared
 // memory.  bf16 runs on the tensor cores (nvcuda::wmma 16x16x16, fp32
 // accumulation); fp32 runs in full fp32 on the FMA units (no TF32) here,
-// where the edge MLP's fp32 Hopper design multiplies in 3xTF32.
+// where both kernels' fp32 Hopper designs multiply in 3xTF32.
 // The block sums each receiver's rows into its own fp32 rows in shared
 // memory, in row order, and writes each aggregate row once: no atomics, so
 // results are deterministic.

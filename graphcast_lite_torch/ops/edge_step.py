@@ -21,12 +21,20 @@ ranges.
 * On a CPU tensor the wrapper runs ``edge_step_reference``.
 * On a CUDA tensor it launches ``csrc/edge_step.cu`` (the step, then a
   fixed-order reduction of its per-block statistics) or raises; it never
-  falls back.  In bf16 at H and De in {128, 256} (the flagship's widths)
-  the kernel runs its products on Hopper's ``wgmma``, and the wrapper hands
-  it W1e and W2 as ``wgmma_b_image``s, the layout in which it streams them
-  into shared memory.  Wider bf16 rows, which that kernel's shared memory
-  does not hold, and fp32 run the 16-receiver design of ``edge_tile.cuh``
-  on row-major weights.
+  falls back.  Three designs (``design``, as ``edge_mlp.design``):
+
+  - ``hopper_bf16``, bf16 at H and De in {128, 256} (the flagship's
+    widths): ``wgmma`` products, W1e and W2 handed over as
+    ``wgmma_b_image``s; persistent blocks walk groups of
+    ``HOPPER_RECEIVERS`` receivers.
+  - ``hopper_fp32``, fp32 at the same widths: 3xTF32 ``wgmma`` products,
+    W1e and W2 streamed through shared memory in K-slabs of their
+    ``tf32x3_b_image``s; persistent blocks take the receivers of equal
+    shares of the rows (``edge_mlp.fp32_bounds``) in steps of
+    ``F32_STEP_ROWS`` rows, with ``F32_STEP_ROWS`` rows of h a block in a
+    workspace the wrapper allocates (``workspace_shape``).
+  - ``tile16``, wider rows in either dtype: the 16-receiver design of
+    ``edge_tile.cuh`` on row-major weights.
 
 ``launches`` counts wrapper calls that launched the kernel (never
 plain-version calls).  There is no backward, as in the reference.
@@ -40,13 +48,15 @@ from typing import Tuple
 
 import torch
 
-from . import cuda_segment, nvcc_build
-from .edge_mlp import ACTIVATIONS, MAX_SMEM, act_fn, check_inputs, \
-    supports, wgmma_b_image
+from . import cuda_segment, edge_mlp, nvcc_build
+from .edge_mlp import ACTIVATIONS, DESIGNS, F32_STEP_ROWS, MAX_SMEM, \
+    act_fn, check_inputs, supports, tf32x3_b_image, wgmma_b_image
 
-__all__ = ["SOURCE", "SIGNATURES", "MIN_PADDED_EDGES", "launches",
-           "eligible", "wgmma_b_image", "launch_geometry", "edge_step",
-           "edge_step_reference"]
+__all__ = ["SOURCE", "SIGNATURES", "MIN_PADDED_EDGES", "DESIGNS",
+           "TILE_RECEIVERS", "HOPPER_RECEIVERS", "F32_STEP_ROWS", "launches",
+           "eligible", "design", "tile_receivers", "wgmma_b_image",
+           "tf32x3_b_image", "launch_geometry", "workspace_shape",
+           "edge_step", "edge_step_reference"]
 
 SOURCE = os.path.join(nvcc_build.CSRC, "edge_step.cu")
 launches = 0
@@ -56,12 +66,16 @@ launches = 0
 # the same condition so that both packages take the same route.
 MIN_PADDED_EDGES = 1024
 
+# Receivers per block of the 16-receiver design and per group of the
+# Hopper bf16 design (csrc/edge_step.cu: kTileReceivers, kStepReceivers).
+TILE_RECEIVERS = 16
+HOPPER_RECEIVERS = 20
 # The C interface of csrc/edge_step.cu.
 SIGNATURES = {
     "gclt_edge_step_smem": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gclt_edge_step_design": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_step_tile_receivers": (ctypes.c_int, [ctypes.c_int] * 3),
-    "gclt_edge_step_wgmma": (ctypes.c_int, [ctypes.c_int] * 3),
-    "gclt_edge_step": (ctypes.c_int, [ctypes.c_void_p] * 15
+    "gclt_edge_step": (ctypes.c_int, [ctypes.c_void_p] * 16
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
 
@@ -74,13 +88,46 @@ def eligible(padded_num_edges: int, hidden_dim: int, edge_dim: int,
             and padded_num_edges >= MIN_PADDED_EDGES)
 
 
-def launch_geometry(num_receivers: int, tile: int) -> Tuple[int, tuple]:
-    """(groups, shape of the per-group statistics scratch): group ``g``
-    owns receivers ``[g * tile, min((g + 1) * tile, num_receivers))``; the
-    16-receiver design runs a block per group, the Hopper bf16 kernel a
-    persistent block per SM over them."""
-    groups = -(-num_receivers // tile)
-    return groups, (groups, 3)
+def design(dtype: torch.dtype, hidden_dim: int, edge_dim: int) -> str:
+    """The design a launch takes (csrc/edge_step.cu: ``design()``;
+    ``gclt_edge_step_design`` answers for the built library): the edge
+    MLP's selection, ``hopper_bf16`` or ``hopper_fp32`` by dtype at H and
+    De in {128, 256}, else ``tile16``."""
+    return edge_mlp.design(dtype, hidden_dim, edge_dim)
+
+
+def tile_receivers(dtype: torch.dtype, hidden_dim: int,
+                   edge_dim: int) -> int:
+    """Receivers per block (``tile16``) or per group (``hopper_bf16``); 0
+    for ``hopper_fp32``, whose blocks split the rows instead."""
+    return {"tile16": TILE_RECEIVERS, "hopper_bf16": HOPPER_RECEIVERS,
+            "hopper_fp32": 0}[design(dtype, hidden_dim, edge_dim)]
+
+
+def launch_geometry(num_receivers: int, tile: int,
+                    sms: int = 0) -> Tuple[int, tuple]:
+    """(items, shape of the per-item statistics scratch).  ``tile`` > 0:
+    group ``g`` owns receivers ``[g * tile, min((g + 1) * tile,
+    num_receivers))``; the 16-receiver design runs a block per group, the
+    Hopper bf16 kernel a persistent block per SM over them (``sms`` is not
+    read).  ``tile`` 0 (``hopper_fp32``): ``min(num_receivers, sms)``
+    persistent blocks, block ``b`` owning the receivers
+    ``edge_mlp.fp32_bounds`` gives it; ``sms`` must be at least 1."""
+    if tile > 0:
+        items = -(-num_receivers // tile)
+    elif sms >= 1:
+        items = min(num_receivers, sms)
+    else:
+        raise ValueError(f"launch_geometry: tile 0 takes the SM count, "
+                         f"got sms={sms}")
+    return items, (items, 3)
+
+
+def workspace_shape(num_receivers: int, hidden_dim: int,
+                    sms: int) -> tuple:
+    """The ``hopper_fp32`` launch's h workspace: ``F32_STEP_ROWS`` rows of
+    H fp32 for each of its ``min(num_receivers, sms)`` blocks."""
+    return (min(num_receivers, sms), F32_STEP_ROWS, hidden_dim)
 
 
 def _receivers(indptr: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -151,11 +198,21 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
     if smem > MAX_SMEM:
         raise ValueError(f"edge_step: H {hid} / De {de} need {smem} bytes "
                          "of shared memory per block")
-    _, partials_shape = launch_geometry(
-        num_receivers, lib.gclt_edge_step_tile_receivers(code, hid, de))
     dev = v.device
-    if lib.gclt_edge_step_wgmma(code, hid, de):
-        w1e, w2 = wgmma_b_image(w1e), wgmma_b_image(w2)
+    kind = DESIGNS[lib.gclt_edge_step_design(code, hid, de)]
+    tile = lib.gclt_edge_step_tile_receivers(code, hid, de)
+    work_ptr = None  # the h workspace, which only hopper_fp32 takes
+    if kind == "hopper_fp32":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _, partials_shape = launch_geometry(num_receivers, tile, sms)
+        w1e, w2 = tf32x3_b_image(w1e), tf32x3_b_image(w2)
+        work = torch.empty(workspace_shape(num_receivers, hid, sms),
+                           dtype=torch.float32, device=dev)
+        work_ptr = work.data_ptr()
+    else:
+        _, partials_shape = launch_geometry(num_receivers, tile)
+        if kind == "hopper_bf16":
+            w1e, w2 = wgmma_b_image(w1e), wgmma_b_image(w2)
     v_new = torch.empty((e_pad, de), dtype=v.dtype, device=dev)
     agg = torch.empty((num_receivers, de), dtype=v.dtype, device=dev)
     partials = torch.empty(partials_shape, dtype=torch.float32, device=dev)
@@ -167,7 +224,7 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
             b_eff.data_ptr(), w2.data_ptr(), b2.data_ptr(), a.data_ptr(),
             c.data_ptr(), mask.data_ptr(), indptr.data_ptr(),
             v_new.data_ptr(), agg.data_ptr(), partials.data_ptr(),
-            stats.data_ptr(), code, num_receivers, hid, de,
+            stats.data_ptr(), work_ptr, code, num_receivers, hid, de,
             ACTIVATIONS[activation], stream,
         )
     if err != 0:

@@ -9,7 +9,9 @@ loaded.
 
 ``build(*sources)`` starts one nvcc per missing library, all at once, and
 waits for them; ``load(source, signatures)`` builds (if needed), opens and
-binds one library, once per process.
+binds one library, once per process.  ``edited_copy`` writes a source with
+the package's headers, text edits applied to all of them, for the timing
+scripts' variants of a kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["CSRC", "NVCC_FLAGS", "DTYPE_CODES", "lib_path", "build", "load"]
+__all__ = ["CSRC", "NVCC_FLAGS", "DTYPE_CODES", "lib_path", "build", "load",
+           "edited_copy"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -104,3 +107,32 @@ def load(source: str, signatures: Signatures) -> ctypes.CDLL:
             fn.argtypes = list(argtypes)
         _loaded[source] = lib
     return lib
+
+
+def edited_copy(workdir: str, name: str, text: str,
+                edits: Sequence[Tuple[str, str, int]],
+                headers: str = CSRC) -> str:
+    """Write ``text`` as ``workdir/name/name.cu`` beside copies of the
+    headers (``*.cuh``) in the directory ``headers`` (an earlier tree's
+    ``csrc/``, say), or the package's where it holds none, with each edit
+    ``(old, new, n)`` applied to the source and the headers together;
+    returns the source's path.  Raises unless ``old`` occurs exactly ``n``
+    times over all of them, so that a kernel change that moves an anchor
+    fails loudly."""
+    files = {f"{name}.cu": text}
+    found = sorted(glob.glob(os.path.join(headers, "*.cuh")))
+    for header in found or sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(header) as f:
+            files[os.path.basename(header)] = f.read()
+    for old, new, n in edits:
+        found = sum(t.count(old) for t in files.values())
+        if found != n:
+            raise RuntimeError(f"{name}: {old!r} found {found} times, "
+                               f"not {n}")
+        files = {k: t.replace(old, new) for k, t in files.items()}
+    vdir = os.path.join(workdir, name)
+    os.makedirs(vdir, exist_ok=True)
+    for fname, t in files.items():
+        with open(os.path.join(vdir, fname), "w") as f:
+            f.write(t)
+    return os.path.join(vdir, f"{name}.cu")

@@ -30,25 +30,29 @@ mesh over the README's ROI: E_pad 228,352, R 41,046).
   value (at most 32: the flagship layout fits no more).
 * ``--compare``: other ``edge_mlp.cu`` files of the current C interface.
 
-Every variant is written beside copies of the package's ``*.cuh`` headers
-under its gitignored build directory and built by ``ops/nvcc_build.build``
-(one nvcc each, all at once).  An edit whose text is not found exactly as
-often as expected stops the script.  Every complete build is held against
-the plain version first (chip_smoke's tolerances of the dtype).  W2's
-image is made once, outside the timed calls, so the times are the
-kernel's launches alone.  Each build is timed twice, the second round in
-reverse order.  Prints the card's name and power limit and one JSON line,
-which ``--out PATH`` also writes to a file.
+``--old`` and ``--compare`` sources build with the headers beside them
+where there are any (an earlier tree's ``csrc/``), else the package's.
+
+Every variant is a copy of the source and of the package's ``*.cuh``
+headers in a directory of its own under the gitignored build directory,
+the edits applied to all of them (``ops/nvcc_build.edited_copy``: the fp32
+product pass and aggregate live in ``hopper.cuh``), built by
+``ops/nvcc_build.build`` (one nvcc each, all at once).  An edit whose text
+is not found exactly as often as expected stops the script.  Every
+complete build is held against the plain version first (chip_smoke's
+tolerances of the dtype).  W2's image is made once, outside the timed
+calls, so the times are the kernel's launches alone.  Each build is
+timed twice, the second round in reverse order.  Prints the card's name
+and power limit and one JSON line, which ``--out PATH`` also writes to a
+file.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import glob
 import json
 import os
-import shutil
 import subprocess
 import sys
 import time
@@ -70,7 +74,8 @@ from graphcast_lite_torch.ops import cuda_segment, edge_mlp, \
 
 # Text edits of the current kernel: (text, replacement, occurrences).
 _NO_ACT = ("for (int c = 0; c < 4; ++c) {", "for (int c = 0; c < 0; ++c) {", 1)
-_NO_MMA = ("wgmma_m64n64k16(", "if (0) wgmma_m64n64k16(", 1)
+_NO_MMA = ("            wgmma_m64n64k16(",
+           "            if (0) wgmma_m64n64k16(", 1)
 _NO_EPI = ("for (int j = 0; j < 8; ++j) {", "for (int j = 0; j < 0; ++j) {",
            2)
 _NO_STORE = ("q < nrows * (DE / 8);", "q < 0;", 1)
@@ -98,8 +103,8 @@ _F32_NO_W2 = ("mbar_expect_tx(full + (c & 1), L::kSlab);\n"
               "mbar_arrive(full + (c & 1));\n"
               "    (void)src;\n"
               "    (void)dst;", 1)
-_F32_NO_ACT = ("const float a = activate(v[q], ACT);", "const float a = v[q];",
-               1)
+_F32_NO_ACT = ("[](float v) { return activate(v, ACT); }",
+               "[](float v) { return v; }", 1)
 _F32_NO_STORE = ("q < (e1 - e0) * 32;", "q < 0;", 1)
 _F32_NO_AGG = ("for (int e = max(r_lo, e0); e < hi; ++e) {",
                "for (int e = hi; e < hi; ++e) {", 1)
@@ -128,19 +133,6 @@ def _recv(shape) -> torch.Tensor:
     send, recv = edges_from_faces(mesh.faces)
     graph = build_graph(send, recv, num_nodes=len(lats))
     return graph.receivers[:graph.num_edges].long()
-
-
-def _variant(workdir, name, text, edits) -> str:
-    """``text`` with ``edits`` applied, written to ``workdir/name.cu``."""
-    for old, new, n in edits:
-        if text.count(old) != n:
-            raise RuntimeError(f"{name}: {old!r} found {text.count(old)} "
-                               f"times, not {n}")
-        text = text.replace(old, new)
-    path = os.path.join(workdir, f"{name}.cu")
-    with open(path, "w") as f:
-        f.write(text)
-    return path
 
 
 def _caller(path, t, r):
@@ -275,26 +267,29 @@ def main() -> int:
     workdir = os.path.join(
         os.path.dirname(nvcc_build.lib_path(edge_mlp.SOURCE)), "mlp_time")
     os.makedirs(workdir, exist_ok=True)
-    for header in glob.glob(os.path.join(nvcc_build.CSRC, "*.cuh")):
-        shutil.copy(header, workdir)
     with open(edge_mlp.SOURCE) as f:
         current = f.read()
-    sources = {"cur": _variant(workdir, "cur", current, [])}
+    sources = {"cur": nvcc_build.edited_copy(workdir, "cur", current, [])}
     if args.old:
         with open(args.old) as f:
-            sources["old"] = _variant(workdir, "old", f.read(), [])
+            sources["old"] = nvcc_build.edited_copy(
+                workdir, "old", f.read(), [],
+                os.path.dirname(os.path.abspath(args.old)))
     if args.split_current:
         variants = (F32_VARIANTS if dtype == torch.float32
                     else BF16_VARIANTS)
         for name, edits in variants.items():
-            sources[name] = _variant(workdir, name, current, edits)
+            sources[name] = nvcc_build.edited_copy(workdir, name, current,
+                                                   edits)
     for g in [int(x) for x in args.receivers.split(",") if x]:
-        sources[f"new_r{g}"] = _variant(
+        sources[f"new_r{g}"] = nvcc_build.edited_copy(
             workdir, f"new_r{g}", current,
             [(_RECEIVERS, f"constexpr int kMlpReceivers = {g};", 1)])
     for i, path in enumerate(x for x in args.compare.split(",") if x):
         with open(path) as f:
-            sources[f"cmp{i}"] = _variant(workdir, f"cmp{i}", f.read(), [])
+            sources[f"cmp{i}"] = nvcc_build.edited_copy(
+                workdir, f"cmp{i}", f.read(), [],
+                os.path.dirname(os.path.abspath(path)))
     t0 = time.perf_counter()
     libs = dict(zip(sources, nvcc_build.build(*sources.values())))
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s",

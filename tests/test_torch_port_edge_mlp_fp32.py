@@ -6,7 +6,8 @@ and W2 are each split into a TF32 big part and the TF32 of the remainder
 (``ops.edge_mlp.tf32_split``: round to nearest, ties away from zero, by
 bit masking, as ``cvt.rna.tf32.f32``), and each k8 step adds
 ``a_s b_b``, ``a_b b_s`` and ``a_b b_b`` (small terms first) into one fp32
-accumulator.  The emulation below adds the same parts in the same order,
+accumulator.  The emulation (``torch_port_common.tf32x3_product``, which
+the edge step's emulation shares) adds the same parts in the same order,
 each 8-deep product in fp32 (a product of two TF32 values is exact in
 fp32).  On seeded inputs at a small CSR, with W2 columns scaled by 2^10
 and 2^-10, it holds:
@@ -20,9 +21,12 @@ and 2^-10, it holds:
   by a power of two scales both versions' results exactly, so ``atol``
   scales with the column.
 
-The card's tensor cores may add within a k8 step in another order than the
-emulation; chip_smoke.py holds the kernel itself to the plain version at
-the same tolerance.
+The emulation adds in IEEE fp32; the card's tensor cores round their sums
+otherwise, and on the card the kernel's error against float64 is several
+times the plain fp32 version's (chip_smoke.py measures and prints it;
+PERF.md).  So the first point holds for the emulated arithmetic only:
+chip_smoke.py holds the kernel itself to the plain version at the same
+tolerance.
 """
 
 import os
@@ -40,22 +44,9 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 from chip_smoke import FUSED_FP32_TOL, ORDER_RTOL  # noqa: E402
+from torch_port_common import tf32x3_product  # noqa: E402
 
 WIDTHS = [(128, 128), (256, 256), (128, 256), (256, 128)]
-
-
-def tf32x3_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w as the kernel forms it: per k8 step, a_s b_b, a_b b_s, then
-    a_b b_b, added into one fp32 accumulator."""
-    ab, as_ = edge_mlp.tf32_split(a)
-    wb, ws = edge_mlp.tf32_split(w)
-    acc = torch.zeros(a.shape[0], w.shape[1])
-    for k in range(0, a.shape[1], 8):
-        s = slice(k, k + 8)
-        acc = acc + as_[:, s] @ wb[s]
-        acc = acc + ab[:, s] @ ws[s]
-        acc = acc + ab[:, s] @ wb[s]
-    return acc
 
 
 def emulate(h_pre, w2, b2, mask, indptr, r, activation="swish"):

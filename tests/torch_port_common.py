@@ -29,6 +29,7 @@ from graphcast_lite_torch import presets as port_presets
 from graphcast_lite_torch.graphs.build import build_graph_set as port_build
 from graphcast_lite_torch.models.weather import ModelGraphs as PortGraphs
 from graphcast_lite_torch.models.weather import WeatherModel as PortModel
+from graphcast_lite_torch.ops import edge_mlp
 from graphcast_lite_torch.utils.params import from_flax_params
 
 # Small flagship architecture: 64x32 grid, mesh [1, 2], hidden 32, 2 steps.
@@ -309,3 +310,24 @@ def assert_graph_equal(jg, tg):
         assert tr.block_k == jr.block_k
         assert tr.num_nodes == jr.num_nodes
         assert tr.rows_padded == jr.rows_padded
+
+
+# ---- The fp32 fused kernels' 3xTF32 products ---------------------------
+
+
+def tf32x3_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w as the fp32 Hopper kernels (``csrc/edge_mlp.cu``,
+    ``csrc/edge_step.cu``) form it: each operand split by
+    ``edge_mlp.tf32_split``, and per k8 step a_s b_b, a_b b_s, then a_b b_b
+    added into one fp32 accumulator, each 8-deep product in fp32 (a product
+    of two TF32 values is exact in fp32)."""
+    ab, as_ = edge_mlp.tf32_split(a)
+    wb, ws = edge_mlp.tf32_split(w)
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        acc = acc + as_[:, s] @ wb[s]
+        acc = acc + ab[:, s] @ ws[s]
+        acc = acc + ab[:, s] @ wb[s]
+    return acc
+
