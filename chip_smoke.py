@@ -9,17 +9,22 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    step (``edge_step.cu``), on empty receivers, padding rows, pruned edges,
    a receiver with thousands of edges and receiver counts that are not a
    multiple of the kernels' receiver tile.  The segment sum also on the
-   shapes that cut its balanced design's tiles: no edges (R = 50,000),
+   shapes that cut its merge-path designs' tiles: no edges (R = 50,000),
    R = 1, a 50,000-edge receiver, long receivers that end exactly on tile
    boundaries and the encoder's layout (131,072 empty rows, then a skewed
-   band), each at F in {19, 64, 256}, with PR 1's warp-per-row design on
-   the same skew, two balanced launches compared bitwise, and the
-   library's design and tile-size queries checked against the wrapper's
-   Python mirror.  Both fused kernels also on the tilings their bf16
-   Hopper kernels meet (in-degree 1, alternating in-degrees 0 and 13,
-   receivers of exactly 64 and 128 rows, one receiver, R = 33) and on bf16
-   rows wider than those kernels take (H = 384), which run the 16-receiver
-   design.  Both fused kernels at H, De in {128, 256} take their Hopper
+   band), each at F in {19, 64, 256} (F = 19 and bf16 F = 64 take the
+   narrow design, the others the balanced one), with PR 1's warp-per-row
+   design on the same skew at F = 19 and 256, two balanced (F = 256) and
+   two narrow (F = 19) launches compared bitwise; the narrow design also
+   batched [2, E, F] and on a misaligned view (data one element past a
+   16-byte boundary, equal bitwise to the aligned tensor's sum) at F in
+   {1, 4, 19, 33} on the 50,000-edge receiver's CSR; and the library's
+   design and tile-size queries (both merge-path designs) checked against
+   the wrapper's Python mirror.  Both fused kernels also on the tilings
+   their bf16 Hopper kernels meet (in-degree 1, alternating in-degrees 0
+   and 13, receivers of exactly 64 and 128 rows, one receiver, R = 33) and
+   on bf16 rows wider than those kernels take (H = 384), which run the
+   16-receiver design.  Both fused kernels at H, De in {128, 256} take their Hopper
    design in both dtypes (asserted: ``hopper_bf16``, ``hopper_fp32``); the
    fp32 ones also on rows up to |h| = 30 (``edge_mlp``: h_pre; ``edge_step``:
    h, with W1e's columns scaled by 2^10 and 2^-10) with W2's columns
@@ -33,7 +38,8 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    64x32 graphs: GAT aggregations (F = 256 at 4 heads x 64, 64 at one
    head), softmax denominators (F = 4, 1; F = 1 is also the degree sum
    under a pruned mask), the product-graph GCN's aggregations (F = 64,
-   33) and the backward's gather adjoints over the sender CSRs.
+   33) and the backward's gather adjoints over the sender CSRs; the
+   narrow rows also in PR 1's design, and two launches bitwise equal.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
@@ -58,10 +64,14 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    processor shape, the two fused kernels at the processor shape)
    against its bound, its plain version and, where there is one, one
    PyTorch call; the segment sum in the design it picks and in PR 1's
-   warp-per-row design, in turns; the fused kernels also against their
-   earlier (wmma) times, and ``edge_mlp`` with the design it took
+   warp-per-row design, in turns, through the wrapper and, where it picks
+   the narrow design, also alone (raw launches queued back to back behind
+   a sleep kernel, CUDA events) beside the launch floor (an empty kernel
+   on the narrow design's grid, timed alike); the fused kernels also
+   against their earlier (wmma) times, and ``edge_mlp`` with the design it took
    (asserted: the Hopper one) and its persistent blocks' sub-tile counts;
-   the segment sum also at the four sender-sorted scatters of phase 5a;
+   the segment sum also at the four sender-sorted scatters of phase 5a
+   (the decoder's F = 19 gather adjoint is narrow);
    3b the segment sum at phase 1c's shapes in fp32.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
@@ -82,7 +92,8 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    card's Adam update against its closed form.  5c: the flagship in bf16
    mixed precision, 5 train steps on one seeded batch through
    ``make_train_step`` on the default route: exact launches every step
-   (80 segment sums, no fused kernel), the loss falls, step and
+   (80 segment sums, by CSR and by design: 76 balanced, 4 narrow; no
+   fused kernel), the loss falls, step and
    forward-loss times, peak memory and one profiled step.
 6. The trainer and the user surface.  6a: the flagship in bf16 mixed
    precision through ``Trainer.fit`` on a seeded 11-frame synthetic
@@ -150,7 +161,8 @@ Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
 ``{"regional": ...}`` and ``{"kernels": [...]}`` lines
 (the kernels' launches counted in the serve, the train steps, the fit,
-the demo's training and the regional head steps) and, last,
+the demo's training and the regional head steps; the segment sum's also
+by design in the serve and the train step) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
@@ -373,11 +385,18 @@ def _kernel_modules():
 def _reset_launches():
     for mod in _kernel_modules().values():
         mod.launches = 0
-    _kernel_modules()["segment_sum"].launches_by_csr.clear()
+    seg = _kernel_modules()["segment_sum"]
+    seg.launches_by_csr.clear()
+    seg.launches_by_design.update(dict.fromkeys(seg.launches_by_design, 0))
 
 
 def _launches():
     return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+def _launches_by_design():
+    """The segment sum's launches since the last reset, by design."""
+    return dict(_kernel_modules()["segment_sum"].launches_by_design)
 
 
 @contextlib.contextmanager
@@ -437,10 +456,14 @@ def _check_kernel(label, msgs, indptr, num_receivers, design=None) -> float:
     return err
 
 
+SEGMENT_DESIGN_WIDTHS = (1, 4, 19, 33, 63, 64, 65, 127, 128, 129, 256, 512,
+                         1024)
+
+
 def _segment_design_check() -> None:
     """Raises unless the segment-sum library and the Python mirror agree on
-    the balanced design's tile size and on the design of every dtype, width
-    and alignment."""
+    the balanced design's tile size, on the narrow design's tile size and
+    on the design of every dtype, width and alignment."""
     from graphcast_lite_torch.ops import cuda_segment, nvcc_build
 
     lib = nvcc_build.load(cuda_segment.SOURCE, cuda_segment.SIGNATURES)
@@ -448,16 +471,25 @@ def _segment_design_check() -> None:
     if items != cuda_segment.TILE_ITEMS:
         raise AssertionError(f"segment_sum: library tiles of {items} items, "
                              f"Python {cuda_segment.TILE_ITEMS}")
+    names = {code: name for name, code in cuda_segment.DESIGNS.items()}
     for dtype, code in nvcc_build.DTYPE_CODES.items():
-        for f in (19, 64, 128, 256, 512, 1024):
+        for f in SEGMENT_DESIGN_WIDTHS:
             for aligned in (True, False):
-                lib_says = ("balanced" if lib.gclt_segment_sum_design(
-                    code, f, int(aligned)) else "warp")
+                lib_says = names[lib.gclt_segment_sum_design(
+                    code, f, int(aligned))]
                 py_says = cuda_segment.segment_design(dtype, f, aligned)
                 if lib_says != py_says:
                     raise AssertionError(
                         f"segment_sum {dtype} F={f} aligned={aligned}: "
                         f"library {lib_says}, Python {py_says}")
+            narrow = cuda_segment.segment_design(dtype, f, False) == "narrow"
+            lib_items = lib.gclt_segment_sum_narrow_items(code, f)
+            py_items = cuda_segment.narrow_tile_items(dtype, f) \
+                if narrow else 0
+            if lib_items != py_items:
+                raise AssertionError(
+                    f"segment_sum {dtype} F={f}: narrow tiles of "
+                    f"{lib_items} items in the library, {py_items} in Python")
 
 
 def _skew_cases(gen):
@@ -490,6 +522,29 @@ def _skew_cases(gen):
     ]
 
 
+def _bitwise_twice(label, msgs, indptr, r, design=None):
+    """Two launches of the segment sum on the same inputs: bitwise equal."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    first = cuda_segment.segment_sum(msgs, indptr, r, design)
+    if not torch.equal(first, cuda_segment.segment_sum(msgs, indptr, r,
+                                                       design)):
+        raise AssertionError(f"{label} {msgs.dtype}: two {design or ''} "
+                             "launches differ")
+
+
+def _misaligned(msgs):
+    """The same values in a contiguous view whose data starts one element
+    past a 16-byte boundary (msgs.data_ptr() % 16 != 0)."""
+    flat = torch.empty(msgs.numel() + 8, dtype=msgs.dtype,
+                       device=msgs.device)
+    view = flat[1:1 + msgs.numel()].view(msgs.shape)
+    view.copy_(msgs)
+    if view.data_ptr() % 16 == 0 or not view.is_contiguous():
+        raise AssertionError("misaligned view is aligned")
+    return view
+
+
 def phase_kernel_cases():
     from graphcast_lite_torch.ops import cuda_segment
 
@@ -498,8 +553,9 @@ def phase_kernel_cases():
          f"{ORDER_RTOL} * sum|msgs|)")
     _segment_design_check()
     _log(f"  segment_sum design selection: library and Python agree on fp32 "
-         f"and bf16 at F in {{19, 64, 128, 256, 512, 1024}}, aligned or "
-         f"not, and on tiles of {cuda_segment.TILE_ITEMS} merge items")
+         f"and bf16 at F in {set(SEGMENT_DESIGN_WIDTHS)}, aligned or not, "
+         f"on balanced tiles of {cuda_segment.TILE_ITEMS} merge items and "
+         "on the narrow design's tile size at every width")
     gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for f in (19, 64, 256):
@@ -522,6 +578,11 @@ def phase_kernel_cases():
             for f in (19, 64, 256):
                 m, ip = _sorted_case(gen, 0, r, f, dtype, recv=recv)
                 _check_kernel(f"{label}, F={f}", m, ip, r)
+                if f == 19:
+                    # The narrow design's shape: PR 1's design on the same
+                    # skew, and two narrow launches bitwise equal.
+                    _check_kernel(f"{label}, F=19", m, ip, r, design="warp")
+                    _bitwise_twice(f"{label}, F=19", m, ip, r, "narrow")
             if "ends on tile ends" in label:
                 split = cuda_segment.split_rows(ip).numel()
                 if split:
@@ -535,11 +596,34 @@ def phase_kernel_cases():
                 raise AssertionError(f"{label}: two balanced launches differ")
         m, ip = _sorted_case(gen, 30_000, 9_000, 128, dtype, batch=3)
         _check_kernel("batched [3, E, 128]", m, ip, 9_000)
-        first = cuda_segment.segment_sum(m, ip, 9_000)
-        if not torch.equal(first, cuda_segment.segment_sum(m, ip, 9_000)):
-            raise AssertionError("batched: two launches differ")
-        _log(f"  {dtype}: two balanced launches bitwise equal on every skew "
-             "case at F=256 and batched at F=128")
+        _bitwise_twice("batched [3, E, 128]", m, ip, 9_000)
+        # The narrow design: B = 2 and a misaligned view at every width the
+        # port runs narrow (the decoder's F = 19, the 64x32 layers' 1, 4,
+        # 33), on the 50,000-edge receiver's CSR.
+        hog_r, hog = _skew_cases(gen)[2][1:]
+        for f in (1, 4, 19, 33):
+            m, ip = _sorted_case(gen, 0, hog_r, f, dtype, batch=2, recv=hog)
+            _check_kernel(f"receiver with 50000 edges, batched [2, E, {f}]",
+                          m, ip, hog_r)
+            _bitwise_twice(f"batched [2, E, {f}]", m, ip, hog_r)
+            view = _misaligned(m[0])
+            if cuda_segment.segment_design(dtype, f, False) != "narrow":
+                raise AssertionError(f"F={f}: misaligned view not narrow")
+            _check_kernel(f"receiver with 50000 edges, misaligned view, "
+                          f"F={f}", view, ip, hog_r)
+            _check_kernel(f"receiver with 50000 edges, misaligned view, "
+                          f"F={f}", view, ip, hog_r, design="warp")
+            _bitwise_twice(f"misaligned view, F={f}", view, ip, hog_r)
+            if not torch.equal(cuda_segment.segment_sum(view, ip, hog_r),
+                               cuda_segment.segment_sum(m[0].contiguous(),
+                                                        ip, hog_r)):
+                raise AssertionError(f"F={f}: a misaligned view sums other "
+                                     "bits than the aligned tensor")
+        _log(f"  {dtype}: two launches bitwise equal on every skew case at "
+             "F=256 (balanced) and F=19 (narrow), batched at F=128, and on "
+             "the narrow batched [2, E, F] and misaligned cases at F in "
+             "{1, 4, 19, 33}; a misaligned view sums the aligned "
+             "tensor's bits")
 
 
 def _fused_case(gen, num_edges, num_receivers, hid, de, dtype, recv=None):
@@ -1043,6 +1127,7 @@ def phase_serve(workdir):
                             save_predictions=preds_path, **kw)
     torch.cuda.synchronize()
     counts = _launches()
+    by_design = _launches_by_design()
     peak = torch.cuda.max_memory_allocated()
     # The same requests again, timed without the compressed .npz write.
     t0 = time.perf_counter()
@@ -1090,6 +1175,7 @@ def phase_serve(workdir):
         "peak_mem_bytes": peak,
         "wall_ms_per_request": wall_s / REQUESTS * 1e3,
         "launches": launches,
+        "launches_by_design": by_design,
         "stage_ms": stages,
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -1270,16 +1356,104 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _segment_raw(msgs, indptr, r, design, floor=False, lib=None):
+    """A raw launch of the segment-sum library (``lib``, by default the
+    package's) in ``design`` (no wrapper: the output, scratch and the 15
+    arguments made once, outside the call; the scratch sized by the
+    library's own tile queries), or with ``floor`` an empty kernel on that
+    design's grid, block and shared memory (``gclt_segment_sum_floor``).
+    Launches made this way are not counted in ``cuda_segment.launches``."""
+    from graphcast_lite_torch.ops import cuda_segment, nvcc_build
+
+    if lib is None:
+        lib = nvcc_build.load(cuda_segment.SOURCE, cuda_segment.SIGNATURES)
+    batch = msgs.shape[0] if msgs.dim() == 3 else 1
+    e, f = msgs.shape[-2], msgs.shape[-1]
+    dtype = nvcc_build.DTYPE_CODES[msgs.dtype]
+    code = cuda_segment.DESIGNS[design]
+    stream = torch.cuda.current_stream().cuda_stream
+    if floor:
+        args = (code, dtype, r, e, f, batch, stream)
+
+        def call():
+            err = lib.gclt_segment_sum_floor(*args)
+            if err != 0:
+                raise RuntimeError(f"floor {design}: CUDA error {err}")
+        return call
+    out = torch.empty(msgs.shape[:-2] + (r, f), dtype=msgs.dtype,
+                      device=msgs.device)
+    items = {"balanced": lib.gclt_segment_sum_tile_items, "warp": lambda: 1,
+             "narrow": lambda: lib.gclt_segment_sum_narrow_items(dtype, f)}[
+        design]()
+    tiles = batch * max(1, -(-(r + e) // max(1, items)))
+    ws = torch.empty(tiles * 2 * f, dtype=torch.float32, device=msgs.device)
+    counters = torch.zeros(tiles, dtype=torch.int32, device=msgs.device)
+    args = (msgs.data_ptr(), indptr.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), ws.numel() * 4, counters.data_ptr(), dtype, r, e,
+            f, batch, e * f, r * f, code, stream)
+
+    def call():
+        err = lib.gclt_segment_sum(*args)
+        if err != 0:
+            raise RuntimeError(f"{design}: CUDA error {err}")
+        return out
+
+    call.keep = (msgs, indptr, out, ws, counters)  # alive with the call
+    return call
+
+
+# GPU cycles of the sleep kernel that holds the stream while the host
+# queues the launches _device_ms times (about 3 ms on an H100).
+SLEEP_CYCLES = 5_000_000
+
+
+def _device_ms(call, iters: int = 50) -> float:
+    """Mean device time a launch of ``call`` (which launches one kernel)
+    over ``iters`` launches queued back to back behind a sleep kernel
+    (``torch.cuda._sleep``), CUDA events around them: the kernel's own time
+    and the card's gap between two launches, without the host's time a
+    call.  Raises if the host took longer to queue them than the sleep
+    lasted (the queue ran dry)."""
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_start = torch.cuda.Event(enable_timing=True)
+    sleep_start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    slept.record()
+    torch.cuda.synchronize()
+    sleep_ms = sleep_start.elapsed_time(slept)
+    if host_ms > sleep_ms:
+        raise AssertionError(f"queueing {iters} launches took {host_ms:.3f} "
+                             f"ms on the host, the sleep {sleep_ms:.3f} ms")
+    return start.elapsed_time(end) / iters
+
+
 def _time_segment_sum(label, msgs, indptr, r):
-    """The segment sum at one flagship shape: checked against the plain
-    version in both designs, the design the library picks timed against
-    its bound, PR 1's warp-per-row design (in turns: picked, warp, warp,
-    picked), the plain version and one PyTorch call."""
+    """The segment sum at one shape: checked against the plain version in
+    the design the library picks and in PR 1's warp-per-row design; both
+    timed in turns (picked, warp, warp, picked) through the wrapper (CUDA
+    events over 50 calls, the host's share of a call included) and, where
+    the picked design is narrow, alone (raw launches queued behind a sleep
+    kernel: ``_device_ms``) beside the launch floor (an empty kernel on the
+    narrow grid, timed the same way); against the bound, the plain version
+    and one PyTorch call."""
     from graphcast_lite_torch.ops import cuda_segment
 
-    design = cuda_segment.segment_design(msgs.dtype, msgs.shape[1])
-    err = _check_kernel(f"{label} E_pad={msgs.shape[0]} R={r} "
-                        f"F={msgs.shape[1]}", msgs, indptr, r)
+    design = cuda_segment.segment_design(msgs.dtype, msgs.shape[-1])
+    err = _check_kernel(f"{label} E_pad={msgs.shape[-2]} R={r} "
+                        f"F={msgs.shape[-1]}", msgs, indptr, r)
     _check_kernel(f"{label} (warp design)", msgs, indptr, r, design="warp")
     # 50 launches a timing, as scripts/torch_segment_split.py times them:
     # the two designs differ by a few percent at the processor shape.
@@ -1289,6 +1463,13 @@ def _time_segment_sum(label, msgs, indptr, r):
         which = design if times is picked else "warp"
         times.append(_time_ms(lambda: cuda_segment.segment_sum(
             msgs, indptr, r, which), iters=50, warmup=10))
+    alone = {}
+    if design == "narrow":
+        raw = {d: _segment_raw(msgs, indptr, r, d) for d in (design, "warp")}
+        for which in (design, "warp", "warp", design):
+            alone.setdefault(which, []).append(_device_ms(raw[which]))
+        alone["floor"] = [_device_ms(_segment_raw(msgs, indptr, r, design,
+                                                  floor=True))]
     ms = sum(picked) / 2
     plain_ms = _time_ms(
         lambda: cuda_segment.segment_sum_reference(msgs, indptr, r))
@@ -1297,23 +1478,40 @@ def _time_segment_sum(label, msgs, indptr, r):
     library_call = "torch.segment_reduce(msgs, 'sum', lengths)"
     library_ms = _time_ms(lambda: torch.segment_reduce(
         msgs, "sum", lengths=lengths, axis=0))
-    nbytes = _nbytes(msgs, indptr) + r * msgs.shape[1] * msgs.element_size()
+    nbytes = _nbytes(msgs, indptr) + r * msgs.shape[-1] * msgs.element_size()
     bound_ms, bound_by = _bound(nbytes, msgs.numel())
-    _log(f"  segment_sum {label}: {design} kernel "
-         + ", ".join(f"{t * 1e3:.1f}" for t in picked)
-         + " us (fraction " + ", ".join(f"{bound_ms / t:.3f}" for t in picked)
-         + ") | warp-per-row kernel (PR 1) "
-         + ", ".join(f"{t * 1e3:.1f}" for t in warp)
-         + " us (fraction " + ", ".join(f"{bound_ms / t:.3f}" for t in warp)
-         + f") | bound {bound_ms * 1e3:.1f} us ({bound_by}; "
-         f"{nbytes / 1e6:.1f} MB) | plain {plain_ms * 1e3:.1f} us | "
+    line = (f"  segment_sum {label}: {design} wrapper "
+            + ", ".join(f"{t * 1e3:.1f}" for t in picked)
+            + " us (fraction " + ", ".join(f"{bound_ms / t:.3f}"
+                                           for t in picked)
+            + ") | warp-per-row (PR 1) wrapper "
+            + ", ".join(f"{t * 1e3:.1f}" for t in warp) + " us")
+    if alone:
+        line += (f" | kernel alone: {design} "
+                 + ", ".join(f"{t * 1e3:.2f}" for t in alone[design])
+                 + " us (fraction " + ", ".join(
+                     f"{bound_ms / t:.3f}" for t in alone[design])
+                 + "), warp " + ", ".join(f"{t * 1e3:.2f}"
+                                          for t in alone["warp"])
+                 + f" us, launch floor {alone['floor'][0] * 1e3:.2f} us")
+    _log(line + f" | bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+         f"{nbytes / 1e6:.2f} MB) | plain {plain_ms * 1e3:.1f} us | "
          f"{library_call} {library_ms * 1e3:.1f} us")
-    return {"max_abs_err": err, "ms": ms, "ms_runs": picked,
-            "design": design, "earlier_ms": sum(warp) / 2,
-            "earlier_ms_runs": warp, "earlier_design": "warp",
-            "fraction_of_bound": bound_ms / ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library_call": library_call}
+    out = {"max_abs_err": err, "ms": ms, "ms_runs": picked,
+           "design": design, "earlier_ms": sum(warp) / 2,
+           "earlier_ms_runs": warp, "earlier_design": "warp",
+           "fraction_of_bound": bound_ms / ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "library_call": library_call}
+    if alone:
+        out.update(kernel_ms=sum(alone[design]) / 2,
+                   kernel_ms_runs=alone[design],
+                   earlier_kernel_ms=sum(alone["warp"]) / 2,
+                   earlier_kernel_ms_runs=alone["warp"],
+                   floor_ms=alone["floor"][0],
+                   kernel_fraction_of_bound=bound_ms / (
+                       sum(alone[design]) / 2))
+    return out
 
 
 def phase_kernel_flagship(gs, n_feat):
@@ -1690,6 +1888,13 @@ def phase_train(ctx):
     by_csr = {label: n for label, (_, n) in parts.items()}
     expected = {"segment_sum": sum(by_csr.values()), "edge_mlp": 0,
                 "edge_step": 0, "by_csr": by_csr}
+    # By design: each CSR and shape's F in bf16 (the decoder's F = 19
+    # gather adjoint narrow, the F = 256 sums balanced).
+    expected_design = dict.fromkeys(
+        _kernel_modules()["segment_sum"].DESIGNS, 0)
+    for key, n in parts.values():
+        expected_design[_kernel_modules()["segment_sum"].segment_design(
+            torch.bfloat16, key[3])] += n
     losses, step_ms, step_counts = [], [], []
     busy_ms = wall_ms = top = None
     for i in range(TRAIN_STEPS):
@@ -1717,6 +1922,10 @@ def phase_train(ctx):
         if counts != expected:
             raise AssertionError(f"train step {i}: launches {counts}, "
                                  f"expected {expected}")
+        if _launches_by_design() != expected_design:
+            raise AssertionError(
+                f"train step {i}: segment sums by design "
+                f"{_launches_by_design()}, expected {expected_design}")
         step_counts.append(counts)
         losses.append(loss.item())
     if not all(np.isfinite(losses)):
@@ -1734,6 +1943,7 @@ def phase_train(ctx):
         "forward_loss_ms": fwd_ms, "peak_mem_bytes": peak,
         "losses": losses, "launches_per_step": step_counts[-1],
         "segment_sum_launches_by_csr": step_counts[-1]["by_csr"],
+        "segment_sum_launches_by_design": expected_design,
         "forward_loss_segment_sum_launches": fwd_launches,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -1743,7 +1953,9 @@ def phase_train(ctx):
     _log(f"  segment_sum launches counted in each step: "
          f"{step_counts[-1]['segment_sum']} ("
          + ", ".join(f"{k} {v}" for k, v in step_counts[-1]["by_csr"].items())
-         + "); edge_step and edge_mlp 0")
+         + "); by design " + ", ".join(f"{k} {v}" for k, v in
+                                       expected_design.items())
+         + "; edge_step and edge_mlp 0")
     _log(f"  train step (CUDA events, steps 2-{TRAIN_STEPS - 1}): "
          + ", ".join(f"{t:.2f}" for t in step_ms)
          + f" ms, mean {ms:.2f} ms; {train['train_grid_points_per_s']:.4g} "
@@ -2224,9 +2436,9 @@ def phase_new_shape_cases(graphs):
         for dtype in (torch.float32, torch.bfloat16):
             msgs = _new_shape_msgs(gen, perm, rows, f, dtype)
             _check_kernel(label, msgs, ip, r)
-            first = cuda_segment.segment_sum(msgs, ip, r)
-            if not torch.equal(first, cuda_segment.segment_sum(msgs, ip, r)):
-                raise AssertionError(f"{label} {dtype}: two launches differ")
+            if cuda_segment.segment_design(dtype, f) == "narrow":
+                _check_kernel(label, msgs, ip, r, design="warp")
+            _bitwise_twice(label, msgs, ip, r)
 
 
 def phase_kernel_new_shapes(graphs):
@@ -3481,9 +3693,17 @@ def main() -> int:
         raise AssertionError(f"timed sender shapes {sorted(seg_send)} not "
                              f"all launched in the train step {by_csr}")
     seg = dict(seg_enc, launches=serve["launches"],
+               launches_by_design=serve["launches_by_design"],
                launches_per_rollout=serve["launches"] // REQUESTS,
                launches_per_train_step=train["launches_per_step"][
                    "segment_sum"],
+               launches_per_train_step_by_design=train[
+                   "segment_sum_launches_by_design"],
+               designs={
+                   "fp32 or bf16 rows of 256-1024 bytes, a multiple of 16, "
+                   "16-byte aligned": "balanced",
+                   "rows under 256 bytes": "narrow",
+                   "other rows": "warp"},
                at_processor_shape=dict(
                    seg_proc, route="composed",
                    launches_per_rollout=coo["composed"][

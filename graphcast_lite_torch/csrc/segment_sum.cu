@@ -20,10 +20,10 @@
 // and one write of out.  At the flagship encoder shape (E_pad 203,648,
 // R 172,034, F 256) in bf16 that is 104.3 MB read + 88.1 MB written (67.1 MB
 // of it the 131,072 grid rows, which have no edges) = 193 MB, about 58 us
-// at the H100 SXM's 3.35 TB/s.  Both designs read each message row once
-// and write each output row once.
+// at the H100 SXM's 3.35 TB/s.  Every design reads each message row once
+// and writes each output row once.
 //
-// Two designs, picked by shape alone (gclt_segment_sum_design; the Python
+// Three designs, picked by shape alone (gclt_segment_sum_design; the Python
 // mirror is ops/cuda_segment.py: segment_design).
 //
 // Balanced (fp32 or bf16 rows of 256-1024 bytes, a multiple of 16, on
@@ -69,8 +69,38 @@
 //    rows finish at half time while the others still run), a second
 //    fix-up kernel (a launch more), persistent warps taking tiles in turn.
 //
-// Warp per row (PR 1's design; every other shape, e.g. F = 19, bf16 F = 64,
-// fp32 F = 512, misaligned views):
+// Narrow (fp32 or bf16 rows of fewer than 256 bytes, any F and alignment:
+// F <= 63 in fp32, F <= 127 in bf16; the decoder's F = 19 gather adjoint,
+// the multimesh softmax denominators and masked degrees at F = 4 and 1,
+// the product graph's F = 33):
+//  * The balanced design's merge-path tiles (the same search and the same
+//    move back inside a short row), sized by bytes: a tile holds
+//    kNarrowBytes / row bytes items (at most kNarrowMaxItems), a few KB of
+//    messages whatever F is, one tile a block of kNarrowThreads threads.
+//    Empty rows and long rows are spread over the blocks alike.
+//  * A tile's message rows [j0, j1) are one contiguous run of (j1 - j0) * F
+//    elements, and the rows it ends one contiguous run of out.  The block
+//    loads the run into shared memory with 16-byte loads, neighbouring
+//    threads on neighbouring addresses, and scalar loads only at the run's
+//    unaligned ends (at most 15 bytes each, never outside the run), and the
+//    tile's row ends beside it.  Rows narrower than 16 bytes, or not a
+//    multiple of 16, cost nothing extra.
+//  * Thread t owns the flat outputs t, t + kNarrowThreads, ... of the
+//    tile's rows, (row, column) in row-major order: it adds its column over
+//    the row's edges in the tile in fp32, in edge order, and stores the
+//    element once, so consecutive threads store consecutive elements and a
+//    run of empty rows is a run of zero stores.
+//  * A long row that crosses tiles is stored by the last of its tiles to
+//    finish, from the tiles' fp32 pieces in tile order, with the balanced
+//    design's workspace layout and integer arrival counters: two launches
+//    give bitwise-equal outputs.
+//  * It launches as a programmatic dependent launch and waits before it
+//    reads anything, as the balanced design does.
+//
+// Warp per row (PR 1's design; rows over 1024 bytes, rows of 256-1024
+// bytes that are not a multiple of 16 or not 16-byte aligned, and a
+// pointer not aligned to its element, which no tensor has; design = 0
+// forces it anywhere, as the measurements of the earlier design do):
 //  * One warp per (receiver row, stripe of 32 x VEC features).  Each lane
 //    loads 16 bytes per edge row (8 bf16 or 4 fp32 values), so one warp
 //    covers 256 bf16 (128 fp32) features of a row per load.  The edge loop
@@ -78,22 +108,19 @@
 //  * F that is not a multiple of VEC, or a misaligned pointer, takes the
 //    scalar path: each lane still owns VEC consecutive features.
 //  * Narrow rows on that path (F <= 16 x VEC, e.g. F = 19), and aligned
-//    rows of at most 4 x VEC (fp32 F <= 16, bf16 F <= 32: the edge
-//    softmax's [E, H] denominators, the [E, 1] mask sums of degrees under a
-//    pruned mask), take segment_sum_narrow_kernel: the row's features need
-//    `slots` lanes, so the warp's lanes form 32 / slots groups, each
-//    summing every groups-th edge of the row, and the first group adds the
-//    others' sums in group order by shuffles (a fixed order: every launch
-//    gives the same bits).  With one group, 3 of 32 lanes would walk a
-//    row's edges one by one.
-//  * At the encoder shape its warps of the few high-degree rows run long,
-//    and the 16,384 blocks of the grid band only write zeros.
+//    rows of at most 4 x VEC (fp32 F <= 16, bf16 F <= 32), take
+//    segment_sum_narrow_kernel: the row's features need `slots` lanes, so
+//    the warp's lanes form 32 / slots groups, each summing every groups-th
+//    edge of the row, and the first group adds the others' sums in group
+//    order by shuffles (a fixed order: every launch gives the same bits).
+//  * One warp a row: the empty rows' warps only write zeros, and a long
+//    row's warp runs long while its neighbours finish after one round.
 //
-// Both keep sums in fp32 and store each row once in the messages' dtype;
+// All keep sums in fp32 and store each row once in the messages' dtype;
 // a row with no edges is written with zeros (no memset).  A leading batch
-// dim [B, E, F] runs in gridDim.z (warp) or gridDim.y (balanced) with
-// strides, the counterpart of the Pallas vmap rule's fold of the batch
-// into F; the balanced design cuts every batch item's work alike.
+// dim [B, E, F] runs in gridDim.z (warp) or gridDim.y (balanced, narrow)
+// with strides, the counterpart of the Pallas vmap rule's fold of the batch
+// into F; the merge-path designs cut every batch item's work alike.
 
 #include <climits>
 #include <cstring>
@@ -386,18 +413,19 @@ struct Piece<__nv_bfloat16> {
 
 // The merged sequence of R row ends and E edges: row end r sits at merge
 // index indptr[r + 1] + r, edge e of row r at e + r.  Tile k begins at item
-// k * kTileItems, moved back to the start of the row there unless that row
-// has kTileItems items or more.  So only such long rows are split, and a
-// boundary inside a long row is never moved: the tile that holds an item of
-// a long row is its merge index / kTileItems.
+// k * items (kTileItems in the balanced design, narrow_items in the narrow
+// one), moved back to the start of the row there unless that row has
+// `items` items or more.  So only such long rows are split, and a boundary
+// inside a long row is never moved: the tile that holds an item of a long
+// row is its merge index / items.  A tile holds fewer than 2 * items items.
 struct Merge {
   const int* __restrict__ indptr;
-  int num_receivers, num_edges, tiles;
+  int num_receivers, num_edges, tiles, items;
   long long total;
 
   // The tile that holds merge index x of a long row.
   __device__ int tile_of(long long x) const {
-    return static_cast<int>(x / kTileItems);
+    return static_cast<int>(x / items);
   }
   // Merge index of row end r (r < R).
   __device__ long long end_index(int r) const {
@@ -541,14 +569,15 @@ struct Walk {
   }
 };
 
-// Tile k's first item: (rows ended, edges taken), found by this half-warp
-// (lanes 0-15 and 16-31 find two tiles' at once).  The rows ended among the
-// first d merge items are searched 16 probes a round, each round cutting
-// the range about 16-fold, until at most 14 rows are left; a last round
-// reads the ends of rows lo - 1 .. lo + 14, which hold the answer i and the
-// ends of rows i - 1 and i that the move back to row i's start needs.
-__device__ int2 tile_begin(const Merge& m, int k, int lane) {
-  const long long d = min(static_cast<long long>(k) * kTileItems, m.total);
+// Tile k's first item: (rows ended i, edges taken j, indptr[i]), found by
+// this half-warp (lanes 0-15 and 16-31 find two tiles' at once).  The rows
+// ended among the first d merge items are searched 16 probes a round, each
+// round cutting the range about 16-fold, until at most 14 rows are left; a
+// last round reads the ends of rows lo - 1 .. lo + 14, which hold the
+// answer i and the ends of rows i - 1 and i that the move back to row i's
+// start needs.
+__device__ int3 tile_begin(const Merge& m, int k, int lane) {
+  const long long d = min(static_cast<long long>(k) * m.items, m.total);
   int lo = static_cast<int>(max(0LL, d - m.num_edges));
   int hi = static_cast<int>(min(d, static_cast<long long>(m.num_receivers)));
   const int sub = lane & 15, half = lane & 16;
@@ -575,13 +604,13 @@ __device__ int2 tile_begin(const Merge& m, int k, int lane) {
   const long long end_prev = __shfl_sync(0xffffffffu, end_r, half + n);
   const long long end_i = __shfl_sync(0xffffffffu, end_r, half + n + 1);
   int j = static_cast<int>(d - i);
+  const int beg = static_cast<int>(end_prev - (i - 1));  // indptr[i]
   if (i < m.num_receivers) {
     // Row i is under way at d: start the tile at the row's start instead,
     // unless the row is long.
-    const int beg = static_cast<int>(end_prev - (i - 1));
-    if (j > beg && end_i - end_prev < kTileItems) j = beg;
+    if (j > beg && end_i - end_prev < m.items) j = beg;
   }
-  return make_int2(i, j);
+  return make_int3(i, j, beg);
 }
 
 // gridDim.x blocks of kWarps warps, a tile each, in launch order; gridDim.y
@@ -606,6 +635,7 @@ balanced_kernel(const T* __restrict__ msgs, const int* __restrict__ indptr,
   m.indptr = indptr;
   m.num_receivers = num_receivers;
   m.num_edges = num_edges;
+  m.items = kTileItems;
   m.total = static_cast<long long>(num_receivers) + num_edges;
   m.tiles = static_cast<int>((m.total + kTileItems - 1) / kTileItems);
   const int tile = blockIdx.x * kWarps + warp;
@@ -614,7 +644,7 @@ balanced_kernel(const T* __restrict__ msgs, const int* __restrict__ indptr,
 
   // Both ends of the tile at once: lanes 0-15 its first item, 16-31 the
   // next tile's.
-  const int2 found = tile_begin(m, tile + (lane >> 4), lane);
+  const int3 found = tile_begin(m, tile + (lane >> 4), lane);
   const int i0 = __shfl_sync(0xffffffffu, found.x, 0);
   const int j0 = __shfl_sync(0xffffffffu, found.y, 0);
   const int i1 = __shfl_sync(0xffffffffu, found.x, 16);
@@ -753,6 +783,240 @@ cudaError_t launch_balanced(const void* msgs, const int* indptr, void* out,
                 msgs_batch_stride, out_batch_stride, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Narrow: merge-path tiles sized by bytes, one a block; the tile's message
+// run staged by 16-byte loads; threads own (row, column) outputs in flat
+// order; rows split across tiles summed by their last contributor.
+
+constexpr int kNarrowThreads = 128;    // threads a block, one tile a block
+constexpr int kNarrowBytes = 8192;     // message bytes a tile, before snapping
+constexpr int kNarrowMaxItems = 1024;  // merge items a tile at most
+// A tile holds fewer than twice its items, so the stage holds twice
+// kNarrowBytes of messages (and the run's offset within 16 bytes), and
+// the row ends twice kNarrowMaxItems + 2 (rows i0 .. i1 + 1).
+constexpr int kNarrowStageBytes = 2 * kNarrowBytes + 32;
+constexpr int kNarrowEnds = 2 * kNarrowMaxItems + 2;
+constexpr int kNarrowVecs =  // 16-byte loads a thread, at most
+    (2 * kNarrowBytes / 16 + kNarrowThreads - 1) / kNarrowThreads;
+constexpr int kNarrowSmemBytes = kNarrowStageBytes + 4 * kNarrowEnds + 32;
+
+bool narrow_shape(int dtype, int num_features) {
+  const long long row_bytes =
+      static_cast<long long>(num_features) * (dtype == 0 ? 4 : 2);
+  return (dtype == 0 || dtype == 1) && num_features >= 1 &&
+         row_bytes < kMinRowBytes;
+}
+
+// Merge items a tile of the narrow design: kNarrowBytes of message rows.
+int narrow_items(int dtype, int num_features) {
+  const int items = kNarrowBytes / (num_features * (dtype == 0 ? 4 : 2));
+  return items < 1 ? 1 : items > kNarrowMaxItems ? kNarrowMaxItems : items;
+}
+
+// gridDim.x tiles of `items` merge items, one a block; gridDim.y batch
+// items.  Split rows as in balanced_kernel: fp32 pieces in `partials`
+// [batch, tiles, 2, F] (slot 0: the piece of the row that ends in the
+// tile; slot 1: the piece of the row that ends later), arrivals on
+// `counters` [batch, tiles] (zero at entry and left zero).
+template <typename T>
+__global__ void __launch_bounds__(kNarrowThreads)
+narrow_kernel(const T* __restrict__ msgs, const int* __restrict__ indptr,
+              T* __restrict__ out, float* __restrict__ partials,
+              int* __restrict__ counters, int num_receivers, int num_edges,
+              int num_features, int items, long long msgs_batch_stride,
+              long long out_batch_stride) {
+  __shared__ __align__(16) unsigned char stage[kNarrowStageBytes];
+  __shared__ int ends[kNarrowEnds];  // ends[x] = indptr[i0 + x]
+  __shared__ int bounds[5];          // i0, j0, i1, j1, indptr[i1]
+  __shared__ int done[2];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int tid = threadIdx.x;
+  const int f = num_features;
+  Merge m;
+  m.indptr = indptr;
+  m.num_receivers = num_receivers;
+  m.num_edges = num_edges;
+  m.items = items;
+  m.total = static_cast<long long>(num_receivers) + num_edges;
+  m.tiles = static_cast<int>((m.total + items - 1) / items);
+  const int tile = blockIdx.x;
+
+  // Both ends of the tile: warp 0's lanes 0-15 its first item, 16-31 the
+  // next tile's (with indptr[i1]).
+  if (tid < 32) {
+    const int3 found = tile_begin(m, tile + (tid >> 4), tid);
+    if (tid == 0) {
+      bounds[0] = found.x;
+      bounds[1] = found.y;
+    } else if (tid == 16) {
+      bounds[2] = found.x;
+      bounds[3] = found.y;
+      bounds[4] = found.z;
+    }
+  }
+  __syncthreads();
+  const int i0 = bounds[0], j0 = bounds[1], i1 = bounds[2], j1 = bounds[3];
+  // Row i1 has edges here when it began before j1: it ends in a later tile
+  // (a long row).  Past row R - 1, the tile's edges are rows past
+  // indptr[R], which belong to no row and are not read.
+  const bool tail = i1 < num_receivers && bounds[4] < j1;
+  const int jend = i1 < num_receivers ? j1 : min(j1, bounds[4]);
+
+  // The row ends indptr[i0 .. i1] (and indptr[i1 + 1] below row R).
+  const int n_ends = i1 - i0 + (i1 < num_receivers ? 2 : 1);
+#pragma unroll 4
+  for (int x = tid; x < n_ends; x += kNarrowThreads) {
+    ends[x] = __ldg(indptr + i0 + x);
+  }
+  // The message run [j0 * F, jend * F) of this batch item, at the same
+  // offset within 16 bytes in the stage as in memory: the elements before
+  // the first 16-byte boundary and after the last one by scalar loads,
+  // the rest by 16-byte loads.
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a load
+  const T* src = msgs + blockIdx.y * msgs_batch_stride +
+                 static_cast<long long>(j0) * f;
+  const int n = max(0, jend - j0) * f;
+  const int lead =
+      static_cast<int>(reinterpret_cast<unsigned long long>(src) % 16) /
+      static_cast<int>(sizeof(T));
+  T* run = reinterpret_cast<T*>(stage) + lead;
+  const int head = min(n, (kPer - lead) % kPer);
+  const int nvec = (n - head) / kPer;
+  const int tail0 = head + nvec * kPer;
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+  uint4* vdst = reinterpret_cast<uint4*>(run + head);
+  uint4 v[kNarrowVecs];
+#pragma unroll
+  for (int u = 0; u < kNarrowVecs; ++u) {
+    const int q = tid + u * kNarrowThreads;
+    if (q < nvec) v[u] = __ldg(vsrc + q);
+  }
+  if (tid < head) run[tid] = src[tid];
+  if (tid < n - tail0) run[tail0 + tid] = src[tail0 + tid];
+#pragma unroll
+  for (int u = 0; u < kNarrowVecs; ++u) {
+    const int q = tid + u * kNarrowThreads;
+    if (q < nvec) vdst[q] = v[u];
+  }
+  __syncthreads();
+
+  // Flat outputs: the rows [i0, i1) the tile ends, then row i1's piece.
+  const int rows = i1 - i0;
+  const bool lead_split = rows > 0 && ends[0] < j0;
+  const int nflat = (rows + (tail ? 1 : 0)) * f;
+  T* dst = out + blockIdx.y * out_batch_stride;
+  float* parts =
+      partials + static_cast<long long>(blockIdx.y) * m.tiles * 2 * f;
+  int* count = counters + static_cast<long long>(blockIdx.y) * m.tiles;
+  const int drow = kNarrowThreads / f, dcol = kNarrowThreads % f;
+  int row = tid / f, col = tid % f;
+  for (int flat = tid; flat < nflat; flat += kNarrowThreads) {
+    const int b = max(ends[row], j0) - j0;
+    const int e = min(ends[row + 1], j1) - j0;
+    const T* p = run + b * f + col;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = b; k < e; ++k, p += f) acc += Vec<T>::to_float(*p);
+    if (row == rows) {
+      parts[(2LL * tile + 1) * f + col] = acc;
+    } else if (row == 0 && lead_split) {
+      parts[2LL * tile * f + col] = acc;
+    } else {
+      dst[static_cast<long long>(i0) * f + flat] = Vec<T>::from_float(acc);
+    }
+    row += drow;
+    col += dcol;
+    if (col >= f) {
+      col -= f;
+      ++row;
+    }
+  }
+  if (!lead_split && !tail) return;
+
+  // Count in on each split row; the last of its tiles to arrive adds the
+  // pieces in tile order (slot 1 of first .. last - 1, slot 0 of last),
+  // stores the row once and sets its counter back to zero.
+  int first[2], last[2], x[2];
+  x[0] = i0;
+  first[0] = m.tile_of(static_cast<long long>(ends[0]) + i0);
+  last[0] = tile;
+  x[1] = i1;
+  first[1] = tail ? m.tile_of(static_cast<long long>(ends[rows]) + i1) : 0;
+  last[1] = tail ? m.tile_of(static_cast<long long>(ends[rows + 1]) + i1) : 0;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    done[0] = lead_split &&
+              atomicAdd(count + last[0], 1) == last[0] - first[0];
+    done[1] = tail && atomicAdd(count + last[1], 1) == last[1] - first[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!done[w]) continue;
+    __threadfence();
+    for (int c = tid; c < f; c += kNarrowThreads) {
+      float sum = 0.0f;
+      for (int k = first[w]; k <= last[w]; ++k) {
+        sum += __ldcg(parts + (2LL * k + (k == last[w] ? 0 : 1)) * f + c);
+      }
+      dst[static_cast<long long>(x[w]) * f + c] = Vec<T>::from_float(sum);
+    }
+    if (tid == 0) count[last[w]] = 0;  // ready for the next launch
+  }
+}
+
+// The launch floor: an empty kernel on a design's grid, block and shared
+// memory, launched as that design launches (PDL for the merge-path ones).
+__global__ void floor_kernel() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+long long narrow_tiles(int dtype, int num_receivers, int num_edges,
+                       int num_features) {
+  const int items = narrow_items(dtype, num_features);
+  return (static_cast<long long>(num_receivers) + num_edges + items - 1) /
+         items;
+}
+
+template <typename T>
+cudaError_t launch_narrow(const void* msgs, const int* indptr, void* out,
+                          void* workspace, long long workspace_size,
+                          void* counters, int dtype, int num_receivers,
+                          int num_edges, int num_features, int batch,
+                          long long msgs_batch_stride,
+                          long long out_batch_stride, cudaStream_t stream) {
+  const long long tiles =
+      narrow_tiles(dtype, num_receivers, num_edges, num_features);
+  if (workspace == nullptr || counters == nullptr ||
+      workspace_size < 8LL * batch * tiles * num_features ||
+      tiles > 0x7fffffffLL / 2) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), batch);
+  cfg.blockDim = dim3(kNarrowThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, narrow_kernel<T>, static_cast<const T*>(msgs), indptr,
+      static_cast<T*>(out), static_cast<float*>(workspace),
+      static_cast<int*>(counters), num_receivers, num_edges, num_features,
+      narrow_items(dtype, num_features), msgs_batch_stride, out_batch_stride);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+bool element_aligned(const void* msgs, const void* out, int dtype) {
+  const unsigned long long size = dtype == 0 ? 4 : 2;
+  return reinterpret_cast<unsigned long long>(msgs) % size == 0 &&
+         reinterpret_cast<unsigned long long>(out) % size == 0;
+}
+
 bool aligned16(const void* msgs, const void* out, int dtype,
                long long msgs_batch_stride, long long out_batch_stride) {
   const int size = dtype == 0 ? 4 : 2;
@@ -764,12 +1028,14 @@ bool aligned16(const void* msgs, const void* out, int dtype,
 
 }  // namespace
 
-// 1 where a launch takes the balanced design (dtype: 0 = float32, 1 =
-// bfloat16; aligned: msgs, out and their batch strides are 16-byte
-// aligned), 0 where it takes the warp-per-row design.
+// The design a launch takes (dtype: 0 = float32, 1 = bfloat16; aligned:
+// msgs, out and their batch strides are 16-byte aligned): 1 balanced, 2
+// narrow, 0 warp per row.  Pointers aligned to their element are assumed
+// (gclt_segment_sum sends a view that is not to the warp design).
 extern "C" int gclt_segment_sum_design(int dtype, int num_features,
                                        int aligned) {
-  return balanced_shape(dtype, num_features, aligned != 0) ? 1 : 0;
+  if (balanced_shape(dtype, num_features, aligned != 0)) return 1;
+  return narrow_shape(dtype, num_features) ? 2 : 0;
 }
 
 // Merge items a tile of the balanced design (before snapping).  A launch
@@ -779,11 +1045,21 @@ extern "C" int gclt_segment_sum_design(int dtype, int num_features,
 // the first launch and left zero by every launch that ran to its end.
 extern "C" int gclt_segment_sum_tile_items() { return kTileItems; }
 
+// Merge items a tile of the narrow design for rows of F values of dtype:
+// kNarrowBytes / row bytes, at most kNarrowMaxItems.  Its workspace and
+// counters are sized as the balanced design's, with these tiles.
+extern "C" int gclt_segment_sum_narrow_items(int dtype, int num_features) {
+  return narrow_shape(dtype, num_features)
+             ? narrow_items(dtype, num_features)
+             : 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  num_edges: the message rows (E_pad,
 // at least indptr[R]; rows past indptr[R] belong to no receiver).  design:
 // -1 picks by shape (gclt_segment_sum_design), 0 the warp-per-row design,
-// 1 the balanced one (cudaErrorInvalidValue where the shape does not allow
-// it, or where its workspace or counters are missing).  Returns
+// 1 the balanced one, 2 the narrow one (cudaErrorInvalidValue where the
+// shape does not allow the design asked for, or where the workspace or
+// counters of a merge-path design are missing or short).  Returns
 // cudaGetLastError() after the launch (a refused launch is reported only
 // there).
 extern "C" int gclt_segment_sum(const void* msgs, const void* indptr,
@@ -800,7 +1076,9 @@ extern "C" int gclt_segment_sum(const void* msgs, const void* indptr,
   const bool balanced_ok = balanced_shape(
       dtype, num_features,
       aligned16(msgs, out, dtype, msgs_batch_stride, out_batch_stride));
-  if (design < 0) design = balanced_ok ? 1 : 0;
+  const bool narrow_ok =
+      narrow_shape(dtype, num_features) && element_aligned(msgs, out, dtype);
+  if (design < 0) design = balanced_ok ? 1 : narrow_ok ? 2 : 0;
   cudaError_t err;
   if (design == 1) {
     if (!balanced_ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -812,6 +1090,17 @@ extern "C" int gclt_segment_sum(const void* msgs, const void* indptr,
                                        out_batch_stride, s)
               : launch_balanced<__nv_bfloat16>(
                     msgs, ip, out, workspace, workspace_size, counters,
+                    num_receivers, num_edges, num_features, batch,
+                    msgs_batch_stride, out_batch_stride, s);
+  } else if (design == 2) {
+    if (!narrow_ok) return static_cast<int>(cudaErrorInvalidValue);
+    err = dtype == 0
+              ? launch_narrow<float>(msgs, ip, out, workspace, workspace_size,
+                                     counters, dtype, num_receivers,
+                                     num_edges, num_features, batch,
+                                     msgs_batch_stride, out_batch_stride, s)
+              : launch_narrow<__nv_bfloat16>(
+                    msgs, ip, out, workspace, workspace_size, counters, dtype,
                     num_receivers, num_edges, num_features, batch,
                     msgs_batch_stride, out_batch_stride, s);
   } else if (design == 0) {
@@ -827,4 +1116,63 @@ extern "C" int gclt_segment_sum(const void* msgs, const void* indptr,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// gclt_segment_sum with its 15 arguments packed into one array of 64-bit
+// values, in its order (pointers and the stream as their addresses): one
+// argument for ctypes to convert instead of fifteen, which is most of a
+// small launch's host time.
+extern "C" int gclt_segment_sum_packed(const long long* a) {
+  auto ptr = [](long long x) { return reinterpret_cast<void*>(x); };
+  return gclt_segment_sum(
+      ptr(a[0]), ptr(a[1]), ptr(a[2]), ptr(a[3]), a[4], ptr(a[5]),
+      static_cast<int>(a[6]), static_cast<int>(a[7]), static_cast<int>(a[8]),
+      static_cast<int>(a[9]), static_cast<int>(a[10]), a[11], a[12],
+      static_cast<int>(a[13]), ptr(a[14]));
+}
+
+// An empty kernel on the grid, block and shared memory with which `design`
+// (0, 1, 2) would launch at this shape, launched as it launches: the floor
+// under a launch of that design, for measurements.  Not a segment sum.
+extern "C" int gclt_segment_sum_floor(int design, int dtype,
+                                      int num_receivers, int num_edges,
+                                      int num_features, int batch,
+                                      void* stream) {
+  if ((dtype != 0 && dtype != 1) || design < 0 || design > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  if (design == 0) {
+    const int vec = dtype == 0 ? 4 : 8;
+    cfg.gridDim = dim3((num_receivers + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                       (num_features + 32 * vec - 1) / (32 * vec), batch);
+    cfg.blockDim = dim3(kWarpsPerBlock * 32);
+  } else if (design == 1) {
+    const long long tiles = balanced_tiles(num_receivers, num_edges);
+    cfg.gridDim = dim3(static_cast<unsigned>((tiles + kWarps - 1) / kWarps),
+                       batch);
+    cfg.blockDim = dim3(kWarps * 32);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  } else {
+    cfg.gridDim = dim3(static_cast<unsigned>(narrow_tiles(
+                           dtype, num_receivers, num_edges, num_features)),
+                       batch);
+    cfg.blockDim = dim3(kNarrowThreads);
+    cfg.dynamicSmemBytes = kNarrowSmemBytes;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg.dynamicSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, floor_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

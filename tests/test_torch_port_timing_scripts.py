@@ -88,3 +88,26 @@ def test_edited_copy_takes_an_earlier_trees_headers(tmp_path):
     path = nvcc_build.edited_copy(str(tmp_path / "out"), "bare", "int x;\n",
                                   [], str(tmp_path / "out"))
     assert "edge_tile.cuh" in os.listdir(os.path.dirname(path))
+
+
+def test_segment_split_edits_apply_to_the_current_source():
+    """``scripts/torch_segment_split.py``: every knob's constant is in the
+    current ``segment_sum.cu`` once, and the timeline instrumentation of
+    the balanced and narrow kernels finds each of its anchors once."""
+    import re
+
+    from graphcast_lite_torch.ops import cuda_segment
+
+    mod = _script("torch_segment_split")
+    with open(cuda_segment.SOURCE) as f:
+        text = f.read()
+    for name in mod._KNOBS.values():
+        assert len(re.findall(rf"constexpr int {name} = \d+;", text)) == 1
+    timeline = mod._timeline_text(text)
+    for anchor, n in (("const unsigned long long t_entry = now_ns();", 2),
+                      ("const unsigned long long t_walk = now_ns();", 1),
+                      ("if (t_walk == 0) t_walk = now_ns();", 1),
+                      ("g_timeline + 5 * blockIdx.x", 1),
+                      ("g_timeline + 5 * k", 1)):
+        assert timeline.count(anchor) == n, anchor
+    assert "gclt_timeline_clear" in timeline
