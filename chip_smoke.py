@@ -156,10 +156,23 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    the region, 19 features, hidden 128, 8 steps) and the 64x32
    architecture on a flat grid, card against CPU in fp32: one AR-4
    request and one AR-4 train step each.
+8. The CNN stacks (no hand-written kernel: cuDNN, cuFFT, cuBLAS) at the
+   reference's regional widths on its 41x61 grid, fp32: 8a ``WeatherUNet``
+   (92 -> 23 channels, base 64), ``WeatherUNetV2`` (4 heads, 4 modes) and
+   ``DownscalerUNet`` (base 48), their parameter counts asserted, one
+   forward and one batch-8 train step (V1 and V2 over AR 4, V2 with the
+   spectral and Sobel terms) on the card against the CPU, the card's
+   gradients against a float64 evaluation of the step; 8b
+   ``cli.train_unet`` (v2 from the flat config, v1 from flags) on a
+   seeded synthetic 41x61 x 23 set, ``evaluate_model`` AR 4, then train
+   step and AR-4 rollout ms (CUDA events), peak memory and a profiled
+   step's idle share; 8c ``data.etl.build_downscaler_dataset``,
+   ``cli.train_downscaler``, ``cli.generate_predictions`` of a seeded GNN
+   on the fine grid and ``cli.train_downscaler --gnn-input``.
 
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
-``{"regional": ...}`` and ``{"kernels": [...]}`` lines
+``{"regional": ...}``, ``{"cnn": ...}`` and ``{"kernels": [...]}`` lines
 (the kernels' launches counted in the serve, the train steps, the fit,
 the demo's training and the regional head steps; the segment sum's also
 by design in the serve and the train step) and, last,
@@ -3625,6 +3638,404 @@ def phase_regional_grids():
              "train step")
     return out
 
+# Phase 8: the CNN stacks.  The reference's regional grid (41 x 61, lat x
+# lon) and its flat U-Net config (tests/test_config_ingestion.py's dict);
+# the models' parameter counts at those widths; the CLI's steps an epoch;
+# timed calls after a warm-up.
+CNN_GRID = (41, 61)
+CNN_CONFIG = {
+    "num_features": 23, "obs_window": 4, "batch_size": 8,
+    "max_ar_steps": 4, "base_filters": 64, "attn_heads": 4,
+    "spectral_modes": 4, "spectral_weight": 0.1, "gradient_weight": 0.05,
+    "static_channels": [7, 8], "forcing_channels": [19, 20, 21, 22],
+    "learning_rate": 1e-3, "num_epochs": 2,
+}
+CNN_PARAMS = {"v1": 7_838_423, "v2": 25_493_575, "downscaler": 4_390_583}
+CNN_DOWNSCALER_FILTERS = 48
+CNN_CLI_STEPS = 3
+CNN_TIMED = 5
+# 8a holds the card's fp32 train-step gradients against a float64
+# evaluation of the same step (on the card; the CPU's float64 agrees with
+# it to 1.6e-13): ||g32 - g64|| <= CNN_GRAD_L2_RTOL ||g64|| over every
+# parameter.  The BatchStatNorm stacks (V1, the downscaler) are
+# ill-conditioned in fp32 at these seeds: the card's gradients sit
+# 2.75e-4 and 4.6e-4 from float64, the CPU's 3.55e-3 and 4.0e-6, and
+# single leaves up to 9e-3 of their largest value on either side
+# (cuDNN's choice of algorithm moves the card's by as much as turning
+# cuDNN off does); V2 (GroupNorm) within 1e-5.  The bound allows 4x the
+# card's worst.
+CNN_GRAD_L2_RTOL = 2e-3
+
+
+def _cnn_setup(name):
+    """(GridImageModel with seeded weights on the CPU, ExperimentConfig,
+    RolloutSpec, extra_loss_fn) of one CNN stack at full width: V1 and V2
+    over obs 4, AR 4 (V2 with the spectral and Sobel terms), the
+    downscaler over obs 1, AR 1 without channel masks."""
+    from graphcast_lite_torch.config import GridExperimentConfig
+    from graphcast_lite_torch.models.grid_adapter import GridImageModel
+    from graphcast_lite_torch.models.unet import DownscalerUNet, \
+        WeatherUNet, WeatherUNetV2
+    from graphcast_lite_torch.training.loss import image_extra_loss
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+
+    gc = GridExperimentConfig(**CNN_CONFIG)
+    c, f = gc.num_features, gc.base_filters
+    gen = torch.Generator().manual_seed(11)
+    extra = None
+    if name == "downscaler":
+        gc.obs_window = gc.pred_steps = gc.max_ar_steps = 1
+        gc.static_channels, gc.forcing_channels = [], []
+        net = DownscalerUNet(c, c, CNN_DOWNSCALER_FILTERS, generator=gen)
+    elif name == "v1":
+        net = WeatherUNet(gc.obs_window * c, c, f, generator=gen)
+    else:
+        net = WeatherUNetV2(gc.obs_window * c, c, f, gc.attn_heads,
+                            gc.spectral_modes, generator=gen)
+        extra = image_extra_loss(*CNN_GRID, c, gc.spectral_weight,
+                                 gc.gradient_weight)
+    cfg = gc.to_experiment_config()
+    spec = RolloutSpec(obs_window=gc.obs_window, num_features=c,
+                       use_residual=True, remat=True,
+                       static_channels=tuple(gc.static_channels),
+                       forcing_channels=tuple(gc.forcing_channels))
+    return GridImageModel(net, *CNN_GRID), cfg, spec, extra
+
+
+def _cnn_step(model, cfg, spec, extra, device, decay_steps=100,
+              float64=False):
+    """The port's train step of a CNN stack: ``make_train_step`` with the
+    CNN trainers' optimizer and loss terms, latitude weights and the
+    config's channel mask; ``float64``: the same ``TrainStep`` on the
+    model in float64 (the oracle of 8a; ``make_train_step`` takes fp32
+    masters only)."""
+    from graphcast_lite_torch.training.loss import channel_mask, \
+        lat_weights_from_axis
+    from graphcast_lite_torch.training.optim import ClippedAdamW
+    from graphcast_lite_torch.training.trainer import TrainStep, \
+        make_train_step
+
+    kw = dict(lat_weights=lat_weights_from_axis(*CNN_GRID),
+              chan_mask=channel_mask(spec.num_features,
+                                     spec.static_channels,
+                                     spec.forcing_channels),
+              extra_loss_fn=extra)
+    if float64:
+        model.to(device, torch.float64)
+        opt = ClippedAdamW(model.parameters(), cfg.learning_rate,
+                           decay_steps)
+        return TrainStep(model, None, spec, cfg.max_ar_steps,
+                         torch.device(device), torch.float64, opt, **kw)
+    opt = ClippedAdamW(model.parameters(), cfg.learning_rate, decay_steps)
+    return make_train_step(model, None, spec, cfg, device=device,
+                           optimizer=opt, **kw)
+
+
+def _rel_l2(grads, ref):
+    """||grads - ref|| / ||ref|| over every parameter (float64)."""
+    num = sum(float(((grads[n].double() - r) ** 2).sum())
+              for n, r in ref.items())
+    den = sum(float((r ** 2).sum()) for r in ref.values())
+    return (num / den) ** 0.5
+
+
+def phase_cnn_numerics():
+    """8a: each CNN stack at full width on 41 x 61, card against CPU in
+    fp32 (TF32 off): one forward and one train step (batch 8) through the
+    port's TrainStep on the same seeded weights and batch; the gradients
+    of both against a float64 evaluation of the step on the card."""
+    import copy
+
+    _log(f"phase 8a: the CNN stacks at full width on {CNN_GRID[0]}x"
+         f"{CNN_GRID[1]}, card vs CPU in fp32 (TF32 off): forward "
+         f"({E2E_TOL}) and one batch-8 train step (losses within "
+         f"{TRAIN_LOSS_RTOL} relative of each other and of float64; the "
+         f"card's gradients within {CNN_GRAD_L2_RTOL} relative L2 of a "
+         "float64 evaluation, the CPU's distance reported)")
+    out = {}
+    g = CNN_GRID[0] * CNN_GRID[1]
+    for name in ("v1", "v2", "downscaler"):
+        model, cfg, spec, extra = _cnn_setup(name)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != CNN_PARAMS[name]:
+            raise AssertionError(f"{name}: {n_params} parameters, expected "
+                                 f"{CNN_PARAMS[name]}")
+        c, obs = spec.num_features, spec.obs_window
+        ar = cfg.max_ar_steps
+        rng = np.random.RandomState(3)
+        x = rng.randn(cfg.batch_size, g, obs * c).astype(np.float32)
+        y = rng.randn(cfg.batch_size, g, ar * c).astype(np.float32)
+        res = {}
+        for device, float64 in (("cuda", False), ("cpu", False),
+                                ("cuda", True)):
+            m = copy.deepcopy(model)
+            step = _cnn_step(m, cfg, spec, extra, device, float64=float64)
+            with torch.no_grad():
+                fwd, _ = m(torch.from_numpy(x[0]).to(
+                    device, next(m.parameters()).dtype))
+            loss = step(x, y).item()
+            if device == "cuda":
+                off = [n for n, p in m.named_parameters()
+                       if p.device.type != "cuda"]
+                if off or fwd.device.type != "cuda":
+                    raise AssertionError(f"{name}: not on the card: "
+                                         f"{off[:3]} / {fwd.device}")
+            res[device, float64] = (fwd.cpu(), loss, _grads(m))
+        (fwd, loss, grads), (fwd_cpu, loss_cpu, grads_cpu), \
+            (_, loss64, grads64) = (res["cuda", False], res["cpu", False],
+                                    res["cuda", True])
+        if fwd.shape != (g, c) or not torch.isfinite(fwd).all():
+            raise AssertionError(f"{name}: forward {tuple(fwd.shape)}")
+        err = (fwd - fwd_cpu).abs().max().item()
+        torch.testing.assert_close(fwd, fwd_cpu, **E2E_TOL)
+        for other in (loss_cpu, loss64):
+            if not (np.isfinite(loss) and abs(loss - other)
+                    <= TRAIN_LOSS_RTOL * abs(other)):
+                raise AssertionError(f"{name}: loss card {loss}, cpu "
+                                     f"{loss_cpu}, float64 {loss64}")
+        if not all(torch.isfinite(v).all() for v in grads.values()):
+            raise AssertionError(f"{name}: a gradient is not finite")
+        card_l2, cpu_l2 = _rel_l2(grads, grads64), _rel_l2(grads_cpu,
+                                                           grads64)
+        if card_l2 > CNN_GRAD_L2_RTOL:
+            raise AssertionError(f"{name}: card gradients {card_l2:.3e} "
+                                 f"from float64 > {CNN_GRAD_L2_RTOL}")
+        gmax = max(float(v.abs().max()) for v in grads64.values())
+        worst = max(((grads[n].double() - r).abs().max().item() / gmax, n)
+                    for n, r in grads64.items())
+        card_cpu = _rel_l2(grads, {n: v.double()
+                                   for n, v in grads_cpu.items()})
+        out[name] = {"parameters": n_params, "obs": obs, "ar": ar,
+                     "batch": cfg.batch_size,
+                     "max_abs_err_forward": err,
+                     "forward_tol": E2E_TOL,
+                     "loss_card": loss, "loss_cpu": loss_cpu,
+                     "loss_float64": loss64,
+                     "grad_rel_l2_card_vs_float64": card_l2,
+                     "grad_rel_l2_cpu_vs_float64": cpu_l2,
+                     "grad_rel_l2_card_vs_cpu": card_cpu,
+                     "grad_rel_l2_tol": CNN_GRAD_L2_RTOL,
+                     "worst_grad_err_of_largest": worst[0],
+                     "worst_grad_leaf": worst[1]}
+        _log(f"  {name}: {n_params:,} parameters; forward max|card - cpu| "
+             f"{err:.3e}; loss {loss:.7f} / cpu {loss_cpu:.7f} / float64 "
+             f"{loss64:.7f}; {len(grads)} gradients, relative L2 from "
+             f"float64: card {card_l2:.2e} (tol {CNN_GRAD_L2_RTOL}), cpu "
+             f"{cpu_l2:.2e}; card vs cpu {card_cpu:.2e}; largest leaf error "
+             f"{worst[0]:.2e} of the largest gradient ({worst[1]})")
+    return out
+
+
+def _cnn_measure(name, best_model, train_ds, test_ds, meta):
+    """Load ``best_model`` into the stack ``name`` on the card; AR-4 (the
+    config's AR) ``evaluate_model`` on 2 samples, then CUDA-event means of
+    CNN_TIMED train steps (batch 8) and rollouts a request after a
+    warm-up, peak memory over the steps and one profiled step's idle
+    share."""
+    from graphcast_lite_torch.inference.predict import evaluate_model
+    from graphcast_lite_torch.training.rollout import rollout_predict
+
+    model, cfg, spec, extra = _cnn_setup(name)
+    model.load_state_dict(torch.load(best_model, map_location="cpu",
+                                     weights_only=True))
+    model.cuda()
+    ar = cfg.max_ar_steps
+    report = evaluate_model(model, None, test_ds, meta, ar_steps=ar,
+                            static_channels=spec.static_channels,
+                            forcing_channels=spec.forcing_channels,
+                            max_samples=2, device="cuda")
+    if report.num_samples != 2 or not np.isfinite(report.rmse):
+        raise AssertionError(f"{name}: evaluate_model {report.num_samples} "
+                             f"samples, RMSE {report.rmse}")
+    x, y = (np.stack(a) for a in zip(*(train_ds.get(i)
+                                       for i in range(cfg.batch_size))))
+    step = _cnn_step(model, cfg, spec, extra, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _time_ms(lambda: step(x, y), iters=CNN_TIMED, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, top = _profile(lambda: step(x, y), top_n=5)
+    loss = float(step(x, y))
+    window = torch.as_tensor(test_ds.get(0)[0], device="cuda").reshape(
+        -1, spec.obs_window, spec.num_features)
+    model.eval()
+
+    def rollout():
+        with torch.inference_mode():
+            return rollout_predict(lambda inp, mk, t, p: model(inp, None, mk),
+                                   window, ar, spec)
+
+    pred = rollout()
+    if pred.shape != (window.shape[0], ar, spec.num_features) \
+            or not torch.isfinite(pred).all() or not np.isfinite(loss):
+        raise AssertionError(f"{name}: rollout {tuple(pred.shape)}, "
+                             f"loss {loss}")
+    rollout_ms = _time_ms(rollout, iters=CNN_TIMED, warmup=1)
+    return {"train_step_ms": step_ms, "rollout_ms": rollout_ms,
+            "ar": ar, "batch": cfg.batch_size,
+            "peak_allocated_gib": peak / 2**30,
+            "step_idle_share": 1 - busy / wall, "step_busy_ms": busy,
+            "step_wall_ms": wall,
+            "step_top_kernels": [[k, n, round(ms, 4)] for k, n, ms in top],
+            "evaluate_rmse": report.rmse, "evaluate_skill": report.skill}
+
+
+def _cnn_fit_losses(out_dir):
+    with open(os.path.join(out_dir, "results.json")) as f:
+        res = json.load(f)
+    losses = res["train_losses"] + res["val_losses"]
+    missing = [n for n in ("best_model.pt", "config.json", "results.json",
+                           "training_log.txt", "metrics.jsonl",
+                           "checkpoint/state.pt", "checkpoint/meta.json")
+               if not os.path.exists(os.path.join(out_dir, n))]
+    if missing or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"{out_dir}: missing {missing}, losses "
+                             f"{losses}")
+    return res
+
+
+def phase_cnn_cli(workdir):
+    """8b: ``cli.train_unet`` on the card (its default device) over a
+    seeded synthetic 41 x 61, 23-feature set: v2 from the flat config,
+    then v1 from flags, each 2 epochs of CNN_CLI_STEPS steps; then each
+    trained model measured (``_cnn_measure``)."""
+    from graphcast_lite_torch.cli import train_unet
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import \
+        generate_synthetic_dataset
+
+    gc = CNN_CONFIG
+    c, obs, ar = gc["num_features"], gc["obs_window"], gc["max_ar_steps"]
+    data = generate_synthetic_dataset(
+        os.path.join(workdir, "cnn_data"), n_time=40, n_lon=CNN_GRID[1],
+        n_lat=CNN_GRID[0], n_feat=c, static_channels=gc["static_channels"],
+        forcing_channels=gc["forcing_channels"], seed=8)
+    cfg_path = os.path.join(workdir, "unet_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(gc, data_dir=data), f)
+    _log(f"phase 8b: cli.train_unet on the card, {CNN_GRID[0]}x"
+         f"{CNN_GRID[1]} x {c} synthetic set (40 frames), v2 from --config "
+         f"(spectral 0.1, Sobel 0.05), v1 from flags; 2 epochs x "
+         f"{CNN_CLI_STEPS} steps; then evaluate_model AR {ar} on 2 samples, "
+         f"{CNN_TIMED} timed train steps (batch 8, AR {ar}) and rollouts")
+    train_ds, _, test_ds, meta = load_chunked_datasets(
+        data, obs_window=obs, pred_steps=ar, n_features=c)
+    flags = ["--data-dir", data, "--arch", "v1", "--obs-window", str(obs),
+             "--max-ar", str(ar), "--n-features", str(c), "--batch-size",
+             str(gc["batch_size"]), "--epochs", str(gc["num_epochs"]),
+             "--base-filters", str(gc["base_filters"]), "--static-channels",
+             *map(str, gc["static_channels"]), "--forcing-channels",
+             *map(str, gc["forcing_channels"])]
+    out = {}
+    for arch, argv in (("v2", ["--config", cfg_path]), ("v1", flags)):
+        exp = os.path.join(workdir, f"unet_{arch}")
+        t0 = time.perf_counter()
+        train_unet.main([exp, *argv, "--max-steps-per-epoch",
+                         str(CNN_CLI_STEPS)])
+        cli_s = time.perf_counter() - t0
+        res = _cnn_fit_losses(exp)
+        row = _cnn_measure(arch, os.path.join(exp, "best_model.pt"),
+                           train_ds, test_ds, meta)
+        out[arch] = dict(row, cli_s=cli_s,
+                         train_losses=res["train_losses"],
+                         val_losses=res["val_losses"])
+        _log(f"  {arch}: CLI {cli_s:.1f} s, losses "
+             + ", ".join(f"{v:.4f}" for v in res["train_losses"])
+             + f"; train step {row['train_step_ms']:.2f} ms (batch 8, AR "
+             f"{ar}), AR-{ar} rollout {row['rollout_ms']:.2f} ms, peak "
+             f"{row['peak_allocated_gib']:.3f} GiB, step idle share "
+             f"{row['step_idle_share']:.3f} ({row['step_busy_ms']:.2f} of "
+             f"{row['step_wall_ms']:.2f} ms busy)")
+    return out
+
+
+def phase_cnn_cascade(workdir):
+    """8c: the downscaler cascade on the card: ``build_downscaler_dataset``
+    from a seeded 15 x 22 coarse and a 41 x 61 fine set (23 features),
+    ``cli.train_downscaler`` at base 48; ``cli.generate_predictions`` of
+    a seeded small GNN on the fine grid, then ``cli.train_downscaler
+    --gnn-input`` on its ``gnn_pred.npy``; the downscaler's step timed."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.cli import generate_predictions, \
+        train_downscaler
+    from graphcast_lite_torch.config import to_dict
+    from graphcast_lite_torch.data import etl
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import \
+        generate_synthetic_dataset
+
+    c, n_time = CNN_CONFIG["num_features"], 20
+    h, w = CNN_GRID
+    _log(f"phase 8c: downscaler cascade on the card: 15x22 -> {h}x{w} x "
+         f"{c} (20 frames), train_downscaler base "
+         f"{CNN_DOWNSCALER_FILTERS} (batch 8, 2 epochs x 2 steps), "
+         "generate_predictions of a seeded GNN, train_downscaler "
+         "--gnn-input")
+    coarse = generate_synthetic_dataset(os.path.join(workdir, "coarse"),
+                                        n_time=n_time, n_lon=22, n_lat=15,
+                                        n_feat=c, seed=5)
+    fine = generate_synthetic_dataset(os.path.join(workdir, "fine"),
+                                      n_time=n_time, n_lon=w, n_lat=h,
+                                      n_feat=c, seed=5)
+    ds = etl.build_downscaler_dataset(coarse, fine,
+                                      os.path.join(workdir, "downscale"))
+    for name in ("X_coarse.npy", "Y_fine.npy"):
+        size = os.path.getsize(os.path.join(ds, name))
+        if size != n_time * h * w * c * 2:
+            raise AssertionError(f"{name}: {size} bytes")
+    common = ["--data-dir", ds, "--base-filters",
+              str(CNN_DOWNSCALER_FILTERS), "--epochs", "2",
+              "--max-steps-per-epoch", "2", "--batch-size", "8"]
+    down = os.path.join(workdir, "downscaler")
+    truth = train_downscaler.main([down, *common])
+    _cnn_fit_losses(down)
+
+    cfg = presets.interaction_net_64x32(n_feat=c, hidden=32, mp_steps=2)
+    cfg.graph.mesh_levels = [1, 2]
+    cfg.data_dir = fine
+    exp = os.path.join(workdir, "gnn")
+    os.makedirs(exp)
+    with open(os.path.join(exp, "config.json"), "w") as f:
+        json.dump(to_dict(cfg), f)
+    _, _, _, meta = load_chunked_datasets(fine, obs_window=2, pred_steps=1,
+                                          n_features=c)
+    model, _, _ = build_weather_model(cfg, meta, device="cuda", seed=9)
+    torch.save(model.state_dict(), os.path.join(exp, "best_model.pt"))
+    pred = os.path.join(workdir, "gnn_pred.npy")
+    generate_predictions.main([exp, "--out", pred, "--max-samples", "12"])
+    with open(pred + ".json") as f:
+        info = json.load(f)
+    gp = np.fromfile(pred, np.float16)
+    if info != {"n_samples": 12, "n_nodes": h * w, "n_feat": c,
+                "split": "train"} or gp.size != 12 * h * w * c \
+            or not np.isfinite(gp).all():
+        raise AssertionError(f"gnn_pred.npy: {info}, {gp.size} values")
+    down_gnn = os.path.join(workdir, "downscaler_gnn")
+    gnn = train_downscaler.main([down_gnn, *common, "--gnn-input", pred])
+    _cnn_fit_losses(down_gnn)
+
+    # The downscaler's train step (batch 8, AR 1) on the trained weights.
+    model, dcfg, spec, _ = _cnn_setup("downscaler")
+    model.load_state_dict(torch.load(os.path.join(down, "best_model.pt"),
+                                     map_location="cpu", weights_only=True))
+    model.cuda()
+    x, y = (np.fromfile(os.path.join(ds, name), np.float16)
+            .reshape(n_time, h * w, c)[:8].astype(np.float32)
+            for name in ("X_coarse.npy", "Y_fine.npy"))
+    step = _cnn_step(model, dcfg, spec, None, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _time_ms(lambda: step(x, y), iters=CNN_TIMED, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, _ = _profile(lambda: step(x, y))
+    _log(f"  downscaler: skill vs bilinear {truth['skill'] * 100:.1f}% "
+         f"(truth inputs), {gnn['skill'] * 100:.1f}% (GNN inputs, 12 "
+         f"samples); train step {step_ms:.2f} ms (batch 8), peak "
+         f"{peak / 2**30:.3f} GiB, idle share {1 - busy / wall:.3f}")
+    return {"truth_inputs": truth, "gnn_inputs": gnn,
+            "gnn_pred": info, "train_step_ms": step_ms,
+            "peak_allocated_gib": peak / 2**30,
+            "step_idle_share": 1 - busy / wall}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3680,6 +4091,10 @@ def main() -> int:
                     "train_regional": phase_regional_train(workdir,
                                                            ctx["gs"]),
                     "grids": phase_regional_grids()}
+    with tempfile.TemporaryDirectory() as workdir:
+        cnn = {"card": smi, "numerics": phase_cnn_numerics(),
+               "train_unet": phase_cnn_cli(workdir),
+               "downscaler": phase_cnn_cascade(workdir)}
     fused_steps = {name: row["launches_per_step"]
                    for name, row in fused["bf16"].items()}
     head_steps = {name: row["launches_per_step"]
@@ -3767,6 +4182,7 @@ def main() -> int:
     _log(json.dumps({"baseline_64x32": baseline}))
     _log(json.dumps({"fit": fit}))
     _log(json.dumps({"regional": regional}))
+    _log(json.dumps({"cnn": cnn}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

@@ -66,12 +66,15 @@ def main(argv=None):
                      "remaining model-calling entry points)")
 
     from ..build import build_weather_model, config_direct_steps
-    from ..config import load_experiment_config
+    from ..config import GridExperimentConfig, load_experiment_config
     from ..data.dataset import load_chunked_datasets
     from ..inference.predict import evaluate_model
     from ..training import checkpoint as ckpt_lib
 
     cfg = load_experiment_config(os.path.join(args.exp_dir, "config.json"))
+    if isinstance(cfg, GridExperimentConfig):
+        parser.error(f"{args.exp_dir} holds a U-Net / downscaler config; "
+                     "use cli.train_unet or cli.train_downscaler")
     data_dir = args.data_dir or cfg.data_dir
     ar_steps = args.ar_steps or cfg.max_ar_steps
 

@@ -38,12 +38,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from ..build import build_weather_model
-    from ..config import load_experiment_config
+    from ..config import GridExperimentConfig, load_experiment_config
     from ..data.dataset import load_chunked_datasets
     from ..training import checkpoint as ckpt_lib
     from ..training.trainer import Trainer
 
     cfg = load_experiment_config(os.path.join(args.exp_dir, "config.json"))
+    if isinstance(cfg, GridExperimentConfig):
+        parser.error(f"{args.exp_dir} holds a U-Net / downscaler config; "
+                     "use cli.train_unet or cli.train_downscaler")
     data_dir = args.data_dir or cfg.data_dir
     if data_dir is None:
         raise SystemExit("Set data_dir in config.json or pass --data-dir")

@@ -30,6 +30,7 @@ __all__ = [
     "DataConfig",
     "TpuConfig",
     "ExperimentConfig",
+    "GridExperimentConfig",
     "from_dict",
     "to_dict",
     "is_grid_config",
@@ -165,6 +166,61 @@ class ExperimentConfig:
     tpu: TpuConfig = dataclasses.field(default_factory=TpuConfig)
 
 
+@dataclasses.dataclass(kw_only=True)
+class GridExperimentConfig:
+    """The reference's CNN-stack schema: the flat ``config.json`` of its
+    U-Net and downscaler trainers (``cli/train_unet.py``,
+    ``cli/train_downscaler.py``), turned into the ``ExperimentConfig`` the
+    shared ``Trainer`` takes by ``to_experiment_config``."""
+
+    data_dir: Optional[str] = None
+    num_features: int
+    obs_window: int = 2
+    pred_steps: int = 4
+    batch_size: int = 16
+    learning_rate: float = 1e-3
+    num_epochs: int = 50
+    patience: int = 10
+    base_filters: int = 64
+    max_ar_steps: int = 4
+    attn_heads: int = 4
+    spectral_modes: int = 4
+    spectral_weight: float = 0.0
+    gradient_weight: float = 0.0
+    static_channels: List[int] = dataclasses.field(default_factory=list)
+    forcing_channels: List[int] = dataclasses.field(default_factory=list)
+    random_seed: Optional[int] = 42
+    static_context: bool = False
+    residual: bool = True
+    gnn_input: bool = False
+    input_noise: float = 0.0
+    augment_flip: bool = False
+    notes: Optional[str] = None
+
+    def to_experiment_config(self) -> ExperimentConfig:
+        """The ``ExperimentConfig`` of the shared ``Trainer`` (no graph
+        and no pipeline: a CNN stack has no graph)."""
+        return ExperimentConfig(
+            batch_size=self.batch_size,
+            learning_rate=self.learning_rate,
+            num_epochs=self.num_epochs,
+            early_stopping_patience=self.patience,
+            random_seed=self.random_seed,
+            max_ar_steps=self.max_ar_steps,
+            static_channels=list(self.static_channels),
+            forcing_channels=list(self.forcing_channels),
+            use_residual=self.residual,
+            data_dir=self.data_dir,
+            data=DataConfig(
+                dataset_name="unet",
+                num_features_used=self.num_features,
+                obs_window_used=self.obs_window,
+                pred_window_used=max(self.pred_steps, 1),
+                want_feats_flattened=True,
+            ),
+        )
+
+
 def _coerce(tp, value):
     """Convert a JSON value to the annotated field type ``tp``."""
     if value is None:
@@ -221,16 +277,15 @@ def is_grid_config(raw: dict) -> bool:
     )
 
 
-def load_experiment_config(path: str) -> ExperimentConfig:
-    """Load a GNN experiment ``config.json`` (credentials dropped)."""
+def load_experiment_config(path: str):
+    """Load an experiment ``config.json`` (credentials dropped): an
+    ``ExperimentConfig`` for a GNN experiment, a ``GridExperimentConfig``
+    for the reference's flat U-Net / downscaler schema."""
     with open(path) as f:
         raw = json.load(f)
     raw.pop("wandb_key", None)  # never carry credentials forward
     if is_grid_config(raw):
-        raise NotImplementedError(
-            "grid / U-Net experiment configs are not ported yet "
-            "(ROADMAP A10: the grid and U-Net stacks)"
-        )
+        return from_dict(GridExperimentConfig, raw)
     return from_dict(ExperimentConfig, raw)
 
 

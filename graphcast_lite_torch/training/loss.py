@@ -3,8 +3,8 @@ counterpart of ``graphcast_lite_tpu.training.loss``).
 
 The mask builders are NumPy, as in the JAX package.  Like the JAX package,
 the latitude weights (and the boundary mask) are laid out in the data's
-lat-major node order.  ``spectral_loss`` and ``gradient_loss`` serve the
-CNN stacks and come with them (ROADMAP A10).
+lat-major node order.  ``spectral_loss`` and ``gradient_loss`` (the
+sharpness terms of the CNN trainers) take images ``[..., H, W, C]``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ __all__ = [
     "combine_spatial_masks",
     "weighted_mse",
     "anomaly_correlation",
+    "spectral_loss",
+    "gradient_loss",
+    "image_extra_loss",
 ]
 
 
@@ -98,6 +101,59 @@ def weighted_mse(
     if lat_weights is not None:
         weights = weights * lat_weights[..., :, None]
     return (diff * weights).sum() / torch.clamp(weights.sum(), min=1e-12)
+
+
+def spectral_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """L1 distance between the 2-D FFT amplitude spectra (ortho ``rfft2``
+    over H, W).  pred/target: [..., H, W, C].  Penalizes the blurring
+    (missing small-scale energy) that plain MSE ignores."""
+    pf = torch.fft.rfft2(pred, dim=(-3, -2), norm="ortho").abs()
+    tf = torch.fft.rfft2(target, dim=(-3, -2), norm="ortho").abs()
+    return torch.mean(torch.abs(pf - tf))
+
+
+_SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
+
+
+def _sobel(x: torch.Tensor):
+    """Per-channel Sobel cross-correlations, zero "SAME" padding:
+    [..., H, W, C] -> (gx, gy), each [N·C, 1, H, W]."""
+    h, w = x.shape[-3], x.shape[-2]
+    xc = x.reshape((-1, h, w, x.shape[-1])).permute(0, 3, 1, 2)
+    xc = xc.reshape(-1, 1, h, w)
+    kx = torch.tensor(_SOBEL_X, dtype=x.dtype, device=x.device)
+    k = torch.stack([kx, kx.T])[:, None]              # [2, 1, 3, 3]
+    g = torch.nn.functional.conv2d(xc, k, padding=1)
+    return g[:, :1], g[:, 1:]
+
+
+def gradient_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """L1 distance between Sobel spatial gradients (a sharpness prior).
+    pred/target: [..., H, W, C]."""
+    pgx, pgy = _sobel(pred)
+    tgx, tgy = _sobel(target)
+    return torch.mean(torch.abs(pgx - tgx)) + torch.mean(torch.abs(pgy - tgy))
+
+
+def image_extra_loss(n_lat: int, n_lon: int, c: int, spectral_weight: float,
+                     gradient_weight: float):
+    """``extra_loss_fn(out [..., G, C], target)`` of the CNN trainers: the
+    weighted spectral and Sobel losses on the [..., H, W, C] images; None
+    when both weights are 0."""
+    if spectral_weight <= 0 and gradient_weight <= 0:
+        return None
+
+    def extra(out, target):
+        img_o = out.reshape(out.shape[:-2] + (n_lat, n_lon, c))
+        img_t = target.reshape(target.shape[:-2] + (n_lat, n_lon, c))
+        loss = 0.0
+        if spectral_weight > 0:
+            loss = loss + spectral_weight * spectral_loss(img_o, img_t)
+        if gradient_weight > 0:
+            loss = loss + gradient_weight * gradient_loss(img_o, img_t)
+        return loss
+
+    return extra
 
 
 def anomaly_correlation(

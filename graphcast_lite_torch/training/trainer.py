@@ -28,6 +28,12 @@ package's), and the logs (``training_log.txt``, ``metrics.jsonl``,
 ``results.json``).  A batch is a Python loop over its samples; the JAX
 package vmaps the model over it (the losses agree, the times do not).
 
+The CNN stacks (``models.grid_adapter.GridImageModel``) train through
+the same loop with ``graphs=None``, their own optimizer (``optimizer=``,
+the CNN trainers' ``training.optim.ClippedAdamW``) and an extra loss term
+(``extra_loss_fn=``, their spectral and Sobel losses), as in the JAX
+package.
+
 SparseGAT: ``TrainState.edge_mask`` carries the processing graph's pruned
 edge mask from step to step and epoch to epoch (it starts as the graph's
 own mask).  The epoch's ``attention_threshold_schedule`` threshold prunes
@@ -44,7 +50,7 @@ import json
 import os
 import time
 from datetime import datetime
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +61,8 @@ from ..build import config_direct_steps, resolve_device, resolve_dtype
 from ..config import ExperimentConfig, GraphLayerType
 from ..data.dataset import BatchIterator, ChunkedTimeseriesDataset, \
     DatasetMetadata
+from ..models.grid_adapter import GridImageModel
+from ..models.unet import init_weights
 from ..models.weather import ModelGraphs, WeatherModel
 from . import checkpoint as ckpt_lib
 from .loss import (
@@ -126,19 +134,24 @@ def _as_tensor(a, device) -> Optional[torch.Tensor]:
 
 
 class TrainStep:
-    """One BPTT + Adam step of ``model`` (built by ``make_train_step``)."""
+    """One BPTT + optimizer step of ``model`` (built by
+    ``make_train_step``); ``graphs`` is None for a model that needs none
+    (``GridImageModel``), ``extra_loss_fn`` as ``rollout_loss``'s."""
 
-    def __init__(self, model: WeatherModel, graphs: ModelGraphs,
+    def __init__(self, model: nn.Module, graphs: Optional[ModelGraphs],
                  spec: RolloutSpec, steps: int, device: torch.device,
                  compute_dtype: torch.dtype, optimizer: torch.optim.Optimizer,
                  lat_weights=None, chan_mask=None, spatial_mask=None,
-                 freeze_processor: bool = False):
+                 freeze_processor: bool = False,
+                 extra_loss_fn: Optional[Callable] = None):
         self.model, self.spec, self.steps = model, spec, steps
         self.device, self.compute_dtype = device, compute_dtype
         self.optimizer = optimizer
         self.freeze_processor = freeze_processor
+        self.extra_loss_fn = extra_loss_fn
         low = compute_dtype != torch.float32
-        self.graphs = graphs.to(device, compute_dtype if low else None)
+        self.graphs = None if graphs is None else graphs.to(
+            device, compute_dtype if low else None)
         self.lat_weights = _as_tensor(lat_weights, device)
         self.chan_mask = _as_tensor(chan_mask, device)
         self.spatial_mask = _as_tensor(spatial_mask, device)
@@ -181,6 +194,7 @@ class TrainStep:
             model_fn, window, targets, self.steps, self.spec, edge_mask,
             thr, prune, lat_weights=self.lat_weights,
             chan_mask=self.chan_mask, spatial_mask=self.spatial_mask,
+            extra_loss_fn=self.extra_loss_fn,
         )
         if new_mask is not None:
             new_mask = new_mask.detach().float()
@@ -217,8 +231,8 @@ class TrainStep:
 
 
 def make_train_step(
-    model: WeatherModel,
-    graphs: ModelGraphs,
+    model: nn.Module,
+    graphs: Optional[ModelGraphs],
     spec: RolloutSpec,
     cfg: ExperimentConfig,
     steps: Optional[int] = None,
@@ -229,6 +243,7 @@ def make_train_step(
     processor_lr_factor: float = 1.0,
     freeze_processor: bool = False,
     optimizer: Optional[torch.optim.Optimizer] = None,
+    extra_loss_fn: Optional[Callable] = None,
 ) -> TrainStep:
     """The train step of ``model`` (fp32 master parameters, moved to
     ``device`` in place) on ``graphs``, over ``steps`` AR steps (default
@@ -238,7 +253,9 @@ def make_train_step(
     ``lat_weights`` [G], ``chan_mask`` [C] and ``spatial_mask`` [G] weight
     the loss (``training.loss``); ``freeze_processor`` zeroes the
     processor's gradients.  ``optimizer`` (default: a new one) lets steps
-    of other AR levels or freeze settings share one Adam state."""
+    of other AR levels or freeze settings share one Adam state.
+    ``extra_loss_fn(out [B, G, C], target) -> scalar`` is added to each AR
+    step's loss."""
     dev = resolve_device(device)
     model.to(dev)
     bad = [n for n, p in model.named_parameters() if p.dtype != torch.float32]
@@ -254,6 +271,7 @@ def make_train_step(
         device=dev, compute_dtype=resolve_dtype(cfg.tpu.compute_dtype),
         optimizer=optimizer, lat_weights=lat_weights, chan_mask=chan_mask,
         spatial_mask=spatial_mask, freeze_processor=freeze_processor,
+        extra_loss_fn=extra_loss_fn,
     )
 
 
@@ -264,7 +282,7 @@ class TrainState:
     both the ``Trainer``'s own, and SparseGAT's processing-edge mask
     ([E_pad] fp32 on the device; None for the other families)."""
 
-    model: WeatherModel
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     edge_mask: Optional[torch.Tensor] = None
 
@@ -274,20 +292,25 @@ class Trainer:
 
     def __init__(
         self,
-        model: WeatherModel,
-        graphs: ModelGraphs,
+        model: nn.Module,
+        graphs: Optional[ModelGraphs],
         config: ExperimentConfig,
         metadata: DatasetMetadata,
         results_dir: str,
         processor_lr_factor: float = 1.0,
+        optimizer: Optional[torch.optim.Optimizer] = None,
+        extra_loss_fn: Optional[Callable] = None,
         mesh=None,
         graph_set=None,
         device: Union[str, torch.device, None] = None,
     ):
-        """``model`` (fp32) and ``graphs`` are moved to ``device`` (default
-        ``cuda``; raises without a card unless ``device='cpu'``).  The JAX
-        package's ``optimizer=`` and ``extra_loss_fn=`` serve its CNN
-        trainers and come with them (ROADMAP A10)."""
+        """``model`` (fp32, a ``WeatherModel`` or a ``GridImageModel``) and
+        ``graphs`` (None for a model that needs none) are moved to
+        ``device`` (default ``cuda``; raises without a card unless
+        ``device='cpu'``).  ``optimizer`` over the model's parameters
+        replaces ``build_optimizer``'s Adam (the CNN trainers pass
+        ``training.optim.ClippedAdamW``); ``extra_loss_fn(out [B, G, C],
+        target)`` is added to each AR step's training loss."""
         if mesh is not None or graph_set is not None:
             raise NotImplementedError(
                 "sharded training (mesh= / graph_set=) is not ported yet "
@@ -299,7 +322,7 @@ class Trainer:
         )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.graphs = graphs.to(self.device)
+        self.graphs = None if graphs is None else graphs.to(self.device)
         self.config = config
         self.metadata = metadata
         self.results_dir = results_dir
@@ -340,23 +363,30 @@ class Trainer:
         self._exclude = tuple(sorted(set(config.static_channels)
                                      | set(config.forcing_channels)))
 
-        self.optimizer = build_optimizer(self.model, config.learning_rate,
-                                         processor_lr_factor)
+        self.optimizer = optimizer if optimizer is not None else \
+            build_optimizer(self.model, config.learning_rate,
+                            processor_lr_factor)
+        self.extra_loss_fn = extra_loss_fn
         self._train_steps: Dict[Tuple[int, bool], TrainStep] = {}
         self._graphs_cast: Optional[ModelGraphs] = None
 
     # ------------------------------------------------------------------ core
     def init_state(self, seed: Optional[int] = None) -> TrainState:
-        """Fresh weights (drawn as ``build_weather_model`` draws them, from
-        a ``torch.Generator`` seeded with ``seed``, default 42) and a fresh
-        Adam state."""
-        fresh = WeatherModel(
-            self.config.pipeline, self.config.data,
-            self.model.num_grid_nodes, self.model.num_mesh_nodes,
-            generator=torch.Generator().manual_seed(
-                seed if seed is not None else 42),
-        )
-        self.model.load_state_dict(fresh.state_dict())
+        """Fresh weights (drawn as ``build_weather_model`` draws them, or a
+        ``GridImageModel``'s as ``models.unet.init_weights`` draws them,
+        from a ``torch.Generator`` seeded with ``seed``, default 42) and a
+        fresh optimizer state."""
+        gen = torch.Generator().manual_seed(seed if seed is not None
+                                            else 42)
+        if isinstance(self.model, GridImageModel):
+            init_weights(self.model, gen)
+        else:
+            fresh = WeatherModel(
+                self.config.pipeline, self.config.data,
+                self.model.num_grid_nodes, self.model.num_mesh_nodes,
+                generator=gen,
+            )
+            self.model.load_state_dict(fresh.state_dict())
         self.optimizer.state.clear()
         mask = None
         if self.using_sparse_gat:
@@ -368,9 +398,9 @@ class Trainer:
     def _compute_dtype(self) -> torch.dtype:
         return resolve_dtype(self.config.tpu.compute_dtype or "float32")
 
-    def _graphs_for(self, dtype: torch.dtype) -> ModelGraphs:
+    def _graphs_for(self, dtype: torch.dtype) -> Optional[ModelGraphs]:
         """The graphs with float arrays in the compute dtype (cast once)."""
-        if dtype == torch.float32:
+        if dtype == torch.float32 or self.graphs is None:
             return self.graphs
         if self._graphs_cast is None:
             self._graphs_cast = self.graphs.to(self.device, dtype)
@@ -394,6 +424,7 @@ class Trainer:
                 lat_weights=self.lat_weights, chan_mask=self.chan_mask,
                 spatial_mask=self.spatial_mask,
                 freeze_processor=freeze_processor, optimizer=self.optimizer,
+                extra_loss_fn=self.extra_loss_fn,
             )
         loss, mask = step.run(x, y, state.edge_mask, thr, prune)
         return dataclasses.replace(state, edge_mask=mask), loss

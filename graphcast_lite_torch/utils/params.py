@@ -20,6 +20,14 @@ rules: ``models.dual_mesh.DualMeshRegional`` (one shared step,
 ``models.roi_residual.ROIResidualModule`` (``processor.steps.{i}.…``
 from its scanned ``processor/steps/layer``).
 
+The U-Net family (``models.unet``, also under ``models.grid_adapter.
+GridImageModel``'s ``image_module``) is built of torch's own layers, so
+its tree maps by a rename and a transpose: a tree with a 4-D ``kernel``
+(a convolution; no GNN has one) is read as an image model's, where conv
+kernels [kh, kw, in, out] become ``weight`` [out, in, kh, kw], dense
+kernels [in, out] ``weight`` [out, in], the norms' ``scale`` ``weight``,
+and ``bias``, ``weights_re`` and ``weights_im`` keep their names.
+
 ``from_optax_adam_state(tree, model, processor_lr_factor)`` maps the JAX
 package's Adam state (as ``flax.serialization.to_state_dict`` lays it out)
 onto the state dict of ``training.trainer.build_optimizer``'s optimizer,
@@ -34,7 +42,8 @@ from typing import Any, Dict, Iterator, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["from_flax_params", "from_optax_adam_state"]
+__all__ = ["from_flax_params", "from_flax_image_params",
+           "from_optax_adam_state"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) \
@@ -47,13 +56,41 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) \
             yield path, np.asarray(value)
 
 
-def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree (``{"params": …}`` or its inner dict) → state
-    dict of float32 tensors."""
+def _image_leaf(path: Tuple[str, ...], arr: np.ndarray) \
+        -> Tuple[Tuple[str, ...], np.ndarray]:
+    """An image model's flax leaf -> its torch name and layout."""
+    name = path[-1]
+    if name == "kernel":
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        name = "weight"
+    elif name == "scale":
+        name = "weight"
+    return path[:-1] + (name,), arr
+
+
+def from_flax_image_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """An image model's flax tree (the U-Net family or one of its blocks)
+    → state dict of float32 tensors in torch's layouts."""
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = OrderedDict()
     for path, arr in _flatten(tree):
+        path, arr = _image_leaf(path, arr.astype(np.float32))
+        state[".".join(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree (``{"params": …}`` or its inner dict) → state
+    dict of float32 tensors (an image model's through
+    ``from_flax_image_params``)."""
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    leaves = list(_flatten(tree))
+    if any(p[-1] == "kernel" and a.ndim == 4 for p, a in leaves):
+        return from_flax_image_params(tree)
+    state: Dict[str, torch.Tensor] = OrderedDict()
+    for path, arr in leaves:
         arr = arr.astype(np.float32)
         i = path.index("steps") if "steps" in path else -1
         if 0 <= i < len(path) - 1 and path[i + 1] == "layer":

@@ -199,9 +199,9 @@ def test_predict_serves_a_jax_checkpoint(tmp_path, capsys):
     assert "[predict] non-strict restore" in out and "missing=" in out
 
 
-def test_unported_processor_raises_in_train(tmp_path):
-    """The GAT demo trains now; a grid / U-Net experiment, still to be
-    ported (ROADMAP A10), raises."""
+def test_unported_processor_raises_in_train(tmp_path, capsys):
+    """The GAT demo trains now; a grid / U-Net experiment is refused by
+    the GNN trainer (it trains through ``cli.train_unet``)."""
     from graphcast_lite_torch.cli import make_demo, train
 
     exp = _demo(make_demo.main, tmp_path / "gat", "--size", "small",
@@ -212,5 +212,6 @@ def test_unported_processor_raises_in_train(tmp_path):
     grid.mkdir()
     with open(grid / "config.json", "w") as f:
         json.dump({"num_features": 5, "base_filters": 16}, f)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(SystemExit):
         train.main([str(grid), "--device", "cpu"])
+    assert "cli.train_unet" in capsys.readouterr().err

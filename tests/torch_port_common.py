@@ -331,3 +331,28 @@ def tf32x3_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         acc = acc + ab[:, s] @ wb[s]
     return acc
 
+
+# ---- the U-Net family -----------------------------------------------
+
+def jax_params(jmod, x_nhwc, seed=0):
+    """The JAX module's parameter tree (names and shapes from its
+    ``init``, traced abstractly: compiling a U-Net's init takes seconds)
+    with values from a numpy seed: kernels N(0, 1 / fan_in), norm scales
+    1 + N(0, 0.1²), biases N(0, 0.1²), the spectral weights
+    N(0, 1 / (c_in · c_out)²)."""
+    rng = np.random.RandomState(seed)
+    tree = jax.eval_shape(jmod.init, jax.random.PRNGKey(0), x_nhwc)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "scale":
+            v = 1 + 0.1 * rng.randn(*shape)
+        elif name == "bias":
+            v = 0.1 * rng.randn(*shape)
+        else:                                   # weights_re, weights_im
+            v = rng.randn(*shape) / (shape[0] * shape[1])
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
