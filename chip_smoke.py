@@ -170,12 +170,36 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    ``cli.train_downscaler``, ``cli.generate_predictions`` of a seeded GNN
    on the fine grid and ``cli.train_downscaler --gnn-input``.
 
+9. Data assimilation and the serving entry points (no new kernel: the
+   GNN forwards launch the segment sum; the OI solve is
+   ``torch.linalg.solve``).  9a: the flagship through ``cli.predict``'s
+   ``main`` (seeded weights, default route, bf16 and fp32 with TF32 off)
+   on phase 6a's seeded 11-frame 512x256 set, 3 AR-4 requests each: raw,
+   ``--da nudging`` (13,107 stations) and ``--da oi --obs-roi-only
+   --region 20 60 60 140`` (6,498 ROI points, one ~650 x 650 fp32 solve a
+   step on the card): exactly 8 segment sums a rollout, the nudged AR-step-1
+   RMSE below the raw one, OI changing only ROI rows, each fp32 solve
+   within cond(A) x n x 2^-24 of a float64 host solve (the distance
+   printed), request ms and OI analysis ms a step; an identity assimilator
+   (the per-step path) against the whole-trajectory rollout in fp32.
+   9b: ``cli.evaluate_pipeline`` (nine rungs, ``--unet-exp`` a seeded
+   ``DownscalerUNet`` base 48 saved as the port's ``.pt``) on the WB2
+   64x32 GCN BASELINE, fp32, AR 4: exact launches, the raw rung equal to
+   ``evaluate_model``'s report, the same ladder on the CPU rung by rung,
+   the cascade rung's RMSE beside the raw one.  9c: a flagship fp32 AR-1
+   forecast through ``cascade_refine`` onto a 41 x 61 grid at 0.25 deg
+   with a seeded ``DownscalerUNet`` on the card (card vs CPU), then
+   ``blend_with_background``.  9d: ``export_runtime_bundle`` of 9a's
+   experiment and ``run_live_forecast`` AR 4 with a seeded ``fetch_fn``:
+   8 segment sums, predictions bitwise a direct fp32 rollout, ms.
+
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
-``{"regional": ...}``, ``{"cnn": ...}`` and ``{"kernels": [...]}`` lines
-(the kernels' launches counted in the serve, the train steps, the fit,
-the demo's training and the regional head steps; the segment sum's also
-by design in the serve and the train step) and, last,
+``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}`` and
+``{"kernels": [...]}`` lines (the kernels' launches counted in the serve,
+the train steps, the fit, the demo's training, the regional head steps
+and phase 9; the segment sum's also by design in the serve and the train
+step) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
@@ -4037,6 +4061,555 @@ def phase_cnn_cascade(workdir):
             "step_idle_share": 1 - busy / wall}
 
 
+# Phase 9: data assimilation and the serving entry points.
+# 9a: the DA requests of each dtype (3 samples each: one window each of
+# the 11-frame set's first three), nudging's stations, and the README's
+# ROI for OI (6,498 points of the 512x256 grid).
+DA_REQUESTS = 3
+DA_SPARSITY = 0.1
+DA_ROI_POINTS = 6498
+# 9b: the ladder's MOS calibration samples and evaluated samples, AR 4.
+LADDER_CALIB = 2
+LADDER_SAMPLES = 3
+LADDER_RUNGS = 9
+# 9c: the fine grid of phase 8c (41 x 61 at 0.25 deg), inside the ROI,
+# and the width of the Hann border that blends it over the background.
+CASCADE_LATS = 40.0 + 0.25 * np.arange(41)
+CASCADE_LONS = 90.0 + 0.25 * np.arange(61)
+CASCADE_BORDER = 4
+
+
+def _oi_recorder():
+    """Wrap ``OptimalInterpolation.apply`` and ``.solve`` for the block:
+    each analysis's ms (host clock, the solve's synchronizing copy back
+    included), each solve's ms, device and dtype, the systems solved (for
+    the float64 check after the run), and the rows each analysis changed
+    (raises when one lies outside the ROI)."""
+    from graphcast_lite_torch.assimilation.optimal_interpolation import \
+        OptimalInterpolation as OI
+
+    rec = {"apply_ms": [], "solve_ms": [], "systems": [], "changed": []}
+    apply, solve = OI.apply, OI.solve
+
+    def timed_solve(self, a, rhs):
+        if self.device.type != "cuda":
+            raise AssertionError(f"OI solves on {self.device}")
+        t0 = time.perf_counter()
+        w = solve(self, a, rhs)
+        rec["solve_ms"].append((time.perf_counter() - t0) * 1e3)
+        if w.dtype != np.float32:
+            raise AssertionError(f"OI solve returned {w.dtype}")
+        rec["systems"].append((a, rhs, w))
+        return w
+
+    def timed_apply(self, forecast, observations):
+        t0 = time.perf_counter()
+        out = apply(self, forecast, observations)
+        rec["apply_ms"].append((time.perf_counter() - t0) * 1e3)
+        changed = np.flatnonzero((out != forecast).any(axis=-1))
+        if self.roi_idx is not None and not np.isin(changed,
+                                                    self.roi_idx).all():
+            raise AssertionError("OI changed rows outside the ROI")
+        rec["changed"].append(int(changed.size))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        OI.apply, OI.solve = timed_apply, timed_solve
+        try:
+            yield rec
+        finally:
+            OI.apply, OI.solve = apply, solve
+
+    return patched()
+
+
+def _oi_float64_check(systems):
+    """Each fp32 card solve against a float64 host solve of the same
+    system: max|w32 - w64| / max|w64| within the forward-error bound of
+    LU with partial pivoting, cond_2(A) * n * 2^-24 (A is symmetric
+    positive definite here: B's Gaussian kernel plus sigma_o^2 I).
+    Returns the worst (distance, bound, cond, n)."""
+    worst = (0.0, 1.0, 0.0, 0)
+    for a, rhs, w in systems:
+        w64 = np.linalg.solve(a, np.asarray(rhs, np.float64))
+        rel = float(np.abs(w - w64).max() / np.abs(w64).max())
+        cond = float(np.linalg.cond(a))
+        bound = cond * a.shape[0] * 2.0 ** -24
+        if not np.isfinite(rel) or rel > bound:
+            raise AssertionError(f"OI fp32 solve {rel:.3e} from float64 > "
+                                 f"bound {bound:.3e} (cond {cond:.1f}, n "
+                                 f"{a.shape[0]})")
+        if rel / bound > worst[0] / worst[1]:
+            worst = (rel, bound, cond, a.shape[0])
+    return worst
+
+
+@contextlib.contextmanager
+def _timed_evaluate(rec):
+    """``inference.predict.evaluate_model`` wrapped for the block (the CLIs
+    import it when they run): each call's host ms and samples."""
+    from graphcast_lite_torch.inference import predict
+
+    inner = predict.evaluate_model
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = inner(*args, **kw)
+        torch.cuda.synchronize()
+        rec.append(((time.perf_counter() - t0) * 1e3, report.num_samples))
+        return report
+
+    predict.evaluate_model = timed
+    try:
+        yield rec
+    finally:
+        predict.evaluate_model = inner
+
+
+@contextlib.contextmanager
+def _host_spans(spans):
+    """Host ms, summed by label, of the serve's host steps for the block:
+    sample loads (``ChunkedTimeseriesDataset.get``, the serve's and the DA
+    hook's), station observations (``make_sparse_observations``), nudging
+    (``NudgingAssimilator.apply``) and the streaming metrics
+    (``StreamingMetrics.update``).  OI's analyses are timed by
+    ``_oi_recorder``."""
+    from graphcast_lite_torch.assimilation import nudging, observations
+    from graphcast_lite_torch.data import dataset
+    from graphcast_lite_torch.inference import metrics
+
+    targets = ((dataset.ChunkedTimeseriesDataset, "get", "sample_load"),
+               (observations, "make_sparse_observations", "observations"),
+               (nudging.NudgingAssimilator, "apply", "nudging"),
+               (metrics.StreamingMetrics, "update", "metrics"))
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             targets]
+
+    def timed(fn, label):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spans[label] = spans.get(label, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+        return call
+
+    for (owner, attr, fn), (_, _, label) in zip(saved, targets):
+        setattr(owner, attr, timed(fn, label))
+    try:
+        yield spans
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def _da_request(exp, dtype, flags, per_rollout):
+    """One ``cli.predict`` call of DA_REQUESTS AR-4 requests: (report, ms a
+    request, host ms a request by span); raises unless every rollout
+    launched the segment sum exactly ``per_rollout`` times and the report
+    is finite."""
+    from graphcast_lite_torch.cli import predict as predict_cli
+
+    path = os.path.join(exp, f"report_{dtype}.json")
+    calls, spans = [], {}
+    _reset_launches()
+    with _timed_evaluate(calls), _host_spans(spans):
+        predict_cli.main([exp, "--split", "all", "--ar-steps",
+                          str(AR_STEPS), "--max-samples", str(DA_REQUESTS),
+                          "--dtype", dtype, "--report-json", path] + flags)
+    counts = _launches()
+    expected = {"segment_sum": per_rollout * DA_REQUESTS, "edge_mlp": 0,
+                "edge_step": 0}
+    if counts != expected:
+        raise AssertionError(f"cli.predict {flags} {dtype}: launches "
+                             f"{counts} (expected {expected})")
+    with open(path) as f:
+        report = json.load(f)
+    finite = [report["rmse"]] + [h["rmse"] for h in report["per_horizon"]]
+    if report["num_samples"] != DA_REQUESTS or not np.isfinite(finite).all():
+        raise AssertionError(f"cli.predict {flags} {dtype}: "
+                             f"{report['num_samples']} samples, {finite}")
+    (ms, n), = calls
+    return report, ms / n, {k: v / n for k, v in spans.items()}
+
+
+def phase_da_serve(workdir):
+    """9a: the flagship DA serve through ``cli.predict``'s ``main`` at full
+    width, seeded weights, default route, bf16 and fp32 (TF32 off), on
+    phase 6a's seeded 11-frame 512x256 set: raw, ``--da nudging`` (13,107
+    stations over the grid) and ``--da oi --obs-roi-only --region`` (the
+    README's ROI), DA_REQUESTS AR-4 requests each."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+    from graphcast_lite_torch.inference.predict import evaluate_model, \
+        region_node_mask
+
+    cfg = presets.interaction_net_512x256()
+    n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    roi = " ".join(f"{v:g}" for v in REGIONAL_ROI)
+    _log(f"phase 9a: flagship 512x256 DA serve through cli.predict (seeded "
+         f"weights, default route, bf16 and fp32), {DA_REQUESTS} AR-"
+         f"{AR_STEPS} requests each: raw, --da nudging (alpha 0.5, sparsity "
+         f"{DA_SPARSITY}), --da oi --obs-roi-only --region {roi}")
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "da_data"), n_time=FIT_FRAMES, n_lon=512,
+        n_lat=256, n_feat=n_feat, static_channels=list(cfg.static_channels),
+        seed=1)
+    exp = _user_experiment(workdir, "da_exp", cfg, data_dir)
+    _, _, all_ds, meta = load_chunked_datasets(
+        data_dir, obs_window=obs, pred_steps=AR_STEPS, n_features=n_feat,
+        test_split="all")
+    model, graphs, gs = build_weather_model(cfg, meta, device="cuda", seed=0)
+    torch.save(model.state_dict(), os.path.join(exp, "best_model.pt"))
+    g = gs.num_grid_nodes
+    roi_idx = np.flatnonzero(region_node_mask(meta, REGIONAL_ROI))
+    if roi_idx.size != DA_ROI_POINTS:
+        raise AssertionError(f"ROI holds {roi_idx.size} points")
+    stations = max(1, int(round(g * DA_SPARSITY)))
+
+    requests = {
+        "raw": [],
+        "nudging": ["--da", "nudging", "--da-alpha", "0.5",
+                    "--obs-sparsity", str(DA_SPARSITY)],
+        "oi": ["--da", "oi", "--obs-roi-only", "--region",
+               *(f"{v:g}" for v in REGIONAL_ROI),
+               "--obs-sparsity", str(DA_SPARSITY)],
+    }
+    out = {"stations_nudging": stations, "roi_points": int(roi_idx.size),
+           "stations_oi": max(1, int(round(roi_idx.size * DA_SPARSITY))),
+           "requests": DA_REQUESTS, "ar_steps": AR_STEPS}
+    for dtype in ("bf16", "fp32"):
+        row, reports = {}, {}
+        for name, flags in requests.items():
+            if name == "oi":
+                with _oi_recorder() as rec:
+                    rep, ms, spans = _da_request(exp, dtype, flags, 8)
+                spans["oi_analysis"] = sum(rec["apply_ms"]) / DA_REQUESTS
+            else:
+                rep, ms, spans = _da_request(exp, dtype, flags, 8)
+            reports[name] = rep
+            row[f"{name}_request_ms"] = ms
+            spans["rest"] = ms - sum(spans.values())
+            row[f"{name}_host_ms_by_span"] = spans
+            _log(f"  {dtype} {name}: {ms:.1f} ms a request; host ms a "
+                 "request by span (the rest: rollout, copies, set-up): "
+                 + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()))
+        h1 = {k: r["per_horizon"][0]["rmse"] for k, r in reports.items()}
+        if not h1["nudging"] < h1["raw"]:
+            raise AssertionError(f"{dtype}: nudged AR-step-1 RMSE "
+                                 f"{h1['nudging']} not below raw {h1['raw']}")
+        dist, bound, cond, n = _oi_float64_check(rec["systems"])
+        steps = DA_REQUESTS * AR_STEPS
+        if len(rec["apply_ms"]) != steps or len(rec["solve_ms"]) != steps:
+            raise AssertionError(f"{dtype}: {len(rec['apply_ms'])} OI "
+                                 f"analyses, {len(rec['solve_ms'])} solves "
+                                 f"for {steps} steps")
+        row.update({
+            "rmse_step1": h1, "rmse": {k: r["rmse"]
+                                       for k, r in reports.items()},
+            "region_rmse_oi": reports["oi"]["region"]["rmse"],
+            "oi_analysis_ms_per_step": float(np.mean(rec["apply_ms"])),
+            "oi_solve_ms_per_step": float(np.mean(rec["solve_ms"])),
+            "oi_rows_changed_per_step": float(np.mean(rec["changed"])),
+            "oi_system_size": n, "oi_cond": cond,
+            "oi_fp32_vs_float64_rel": dist, "oi_fp32_bound": bound,
+            "launches_per_rollout": 8})
+        out[dtype] = row
+        _log(f"  {dtype}: request ms (evaluate_model, host clock, mean of "
+             f"{DA_REQUESTS}): raw {row['raw_request_ms']:.1f}, nudging "
+             f"{row['nudging_request_ms']:.1f}, OI {row['oi_request_ms']:.1f};"
+             f" AR-step-1 RMSE raw {h1['raw']:.6f}, nudging "
+             f"{h1['nudging']:.6f}, OI {h1['oi']:.6f}; 8 segment sums a "
+             "rollout in every request")
+        _log(f"  {dtype} OI: {n} x {n} system a step ({steps} solves, fp32 "
+             f"on the card), analysis {row['oi_analysis_ms_per_step']:.2f} "
+             f"ms a step (solve {row['oi_solve_ms_per_step']:.2f}), "
+             f"{row['oi_rows_changed_per_step']:.0f} ROI rows changed; "
+             f"worst fp32 solve {dist:.3e} of max|w| from float64 (bound "
+             f"cond {cond:.1f} x n x 2^-24 = {bound:.3e})")
+
+    # The per-step path with an identity assimilator against the
+    # whole-trajectory path, fp32 on the card.
+    kw = dict(ar_steps=AR_STEPS, use_residual=cfg.use_residual,
+              static_channels=tuple(cfg.static_channels), device="cuda",
+              dtype="fp32", max_samples=1)
+    paths = {}
+    for name, hook in (("whole", None), ("per_step", lambda o, s: o)):
+        path = os.path.join(workdir, f"ident_{name}.npz")
+        _reset_launches()
+        evaluate_model(model, graphs, all_ds, meta, assimilator=hook,
+                       save_predictions=path, **kw)
+        if _launches()["segment_sum"] != 8:
+            raise AssertionError(f"{name}: {_launches()} launches")
+        paths[name] = torch.from_numpy(np.load(path)["predictions"])
+    err = (paths["per_step"] - paths["whole"]).abs().max().item()
+    torch.testing.assert_close(paths["per_step"], paths["whole"], **E2E_TOL)
+    out["identity_per_step_vs_whole_max_abs"] = err
+    _log(f"  identity assimilator (per-step path) against the "
+         f"whole-trajectory rollout, fp32: max|diff| {err:.3e} "
+         f"({E2E_TOL})")
+    return out, dict(model=model, graphs=graphs, cfg=cfg, exp=exp,
+                     data_dir=data_dir, meta=meta, ds=all_ds)
+
+
+def phase_ladder(workdir):
+    """9b: ``cli.evaluate_pipeline`` (all nine rungs) on the WB2 64x32 GCN
+    BASELINE configuration at its published widths, seeded weights, fp32
+    (TF32 off), with ``--unet-exp`` a seeded ``DownscalerUNet`` (base 48)
+    saved as the port's ``GridImageModel`` state dict; the same ladder on
+    the CPU; the raw rung against ``evaluate_model``'s report."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.cli import evaluate_pipeline
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+    from graphcast_lite_torch.inference.predict import evaluate_model
+    from graphcast_lite_torch.models.grid_adapter import GridImageModel
+    from graphcast_lite_torch.models.unet import DownscalerUNet
+
+    cfg = presets.baseline_gcn_64x32()
+    c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    _log(f"phase 9b: cli.evaluate_pipeline on the WB2 64x32 GCN BASELINE "
+         f"({c} features, hidden 64), fp32, AR {AR_STEPS}, MOS calibration "
+         f"{LADDER_CALIB}, {LADDER_SAMPLES} samples, --unet-exp a seeded "
+         f"DownscalerUNet (base {CNN_DOWNSCALER_FILTERS}); card vs CPU "
+         f"({E2E_TOL})")
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "ladder_data"), n_time=55, n_lon=64, n_lat=32,
+        n_feat=c, seed=2)
+    exp = _user_experiment(workdir, "ladder_exp", cfg, data_dir)
+    _, _, test_ds, meta = load_chunked_datasets(
+        data_dir, obs_window=obs, pred_steps=AR_STEPS, n_features=c)
+    if len(test_ds) < LADDER_CALIB + LADDER_SAMPLES:
+        raise AssertionError(f"test split holds {len(test_ds)} samples")
+    model, graphs, _ = build_weather_model(cfg, meta, device="cuda", seed=3)
+    torch.save(model.state_dict(), os.path.join(exp, "best_model.pt"))
+    unet_exp = os.path.join(workdir, "ladder_unet")
+    os.makedirs(unet_exp)
+    unet = GridImageModel(DownscalerUNet(
+        c, c, CNN_DOWNSCALER_FILTERS,
+        generator=torch.Generator().manual_seed(13)),
+        meta.num_latitudes, meta.num_longitudes)
+    torch.save(unet.state_dict(), os.path.join(unet_exp, "best_model.pt"))
+    with open(os.path.join(unet_exp, "config.json"), "w") as f:
+        json.dump({"base_filters": CNN_DOWNSCALER_FILTERS,
+                   "num_features": c}, f)
+    argv = [exp, "--ar-steps", str(AR_STEPS), "--max-samples",
+            str(LADDER_SAMPLES), "--mos-calibration", str(LADDER_CALIB),
+            "--unet-exp", unet_exp]
+    per_rollout = _serve_launches(model, graphs) * AR_STEPS
+    calls = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _timed_evaluate(calls):
+        card = evaluate_pipeline.main(argv)
+    wall_s = time.perf_counter() - t0
+    launched = _launches()["segment_sum"]
+    rollouts = LADDER_CALIB + LADDER_RUNGS * LADDER_SAMPLES
+    if launched != per_rollout * rollouts:
+        raise AssertionError(f"ladder: {launched} segment sums for "
+                             f"{rollouts} rollouts of {per_rollout}")
+    t0 = time.perf_counter()
+    cpu = evaluate_pipeline.main(argv + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    if list(card) != list(cpu) or len(card) != LADDER_RUNGS:
+        raise AssertionError(f"rungs {list(card)} / {list(cpu)}")
+    worst = 0.0
+    for name, r in card.items():
+        for key in ("rmse", "skill"):
+            if not np.isfinite(r[key]):
+                raise AssertionError(f"{name}: {key} {r[key]}")
+            ref = cpu[name][key]
+            diff = abs(r[key] - ref)
+            if diff > E2E_TOL["atol"] + E2E_TOL["rtol"] * abs(ref):
+                raise AssertionError(f"{name} {key}: card {r[key]} cpu {ref}")
+            worst = max(worst, diff / (E2E_TOL["atol"]
+                                       + E2E_TOL["rtol"] * abs(ref)))
+    raw = evaluate_model(model, graphs, test_ds, meta, ar_steps=AR_STEPS,
+                         use_residual=cfg.use_residual,
+                         static_channels=tuple(cfg.static_channels),
+                         forcing_channels=tuple(cfg.forcing_channels),
+                         max_samples=LADDER_SAMPLES,
+                         skip_samples=LADDER_CALIB, device="cuda")
+    for key in ("rmse", "skill", "acc"):
+        if not np.isclose(card["raw"][key], getattr(raw, key), rtol=1e-6,
+                          atol=0.0):
+            raise AssertionError(f"raw rung {key} {card['raw'][key]} != "
+                                 f"evaluate_model's {getattr(raw, key)}")
+    rung_ms = {name: ms / n for (ms, n), name in zip(calls, card)}
+    _log("  rungs (card): " + ", ".join(
+        f"{k} RMSE {r['rmse']:.6f} skill {r['skill'] * 100:.2f}%"
+        for k, r in card.items()))
+    _log(f"  cascade rung RMSE {card['+cascade']['rmse']:.6f} beside raw "
+         f"{card['raw']['rmse']:.6f} (the reference's arithmetic: "
+         "normalized predictions in, delta added; ROADMAP trap 9)")
+    _log(f"  card vs CPU: worst rung {worst:.3f} of the tolerance; "
+         f"{per_rollout} segment sums a rollout x {rollouts} rollouts; "
+         f"CLI wall {wall_s:.1f} s on the card, {cpu_s:.1f} s on the CPU; "
+         "ms a request by rung: " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in rung_ms.items()))
+    return {"rungs": card, "rungs_cpu": cpu, "request_ms_by_rung": rung_ms,
+            "card_vs_cpu_worst_share_of_tol": worst,
+            "launches_per_rollout": per_rollout, "rollouts": rollouts,
+            "cli_wall_s": wall_s, "cli_wall_s_cpu": cpu_s}
+
+
+def phase_regional_cascade(ctx):
+    """9c: one flagship fp32 AR-1 forecast through ``cascade_refine``
+    onto a 41 x 61 grid at 0.25 deg inside the ROI with a seeded
+    ``DownscalerUNet`` (base 48) on the card, then
+    ``blend_with_background`` over ``interpolate_to_region``'s background;
+    the U-Net's part card against CPU."""
+    import copy
+
+    from graphcast_lite_torch.inference.predict import serving_copy
+    from graphcast_lite_torch.inference.regional_pipelines import \
+        blend_with_background, cascade_refine, crop_region, \
+        interpolate_to_region, unet_apply_nhwc
+    from graphcast_lite_torch.models.unet import DownscalerUNet
+    from graphcast_lite_torch.training.rollout import RolloutSpec, \
+        rollout_predict
+
+    cfg, meta = ctx["cfg"], ctx["meta"]
+    c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    h, w = CASCADE_LATS.size, CASCADE_LONS.size
+    _log(f"phase 9c: regional cascade: flagship fp32 AR-1 forecast -> "
+         f"cascade_refine onto {h}x{w} at 0.25 deg ({CASCADE_LATS[0]:g}-"
+         f"{CASCADE_LATS[-1]:g} N, {CASCADE_LONS[0]:g}-{CASCADE_LONS[-1]:g} "
+         f"E) with a seeded DownscalerUNet (base {CNN_DOWNSCALER_FILTERS}) "
+         f"on the card, blend_with_background (border {CASCADE_BORDER})")
+    smodel, graphs = serving_copy(ctx["model"], ctx["graphs"],
+                                  torch.device("cuda"), torch.float32)
+    x, y = ctx["ds"].get(0)
+    g = x.shape[0]
+    spec = RolloutSpec(obs_window=obs, num_features=c, remat=False,
+                       use_residual=cfg.use_residual,
+                       static_channels=tuple(cfg.static_channels))
+    with torch.inference_mode():
+        pred = rollout_predict(
+            lambda inp, m, t, p: smodel(inp, graphs, m),
+            torch.from_numpy(x.reshape(g, obs, c)).cuda(), 1, spec,
+            forcing=torch.from_numpy(y.reshape(g, -1, c)).cuda(),
+        )[:, 0].cpu().numpy()
+    lats, lons = meta.coordinates
+    unet = DownscalerUNet(c, c, CNN_DOWNSCALER_FILTERS,
+                          generator=torch.Generator().manual_seed(12))
+    card = unet_apply_nhwc(copy.deepcopy(unet), "cuda")
+    cpu = unet_apply_nhwc(unet, "cpu")
+    cascade_refine(card, pred, lats, lons, CASCADE_LATS, CASCADE_LONS,
+                   REGIONAL_ROI)                                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = cascade_refine(card, pred, lats, lons, CASCADE_LATS,
+                             CASCADE_LONS, REGIONAL_ROI)
+    cascade_ms = (time.perf_counter() - t0) * 1e3
+    cropped, rl, ro = crop_region(pred, lats, lons, REGIONAL_ROI)
+    up = interpolate_to_region(cropped.reshape(-1, c), rl, ro, CASCADE_LATS,
+                               CASCADE_LONS)
+    delta_cpu = cpu(up[None].astype(np.float32))[0]
+    err = float(np.abs((refined - up) - delta_cpu).max())
+    torch.testing.assert_close(torch.from_numpy(refined - up),
+                               torch.from_numpy(delta_cpu.astype(up.dtype)),
+                               **E2E_TOL)
+    background = interpolate_to_region(pred, lats, lons, CASCADE_LATS,
+                                       CASCADE_LONS)
+    blended = blend_with_background(refined, background, CASCADE_BORDER)
+    if blended.shape != (h, w, c) or not np.isfinite(blended).all():
+        raise AssertionError(f"blended {blended.shape}")
+    if not (np.array_equal(blended[h // 2, w // 2], refined[h // 2, w // 2])
+            and np.array_equal(blended[0, 0], background[0, 0])):
+        raise AssertionError("blend: centre not the cascade or corner not "
+                             "the background")
+    _log(f"  cascade {cascade_ms:.1f} ms (host clock, crop + bilinear + "
+         f"U-Net on the card); U-Net delta card vs CPU max|diff| {err:.3e} "
+         f"({E2E_TOL}); blended {h}x{w}x{c} finite")
+    return {"fine_grid": [h, w], "cascade_ms": cascade_ms,
+            "unet_card_vs_cpu_max_abs": err,
+            "delta_rms": float(np.sqrt(np.mean((refined - up) ** 2)))}
+
+
+def phase_operational(workdir, ctx):
+    """9d: ``export_runtime_bundle`` of 9a's seeded flagship experiment
+    (the port's ``best_model.pt``), ``run_live_forecast`` AR 4 on the card
+    with an injected seeded ``fetch_fn``: exact launches, predictions
+    bitwise a direct fp32 ``rollout_predict`` of the same frames and
+    weights, live forecast ms."""
+    import datetime
+
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.data.dataset import DatasetMetadata
+    from graphcast_lite_torch.operational.bundle import \
+        export_runtime_bundle, load_runtime_bundle
+    from graphcast_lite_torch.operational.live import _assemble_frame, \
+        run_live_forecast
+    from graphcast_lite_torch.training.rollout import RolloutSpec, \
+        rollout_predict
+
+    _log(f"phase 9d: export_runtime_bundle of the seeded flagship, "
+         f"run_live_forecast AR {AR_STEPS} fp32 on the card with a seeded "
+         "fetch_fn")
+    bundle_dir = export_runtime_bundle(ctx["exp"], ctx["data_dir"],
+                                       os.path.join(workdir, "bundle"))
+    bundle = load_runtime_bundle(bundle_dir)
+    if not bundle.params_path.endswith("params.pt"):
+        raise AssertionError(bundle.params_path)
+
+    def fetch(cycle):
+        rng = np.random.RandomState(100 + cycle)
+        return {name: bundle.mean[i] + bundle.std[i]
+                * rng.randn(bundle.num_nodes).astype(np.float32)
+                for i, name in enumerate(bundle.variables)}
+
+    base = datetime.datetime(2026, 1, 1, 0)
+    times = []
+    for _ in range(2):                        # the first call warms up
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fc = run_live_forecast(bundle_dir, fetch, ar_steps=AR_STEPS,
+                               base_time=base, device="cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+        if _launches()["segment_sum"] != 8:
+            raise AssertionError(f"live forecast launches {_launches()}")
+    cfg = bundle.config
+    c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    meta = DatasetMetadata(
+        flattened=True, num_latitudes=len(bundle.latitude),
+        num_longitudes=len(bundle.longitude), num_features=c,
+        obs_window=obs, pred_window=AR_STEPS,
+        coordinates=(bundle.latitude, bundle.longitude))
+    model, graphs, _ = build_weather_model(cfg, meta, device="cuda")
+    model.load_state_dict(torch.load(bundle.params_path, map_location="cpu",
+                                     weights_only=True))
+    model.eval()
+    window = np.stack([_assemble_frame(fetch(i), bundle)
+                       for i in range(obs)], axis=1)
+    spec = RolloutSpec(obs_window=obs, num_features=c, remat=False,
+                       use_residual=cfg.use_residual,
+                       static_channels=tuple(bundle.static_channels))
+    with torch.inference_mode():
+        preds = rollout_predict(
+            lambda inp, m, t, p: model(inp, graphs, m),
+            torch.from_numpy(window).cuda(), AR_STEPS, spec).cpu().numpy()
+    expect = preds * bundle.std[:c] + bundle.mean[:c]
+    if fc.predictions_phys.shape != expect.shape or not np.array_equal(
+            fc.predictions_phys, expect):
+        raise AssertionError("live forecast differs from the direct "
+                             "rollout: max|diff| "
+                             f"{np.abs(fc.predictions_phys - expect).max()}")
+    _log(f"  live forecast AR {AR_STEPS}: {times[1]:.1f} ms (host clock, "
+         f"bundle load, graphs, model, {obs} frames, rollout; first call "
+         f"{times[0]:.1f} ms); 8 segment sums; predictions bitwise the "
+         "direct fp32 rollout")
+    return {"live_forecast_ms": times[1], "live_forecast_first_ms": times[0],
+            "launches": 8, "bundle": sorted(os.listdir(bundle_dir))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4095,6 +4668,13 @@ def main() -> int:
         cnn = {"card": smi, "numerics": phase_cnn_numerics(),
                "train_unet": phase_cnn_cli(workdir),
                "downscaler": phase_cnn_cascade(workdir)}
+    with tempfile.TemporaryDirectory() as workdir:
+        da_serve, da_ctx = phase_da_serve(workdir)
+        assimilation = {"card": smi, "da_serve": da_serve,
+                        "ladder": phase_ladder(workdir),
+                        "cascade": phase_regional_cascade(da_ctx),
+                        "operational": phase_operational(workdir, da_ctx)}
+    ladder = assimilation["ladder"]
     fused_steps = {name: row["launches_per_step"]
                    for name, row in fused["bf16"].items()}
     head_steps = {name: row["launches_per_step"]
@@ -4146,7 +4726,14 @@ def main() -> int:
                launches_per_train_step_phase7={
                    name: n["segment_sum"] for name, n in fused_steps.items()},
                launches_per_regional_head_step={
-                   name: n["segment_sum"] for name, n in head_steps.items()})
+                   name: n["segment_sum"] for name, n in head_steps.items()},
+               launches_in_phase9={
+                   "da_serve_per_rollout": da_serve["bf16"][
+                       "launches_per_rollout"],
+                   "ladder_per_rollout": ladder["launches_per_rollout"],
+                   "ladder_rollouts": ladder["rollouts"],
+                   "live_forecast": assimilation["operational"][
+                       "launches"]})
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -4183,6 +4770,7 @@ def main() -> int:
     _log(json.dumps({"fit": fit}))
     _log(json.dumps({"regional": regional}))
     _log(json.dumps({"cnn": cnn}))
+    _log(json.dumps({"assimilation": assimilation}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

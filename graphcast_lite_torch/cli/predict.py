@@ -2,7 +2,9 @@
 
 AR rollout over the test split on the card, with persistence-skill
 streaming metrics, per-horizon / per-channel (physical units) tables,
-region metrics and raw predictions export.
+region metrics, optional data assimilation with simulated sparse station
+observations (nudging on the host; optimal interpolation solves on
+``--device``) and raw predictions export.
 
 The checkpoint is a ``.pt`` state dict (``cli.train`` writes
 ``best_model.pt``) or the JAX package's ``.msgpack`` params, read without
@@ -17,6 +19,10 @@ Examples:
   predict <exp_dir> --data-dir D --checkpoint best_model.msgpack
   predict <exp_dir> --data-dir D --rollouts-per-dispatch 4
   predict <exp_dir> --data-dir D --device cpu
+  predict <exp_dir> --data-dir D --da nudging --da-alpha 0.5 \\
+      --obs-sparsity 0.1 --region 50 60 80 100
+  predict <exp_dir> --data-dir D --da oi --obs-roi-only \\
+      --region 20 60 60 140 --oi-length-km 150 --oi-sigma-o 0.5
 """
 
 from __future__ import annotations
@@ -26,6 +32,54 @@ import json
 import os
 
 import numpy as np
+
+
+def da_hook(args, test_ds, meta, device):
+    """The ``--da`` assimilator: per sample, sparse station observations
+    regenerated from that sample's ground truth, assimilated by nudging
+    or by optimal interpolation (solved on ``device``).  Sample i's hook
+    is made at its AR step 0, so it follows ``evaluate_model``'s order."""
+    from ..assimilation.observations import make_sparse_observations
+    from ..inference.predict import region_node_mask
+
+    region = tuple(args.region) if args.region else None
+    roi_for_obs = None
+    if args.obs_roi_only:
+        roi_for_obs = region_node_mask(meta, region, args.boundary_width)
+
+    c = meta.num_features
+    if args.da == "nudging":
+        from ..assimilation.nudging import NudgingAssimilator
+
+        da_obj = NudgingAssimilator(alpha=args.da_alpha)
+    else:
+        from ..assimilation.optimal_interpolation import OptimalInterpolation
+
+        lats, lons = meta.coordinates
+        roi_idx = None
+        if roi_for_obs is not None:
+            roi_idx = np.flatnonzero(roi_for_obs)
+        da_obj = OptimalInterpolation(
+            lats, lons, args.oi_sigma_b, args.oi_sigma_o,
+            args.oi_length_km * 1000.0, flat_grid=meta.flat_grid,
+            roi_idx=roi_idx, device=device,
+        )
+
+    state = {"i": -1, "hook": None}
+
+    def assimilator(out, step):
+        if step == 0:
+            state["i"] += 1
+            _, y = test_ds.get(state["i"])
+            truth = y.reshape(-1, y.shape[-1] // c, c)
+            obs = make_sparse_observations(
+                truth, args.obs_sparsity, roi_for_obs,
+                args.obs_channels, args.obs_seed,
+            )
+            state["hook"] = da_obj.make_step_hook(obs, args.da_steps)
+        return state["hook"](out, step)
+
+    return assimilator
 
 
 def main(argv=None):
@@ -50,9 +104,19 @@ def main(argv=None):
                         help="accepted as the JAX package's amortized "
                         "serve takes it; no effect until the batched "
                         "forward (ROADMAP): each sample is its own rollout")
+    # Data assimilation.
     parser.add_argument("--da", choices=["none", "nudging", "oi"],
-                        default="none",
-                        help="data assimilation (not ported yet: only none)")
+                        default="none")
+    parser.add_argument("--da-alpha", type=float, default=0.25)
+    parser.add_argument("--da-steps", type=int, default=None,
+                        help="assimilate only the first k AR steps")
+    parser.add_argument("--obs-sparsity", type=float, default=0.1)
+    parser.add_argument("--obs-roi-only", action="store_true")
+    parser.add_argument("--obs-channels", type=int, nargs="*", default=None)
+    parser.add_argument("--obs-seed", type=int, default=0)
+    parser.add_argument("--oi-sigma-b", type=float, default=1.0)
+    parser.add_argument("--oi-sigma-o", type=float, default=0.5)
+    parser.add_argument("--oi-length-km", type=float, default=150.0)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -61,9 +125,6 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0,
                         help="random-init seed when there is no checkpoint")
     args = parser.parse_args(argv)
-    if args.da != "none":
-        parser.error("--da is not ported yet (ROADMAP A11: DA and the "
-                     "remaining model-calling entry points)")
 
     from ..build import build_weather_model, config_direct_steps
     from ..config import GridExperimentConfig, load_experiment_config
@@ -109,6 +170,10 @@ def main(argv=None):
         print(f"[predict] WARNING: no checkpoint at {ckpt}; "
               f"evaluating random init (seed {args.seed})")
 
+    assimilator = None
+    if args.da != "none":
+        assimilator = da_hook(args, test_ds, meta, args.device)
+
     scalers = np.load(os.path.join(data_dir, "scalers.npz"))
     report = evaluate_model(
         model, graphs, test_ds, meta,
@@ -119,6 +184,7 @@ def main(argv=None):
         max_samples=args.max_samples,
         region=tuple(args.region) if args.region else None,
         boundary_width=args.boundary_width or cfg.boundary_mask_width,
+        assimilator=assimilator,
         scalers_std=scalers["std"] if args.per_channel else None,
         save_predictions=args.save_preds,
         direct_steps=config_direct_steps(cfg),

@@ -1,7 +1,7 @@
 """AR-rollout inference & evaluation engine (torch counterpart of
-``graphcast_lite_tpu.inference.predict``, whole-trajectory path).
+``graphcast_lite_tpu.inference.predict``).
 
-For each sample of the dataset: one AR rollout on the device, then
+For each sample of the dataset: the AR rollout on the device, then
 streaming NumPy metrics on the host —
 
 * persistence baseline (last input frame repeated) and
@@ -9,6 +9,9 @@ streaming NumPy metrics on the host —
 * overall / per-horizon / per-channel metrics;
 * optional region restriction (lat/lon bbox or inner boundary zone);
 * static/forcing carry-forward during the rollout;
+* optional data-assimilation hook invoked after each AR step (nudging /
+  OI plug in here), and a post-processing hook on the finished
+  trajectory (the lapse / MOS / IDW / cascade ladder);
 * physical-unit per-channel RMSE via the dataset scalers;
 * raw predictions + ground truth + sample offsets saved as .npz.
 
@@ -16,7 +19,6 @@ streaming NumPy metrics on the host —
 serve takes it, and has no effect yet: every sample is its own rollout,
 which is what K = 1 computes, until the batched ``[B, N, F]`` forward
 (ROADMAP) gives the port a K-sample call that saves time.
-Not ported yet (it raises): the data-assimilation hook (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 from ..build import resolve_device, resolve_dtype
 from ..data.dataset import ChunkedTimeseriesDataset, DatasetMetadata
 from ..models.weather import ModelGraphs, WeatherModel
-from ..training.rollout import RolloutSpec, rollout_predict
+from ..training.rollout import RolloutSpec, _one_step, carry_forward, \
+    rollout_predict
 from .metrics import StreamingMetrics, skill_score
 
 __all__ = ["EvalReport", "evaluate_model", "region_node_mask",
@@ -39,6 +42,8 @@ __all__ = ["EvalReport", "evaluate_model", "region_node_mask",
 
 # An assimilator hook: (state_out [G, C], step_idx) -> [G, C].
 AssimilatorFn = Callable[[np.ndarray, int], np.ndarray]
+# A post-processing hook: (pred_flat [G, steps·C], sample_idx) -> same.
+PostprocessFn = Callable[[np.ndarray, int], np.ndarray]
 
 
 def region_node_mask(
@@ -162,6 +167,8 @@ def evaluate_model(
     scalers_std: Optional[np.ndarray] = None,
     save_predictions: Optional[str] = None,
     horizon_hours: int = 6,
+    postprocess: Optional[PostprocessFn] = None,
+    skip_samples: int = 0,
     direct_steps: int = 1,
     edge_mask: Optional[torch.Tensor] = None,
     rollouts_per_dispatch: int = 1,
@@ -181,11 +188,23 @@ def evaluate_model(
     ``edge_mask`` is SparseGAT's processing-edge mask (default: the
     graph's own, as the JAX package's ``cli.predict`` serves it).
     ``rollouts_per_dispatch`` is accepted and has no effect yet (see the
-    module's docstring)."""
-    if assimilator is not None:
-        raise NotImplementedError(
-            "data-assimilation hooks are not ported yet (ROADMAP A11)"
-        )
+    module's docstring).
+
+    ``postprocess(pred_flat [G, steps·C], sample_idx) -> pred_flat``
+    corrects the finished trajectory before the metrics; unlike
+    ``assimilator`` it is NOT fed back into the AR window.
+    ``skip_samples`` drops the first samples (e.g. a MOS calibration
+    period); ``max_samples`` counts from there.
+
+    Dispatch policy, the JAX package's:
+    * ``direct_steps > 1`` — direct multi-step model: one forward per
+      sample; an ``assimilator`` is applied OFFLINE per step (there is no
+      AR window to feed it back into).
+    * ``assimilator is None`` — the whole-trajectory rollout.
+    * otherwise — per AR step: one forward on the device, carry-forward
+      with that step's target, the output to the host as fp32, the
+      assimilator, and its result written back into the window's last
+      frame in the serve dtype."""
     dev = resolve_device(device)
     fdt = resolve_dtype(dtype)
     model, graphs = serving_copy(model, graphs, dev, fdt)
@@ -226,8 +245,8 @@ def evaluate_model(
 
     n = len(dataset)
     if max_samples is not None:
-        n = min(n, max_samples)
-    for i in range(n):
+        n = min(n, skip_samples + max_samples)
+    for i in range(skip_samples, n):
         x, y = dataset.get(i)
         p_avail = y.shape[-1] // c
         steps = min(ar_steps, p_avail)
@@ -237,13 +256,33 @@ def evaluate_model(
         persistence = x.reshape(g, obs, c)[:, -1, :]
 
         window = torch.from_numpy(x.reshape(g, obs, c)).to(dev, fdt)
+        forcing = torch.from_numpy(targets).to(dev, fdt)
         with torch.inference_mode():
-            out = rollout_predict(
-                model_fn, window, steps, spec, edge_mask,
-                forcing=torch.from_numpy(targets).to(dev, fdt),
-            )
-            out = out.float().cpu().numpy()               # [G, steps, C]
-        pred_flat = out.reshape(g, steps * c)
+            if assimilator is None or direct_steps > 1:
+                out = rollout_predict(model_fn, window, steps, spec,
+                                      edge_mask, forcing=forcing)
+                out = out.float().cpu().numpy()           # [G, steps, C]
+                if assimilator is not None:
+                    # Direct multi-step: offline per-step assimilation.
+                    for step in range(steps):
+                        out[:, step, :] = assimilator(out[:, step, :], step)
+                pred_flat = out.reshape(g, steps * c)
+            else:
+                outs = []
+                for step in range(steps):
+                    out, _ = _one_step(model_fn, window, edge_mask, 0.0,
+                                       False, spec)
+                    out = carry_forward(out, window[:, -1, :],
+                                        forcing[:, step, :], spec)
+                    out_np = assimilator(out.float().cpu().numpy(), step)
+                    back = torch.from_numpy(
+                        np.asarray(out_np, np.float32)).to(dev, fdt)
+                    window = torch.cat([window[:, 1:, :], back[:, None, :]],
+                                       dim=1)
+                    outs.append(out_np)
+                pred_flat = np.concatenate(outs, axis=1)  # [G, steps·C]
+        if postprocess is not None:
+            pred_flat = postprocess(pred_flat, i)
         gt_flat = targets[:, :steps, :].reshape(g, steps * c)
         base_flat = np.tile(persistence, (1, steps))
 

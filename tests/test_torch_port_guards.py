@@ -22,7 +22,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     """Every module of the package, and chip_smoke (whose main runs only
     under ``__main__``), imports without jax, flax, optax, pydantic,
-    msgpack, sklearn or anything of graphcast_lite_tpu."""
+    msgpack, sklearn, matplotlib, joblib, netCDF4 or anything of
+    graphcast_lite_tpu (the card's machine has none of them)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import graphcast_lite_torch as pkg
@@ -33,7 +34,8 @@ def test_port_imports_no_jax():
         import chip_smoke
         assert callable(chip_smoke.main)
         banned = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack",
-                  "sklearn", "graphcast_lite_tpu")
+                  "sklearn", "matplotlib", "joblib", "netCDF4",
+                  "graphcast_lite_tpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in banned)
         print(len(names), "modules")
@@ -43,7 +45,12 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 57 since the CNN stacks (models.unet, models.grid_adapter,
+    # 73 since data assimilation and the serving entry points
+    # (assimilation.{observations, nudging, optimal_interpolation},
+    # postprocessing.corrections, inference.{maps, regional_pipelines},
+    # operational.{bundle, live}, cli.{evaluate_pipeline, check,
+    # mos_idw_sweep, eval_experiment, plot_compare} and three package
+    # __init__ files); 57 since the CNN stacks (models.unet, models.grid_adapter,
     # training.optim, data.etl, data.legacy_pt, cli.train_unet,
     # cli.train_downscaler, cli.generate_predictions); 49 since the
     # regional stack and the COO training units
@@ -52,7 +59,7 @@ def test_port_imports_no_jax():
     # with the trainer (utils.logs, utils.flax_msgpack, training.checkpoint,
     # cli.make_demo and cli.train), 38 with the train step, 35 with the COO
     # routes.
-    assert int(proc.stdout.split()[0]) >= 57, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 73, proc.stdout
 
 
 @pytest.fixture(scope="module")
@@ -185,3 +192,42 @@ def test_train_regional_needs_a_card_unless_asked_for_cpu(tmp_path,
     for extra in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_regional.main(args + extra)
+
+
+def test_da_and_serving_entry_points_need_a_card_unless_asked_for_cpu(
+        tmp_path, monkeypatch):
+    """OI's solve, ``cli.predict --da oi``, the ladder, ``cli.check``,
+    ``cli.eval_experiment`` and the cascade's U-Net run on the CPU when
+    asked, and raise without a card otherwise."""
+    from graphcast_lite_torch.assimilation.optimal_interpolation import \
+        OptimalInterpolation
+    from graphcast_lite_torch.cli import check, eval_experiment, \
+        evaluate_pipeline, make_demo, predict
+    from graphcast_lite_torch.inference.regional_pipelines import \
+        unet_apply_nhwc
+
+    exp = str(tmp_path / "demo")
+    make_demo.main([exp])
+    lats, lons = np.linspace(-10, 10, 4), np.linspace(0, 10, 5)
+    oi = OptimalInterpolation(lats, lons, 1.0, 0.5, 3e5, device="cpu")
+    assert oi.solve(np.eye(2), np.ones(2)).dtype == np.float32
+    predict.main([exp, "--device", "cpu", "--ar-steps", "1",
+                  "--max-samples", "1", "--da", "oi"])
+    assert check.main(["graph", exp, "--device", "cpu"]) == 0
+    ladder = [exp, "--ar-steps", "1", "--max-samples", "1",
+              "--mos-calibration", "1"]
+    assert set(evaluate_pipeline.main(ladder + ["--device", "cpu"])) >= {
+        "raw", "+nudging", "+oi"}
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda: OptimalInterpolation(lats, lons, 1.0, 0.5, 3e5),
+             lambda: predict.main([exp, "--max-samples", "1", "--da",
+                                   "nudging"]),
+             lambda: evaluate_pipeline.main(ladder),
+             lambda: check.main(["weights", exp]),
+             lambda: check.main(["graph", exp, "--device", "cuda"]),
+             lambda: eval_experiment.main([exp, "--max-samples", "1"]),
+             lambda: unet_apply_nhwc(torch.nn.Identity())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

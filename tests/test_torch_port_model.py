@@ -245,14 +245,13 @@ def test_rollout_predict_ar4_bf16(lazy_edge):
 def test_unported_paths_raise(tmp_path):
     """Every layer family builds and runs now (GAT, SparseGAT, SimpleConv,
     the PReLU InteractionNet, the processor under a runtime mask); what is
-    still to be ported raises and names its ROADMAP item: data
-    assimilation (A11), sharded training (A12).  A grid / U-Net config
+    still to be ported raises and names its ROADMAP item: sharded
+    training (A12).  A grid / U-Net config
     loads as a ``GridExperimentConfig`` (A10's CNN half)."""
     import json
 
     from graphcast_lite_torch.config import GATProps, GraphBlock, \
         GraphLayerType, GridExperimentConfig, load_experiment_config
-    from graphcast_lite_torch.inference.predict import evaluate_model
     from graphcast_lite_torch.models.gnn import InteractionNetProcessor
     from graphcast_lite_torch.models.weather import GraphLayerModule
     from graphcast_lite_torch.training.trainer import Trainer
@@ -280,7 +279,5 @@ def test_unported_paths_raise(tmp_path):
     grid = load_experiment_config(str(path))
     assert isinstance(grid, GridExperimentConfig)
     assert (grid.num_features, grid.base_filters) == (5, 16)
-    with pytest.raises(NotImplementedError, match="A11"):
-        evaluate_model(None, None, None, None, assimilator=lambda o, s: o)
     with pytest.raises(NotImplementedError, match="A12"):
         Trainer(None, None, None, None, str(tmp_path), mesh=object())

@@ -111,12 +111,29 @@ def test_cli_predict_cpu(data_dir, tmp_path, capsys):
     assert "[predict] loaded" in capsys.readouterr().out
 
 
-# Data assimilation is the CLI's one unported option (ROADMAP A11);
+# Named when --da was the CLI's one unported option; both assimilators run
+# now (held against the JAX CLI in tests/test_torch_port_assimilation.py).
 # --rollouts-per-dispatch K is accepted (tests/test_torch_port_cli.py).
 @pytest.mark.parametrize("flag", [["--da", "nudging"], ["--da", "oi"]])
-def test_cli_unported_options_exit(flag, tmp_path, capsys):
+def test_cli_unported_options_exit(flag, data_dir, tmp_path, capsys):
+    """``--da nudging`` and ``--da oi`` on the CPU: a finite report whose
+    first horizon beats the same request without DA (the stations are
+    the truth)."""
     from graphcast_lite_torch.cli.predict import main
 
-    with pytest.raises(SystemExit):
-        main([str(tmp_path), "--device", "cpu"] + flag)
-    assert "not ported yet" in capsys.readouterr().err
+    _, tcfg = small_configs()
+    tcfg.static_channels = list(STATIC)
+    exp = tmp_path / "exp"
+    exp.mkdir()
+    (exp / "config.json").write_text(json.dumps(to_dict(tcfg)))
+    reports = {}
+    for name, extra in (("raw", []), ("da", flag)):
+        path = tmp_path / f"{name}.json"
+        main([str(exp), "--data-dir", data_dir, "--device", "cpu",
+              "--ar-steps", "2", "--max-samples", "2",
+              "--obs-sparsity", "0.3", "--report-json", str(path)] + extra)
+        reports[name] = json.loads(path.read_text())
+    assert "Skill vs persistence" in capsys.readouterr().out
+    da, raw = reports["da"], reports["raw"]
+    assert da["num_samples"] == 2 and np.isfinite(da["rmse"])
+    assert da["per_horizon"][0]["rmse"] < raw["per_horizon"][0]["rmse"]
