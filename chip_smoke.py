@@ -193,13 +193,35 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    experiment and ``run_live_forecast`` AR 4 with a seeded ``fetch_fn``:
    8 segment sums, predictions bitwise a direct fp32 rollout, ms.
 
+10. The offline tooling (no new kernel; 10b's rollouts launch the
+   segment sum).  10a: ``data.remote.stream_build_dataset`` from a seeded
+   in-memory ``ChannelSource`` at 512 x 256 and the flagship's 19
+   channels, 11 frames in two time chunks; then a build cut at its second
+   chunk (a child process that exits there, leaving ``progress.json``)
+   and resumed, whose files equal the whole build's byte for byte; the
+   scalers against float64 moments of the fields, and the port's loader
+   reading the fields' float16 values.  10b: the seeded flagship's
+   weights as a reference ``WeatherPrediction`` checkpoint (torch layout,
+   ``model_state_dict`` in a ``.pth``) through ``utils.torch_convert``
+   into ``best_model.pt`` (bitwise the weights), served by
+   ``cli.predict --checkpoint ... --save-preds ... --device cuda`` in
+   fp32 for 2 AR-4 requests on 10a's set: exactly 8 segment sums a
+   rollout, predictions bitwise the seeded weights' rollouts.  10c:
+   ``cli.compare_wrf.main`` on 10b's predictions, 10a's scalers and
+   coords and a seeded WRF JSON export; its domain means against NumPy.
+   10d: ``graphs.partition`` of the flagship graph set, its graphs on
+   the card, 4 shards by latitude and by tiles as the JAX package's
+   ``build_sharding_plan`` draws them: the scatter / gather round trips,
+   every edge placed once, rows exchanged a step and the host ms.  The
+   learned-MOS fit does not run on the card (no sklearn or joblib there).
+
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
-``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}`` and
-``{"kernels": [...]}`` lines (the kernels' launches counted in the serve,
-the train steps, the fit, the demo's training, the regional head steps
-and phase 9; the segment sum's also by design in the serve and the train
-step) and, last,
+``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}``,
+``{"offline": ...}`` and ``{"kernels": [...]}`` lines (the kernels'
+launches counted in the serve, the train steps, the fit, the demo's
+training, the regional head steps and phases 9 and 10; the segment sum's
+also by design in the serve and the train step) and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
@@ -4173,8 +4195,9 @@ def _host_spans(spans):
     """Host ms, summed by label, of the serve's host steps for the block:
     sample loads (``ChunkedTimeseriesDataset.get``, the serve's and the DA
     hook's), station observations (``make_sparse_observations``), nudging
-    (``NudgingAssimilator.apply``) and the streaming metrics
-    (``StreamingMetrics.update``).  OI's analyses are timed by
+    (``NudgingAssimilator.apply``), the streaming metrics
+    (``StreamingMetrics.update``) and the ``--save-preds`` write
+    (``np.savez_compressed``).  OI's analyses are timed by
     ``_oi_recorder``."""
     from graphcast_lite_torch.assimilation import nudging, observations
     from graphcast_lite_torch.data import dataset
@@ -4183,7 +4206,8 @@ def _host_spans(spans):
     targets = ((dataset.ChunkedTimeseriesDataset, "get", "sample_load"),
                (observations, "make_sparse_observations", "observations"),
                (nudging.NudgingAssimilator, "apply", "nudging"),
-               (metrics.StreamingMetrics, "update", "metrics"))
+               (metrics.StreamingMetrics, "update", "metrics"),
+               (np, "savez_compressed", "npz_write"))
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
              targets]
 
@@ -4353,7 +4377,7 @@ def phase_da_serve(workdir):
     _log(f"  identity assimilator (per-step path) against the "
          f"whole-trajectory rollout, fp32: max|diff| {err:.3e} "
          f"({E2E_TOL})")
-    return out, dict(model=model, graphs=graphs, cfg=cfg, exp=exp,
+    return out, dict(model=model, graphs=graphs, gs=gs, cfg=cfg, exp=exp,
                      data_dir=data_dir, meta=meta, ds=all_ds)
 
 
@@ -4610,6 +4634,552 @@ def phase_operational(workdir, ctx):
             "launches": 8, "bundle": sorted(os.listdir(bundle_dir))}
 
 
+# Phase 10: the offline tooling.  10a: a seeded in-memory ChannelSource at
+# the flagship's grid and 19 channels, OFFLINE_FRAMES frames in two time
+# chunks of OFFLINE_CHUNK; a cut build is a child process that exits with
+# CUT_EXIT at its first read of the second chunk.  10b serves
+# OFFLINE_REQUESTS AR-4 requests of the converted checkpoint.  10d shards
+# the flagship graph set PARTITION_SHARDS ways, with the JAX package's
+# work weight of a mesh node against a grid node when it draws tiles.
+OFFLINE_FRAMES = 11
+OFFLINE_CHUNK = 6
+CUT_EXIT = 75
+OFFLINE_REQUESTS = 2
+PARTITION_SHARDS = 4
+MESH_NODE_WEIGHT = 7.0
+# (offset, scale) of each channel's seeded field in physical units before
+# the builder's float16 range scaling; None marks the land-sea mask.
+OFFLINE_FIELDS = {
+    "t2m": (280.0, 10.0), "10u": (0.0, 5.0), "10v": (0.0, 5.0),
+    "msl": (101325.0, 500.0), "tp": (0.001, 0.001), "sp": (98000.0, 800.0),
+    "tcwv": (20.0, 5.0), "z_surf": (29420.0, 9806.65), "lsm": None,
+    "t@850": (280.0, 10.0), "u@850": (0.0, 8.0), "v@850": (0.0, 8.0),
+    "z@850": (14700.0, 500.0), "q@850": (0.004, 0.002),
+    "t@500": (255.0, 10.0), "u@500": (0.0, 12.0), "v@500": (0.0, 12.0),
+    "z@500": (55000.0, 1000.0), "q@500": (0.001, 0.0005),
+}
+OFFLINE_STATIC = ("z_surf", "lsm")
+# 10c: the WRF comparison's domain means (fp32) against a float64 NumPy
+# mean of the same points, within this share of the larger of the mean
+# and the channel's std (a mean near zero has no relative error to speak
+# of).
+DOMAIN_MEAN_RTOL = 1e-6
+
+
+class _SeededSource:
+    """A ``data.remote.ChannelSource`` over seeded fields of the flagship's
+    512 x 256 grid (lon-major slabs [T, n_lon, n_lat], physical units),
+    the static channels constant in time.  With ``cut_at`` set, the
+    process exits with CUT_EXIT at the first read at or past that frame."""
+
+    def __init__(self, cut_at=None):
+        from graphcast_lite_torch import presets
+        from graphcast_lite_torch.data.remote import CANONICAL_19_VARIABLES
+
+        self.latitude, self.longitude = presets.wb2_512x256_grid()
+        self.channels = list(CANONICAL_19_VARIABLES)
+        self.n_time = OFFLINE_FRAMES
+        self.cut_at = cut_at
+        self.reads = []
+        self._fields = {}
+
+    def field(self, name):
+        if name not in self._fields:
+            rng = np.random.RandomState(1000 + self.channels.index(name))
+            t = 1 if name in OFFLINE_STATIC else self.n_time
+            shape = (t, len(self.longitude), len(self.latitude))
+            if OFFLINE_FIELDS[name] is None:
+                arr = (rng.rand(*shape) > 0.5).astype(np.float32)
+            else:
+                off, scale = OFFLINE_FIELDS[name]
+                arr = (off + scale * rng.randn(*shape)).astype(np.float32)
+            self._fields[name] = np.broadcast_to(
+                arr, (self.n_time,) + shape[1:])
+        return self._fields[name]
+
+    def read(self, name, t0, t1):
+        if self.cut_at is not None and t0 >= self.cut_at:
+            sys.stdout.flush()
+            os._exit(CUT_EXIT)
+        self.reads.append(t0)
+        return np.array(self.field(name)[t0:t1])
+
+
+def _cut_build(out_dir):
+    """The build of 10a cut at its second chunk (run in a child process:
+    ``python3 -c "import chip_smoke; chip_smoke._cut_build(DIR)"``)."""
+    from graphcast_lite_torch.data.remote import stream_build_dataset
+
+    stream_build_dataset(_SeededSource(cut_at=OFFLINE_CHUNK), out_dir,
+                         time_chunk=OFFLINE_CHUNK)
+    raise AssertionError("the cut build ran to its end")
+
+
+def _file_bytes(path):
+    """A file's bytes; an .npz's as its members' (the zip headers carry
+    the time of writing)."""
+    import zipfile
+
+    if path.endswith(".npz"):
+        with zipfile.ZipFile(path) as z:
+            return {name: z.read(name) for name in z.namelist()}
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_dataset_build(workdir):
+    """10a: ``data.remote.stream_build_dataset`` at the flagship's grid and
+    channels, whole and cut then resumed; the port's loader reads it."""
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.remote import SCALE_FACTORS, \
+        resume_state, stream_build_dataset
+
+    _log(f"phase 10a: data.remote.stream_build_dataset, a seeded in-memory "
+         f"ChannelSource at 512 x 256 x 19 channels, {OFFLINE_FRAMES} "
+         f"frames in chunks of {OFFLINE_CHUNK}; then a build cut at its "
+         "second chunk (a child process that exits) and resumed")
+    src = _SeededSource()
+    for name in src.channels:
+        src.field(name)
+    whole = os.path.join(workdir, "built")
+    t0 = time.perf_counter()
+    stream_build_dataset(src, whole, time_chunk=OFFLINE_CHUNK,
+                         time_start="seeded", time_end="seeded")
+    build_ms = (time.perf_counter() - t0) * 1e3
+
+    cut = os.path.join(workdir, "cut")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; chip_smoke._cut_build(sys.argv[1])", cut],
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    cut_ms = (time.perf_counter() - t0) * 1e3
+    state = resume_state(cut)
+    if child.returncode != CUT_EXIT or state != {
+            "last_completed_timestep": OFFLINE_CHUNK,
+            "chunk_size": OFFLINE_CHUNK}:
+        raise AssertionError(f"cut build: exit {child.returncode}, "
+                             f"progress {state}")
+    resumed = _SeededSource()
+    t0 = time.perf_counter()
+    stream_build_dataset(resumed, cut, time_chunk=OFFLINE_CHUNK, resume=True,
+                         time_start="seeded", time_end="seeded")
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    # progress.json [6, 6] rolls back one chunk: the resume re-reads both.
+    reads = sorted(set(resumed.reads))
+    if reads != [0, OFFLINE_CHUNK]:
+        raise AssertionError(f"resume read chunks {reads}")
+    names = sorted(os.listdir(whole))
+    if names != sorted(os.listdir(cut)) or names != [
+            "coords.npz", "data.npy", "dataset_info.json", "scalers.npz",
+            "variables.json"]:
+        raise AssertionError(f"files {names} / {sorted(os.listdir(cut))}")
+    for name in names:
+        if _file_bytes(os.path.join(whole, name)) \
+                != _file_bytes(os.path.join(cut, name)):
+            raise AssertionError(f"resumed {name} differs from the whole "
+                                 "build's")
+
+    # The scalers against float64 moments of the scaled fields; the
+    # loader's first window against the fields rounded to float16.
+    sc = np.load(os.path.join(whole, "scalers.npz"))
+    c = len(src.channels)
+    scaled = [src.field(n) * SCALE_FACTORS[n] if n in SCALE_FACTORS
+              else src.field(n) for n in src.channels]
+    mean = np.array([a.mean(dtype=np.float64) for a in scaled])
+    std = np.array([a.std(dtype=np.float64) for a in scaled])
+    if not (np.allclose(sc["mean"], mean, rtol=1e-6, atol=1e-12)
+            and np.allclose(sc["std"], np.maximum(std, 1e-6), rtol=1e-6)):
+        raise AssertionError(f"scalers {sc['mean']} {sc['std']} against "
+                             f"{mean} {std}")
+    t0 = time.perf_counter()
+    _, _, ds, meta = load_chunked_datasets(
+        whole, obs_window=2, pred_steps=AR_STEPS, n_features=c,
+        test_split="all")
+    x, y = ds.get(0)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    g = 512 * 256
+    if (len(ds), meta.num_latitudes, meta.num_longitudes,
+            meta.variables) != (OFFLINE_FRAMES - 2 - AR_STEPS + 1, 256, 512,
+                                src.channels) \
+            or x.shape != (g, 2 * c) or y.shape != (g, AR_STEPS * c):
+        raise AssertionError(f"loaded {len(ds)} samples, {x.shape}, "
+                             f"{y.shape}, {meta}")
+    expect = np.stack([
+        (a[:2].astype(np.float16).astype(np.float32) - sc["mean"][j])
+        / sc["std"][j] for j, a in enumerate(scaled)], axis=-1)
+    expect = expect.transpose(2, 1, 0, 3).reshape(g, 2 * c)
+    if not np.array_equal(x, expect):
+        raise AssertionError("loaded window differs from the fields: "
+                             f"{np.abs(x - expect).max()}")
+    nbytes = os.path.getsize(os.path.join(whole, "data.npy"))
+    _log(f"  whole build {build_ms:.1f} ms (host clock; {nbytes} bytes of "
+         f"float16), cut child {cut_ms:.1f} ms (exit {child.returncode} "
+         f"after chunk 1), resume {resume_ms:.1f} ms (re-read chunks "
+         f"{reads}); resumed files byte-equal; scalers within "
+         f"1e-6 of float64 moments; loader: {len(ds)} samples, window 0 "
+         f"equal to the fields in float16 ({load_ms:.1f} ms)")
+    return {"build_ms": build_ms, "cut_child_ms": cut_ms,
+            "resume_ms": resume_ms, "load_ms": load_ms,
+            "data_bytes": nbytes, "samples": len(ds)}, whole
+
+
+def _reference_layout(state):
+    """The flagship's port state dict in the reference ``WeatherPrediction``
+    layout (the inverse of ``utils.torch_convert`` for its families: MLP
+    towers, GCN stacks with a shared PReLU, the InteractionNet processor):
+    torch ``Linear`` weights [out, in]."""
+    import re
+
+    sd = {}
+    for name, t in state.items():
+        a = t.detach().cpu()
+        block, rest = name.split(".", 1)
+        m = re.fullmatch(r"mlp\.(lin|prelu)_(\d+)\.(kernel|bias|alpha)", rest)
+        if m:
+            idx = 2 * int(m[2]) + (m[1] == "prelu")
+            sd[f"{block}.mlp.MLP.{idx}."
+               f"{'bias' if m[3] == 'bias' else 'weight'}"] = \
+                a.T if m[3] == "kernel" else a
+            continue
+        m = re.fullmatch(r"mlp\.norm\.(weight|bias)", rest)
+        if m:
+            n = sum(k.startswith(f"{block}.mlp.lin_") and k.endswith("bias")
+                    for k in state)
+            sd[f"{block}.mlp.MLP.{2 * n - 1}.{m[1]}"] = a
+            continue
+        m = re.fullmatch(r"graph_layer\.conv_(\d+)\.(kernel|bias)", rest)
+        if m:
+            p = f"{block}.layers.{2 * int(m[1])}"
+            if m[2] == "kernel":
+                sd[f"{p}.lin.weight"] = a.T
+            else:
+                sd[f"{p}.bias"] = a
+            continue
+        if rest == "graph_layer.act.alpha":
+            n = sum(k.startswith(f"{block}.graph_layer.conv_")
+                    and k.endswith("kernel") for k in state)
+            for i in range(n - 1):
+                sd[f"{block}.layers.{2 * i + 1}.weight"] = a
+            continue
+        m = re.fullmatch(r"graph_layer\.inet\.edge_encoder_lin\.(kernel|bias)",
+                         rest)
+        if m:
+            sd[f"{block}.layers.edge_encoder.0."
+               f"{'weight' if m[1] == 'kernel' else 'bias'}"] = \
+                a.T if m[1] == "kernel" else a
+            continue
+        m = re.fullmatch(r"graph_layer\.inet\.steps\.(\d+)\.(edge_mlp|node_mlp)"
+                         r"\.lin_(\d)\.(kernel|bias)", rest)
+        if m:
+            sd[f"{block}.layers.steps.{m[1]}.{m[2]}.{2 * int(m[3])}."
+               f"{'weight' if m[4] == 'kernel' else 'bias'}"] = \
+                a.T if m[4] == "kernel" else a
+            continue
+        m = re.fullmatch(r"graph_layer\.inet\.steps\.(\d+)\.(edge_norm|"
+                         r"node_norm)\.(weight|bias)", rest)
+        if m:
+            sd[f"{block}.layers.steps.{m[1]}.{m[2]}.{m[3]}"] = a
+            continue
+        raise KeyError(f"no reference name for {name}")
+    return {k: v.contiguous().clone() for k, v in sd.items()}
+
+
+def _seeded_model(data_dir):
+    """(model, graphs, gs): the flagship with seeded weights (seed 0) on
+    the card over ``data_dir``'s grid."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+
+    cfg = presets.interaction_net_512x256()
+    _, _, _, meta = load_chunked_datasets(
+        data_dir, obs_window=cfg.data.obs_window_used, pred_steps=AR_STEPS,
+        n_features=cfg.data.num_features_used, test_split="all")
+    model, graphs, gs = build_weather_model(cfg, meta, device="cuda", seed=0)
+    return model.eval(), graphs, gs
+
+
+def phase_converted_serve(workdir, data_dir, ctx):
+    """10b: a reference-layout ``.pth`` of the seeded flagship through
+    ``utils.torch_convert`` into ``best_model.pt``, served by
+    ``cli.predict`` in fp32; the rollouts bitwise those of the seeded
+    weights."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.cli import predict as predict_cli
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.inference.predict import serving_copy
+    from graphcast_lite_torch.training.rollout import RolloutSpec, \
+        rollout_predict
+    from graphcast_lite_torch.utils.torch_convert import \
+        convert_reference_checkpoint, load_torch_state_dict
+
+    cfg = presets.interaction_net_512x256()
+    model, graphs = ctx["model"], ctx["graphs"]
+    _log(f"phase 10b: the seeded flagship as a reference checkpoint "
+         f"(model_state_dict in a .pth) through utils.torch_convert into "
+         f"best_model.pt, {OFFLINE_REQUESTS} AR-{AR_STEPS} fp32 requests "
+         "through cli.predict on 10a's dataset")
+    state = model.state_dict()
+    ref_sd = _reference_layout(state)
+    pth = os.path.join(workdir, "reference.pth")
+    torch.save({"model_state_dict": ref_sd, "epoch": 7}, pth)
+    t0 = time.perf_counter()
+    converted = convert_reference_checkpoint(load_torch_state_dict(pth), cfg)
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    if list(converted) != list(state) or not all(
+            torch.equal(converted[k], state[k].cpu()) for k in state):
+        raise AssertionError("the converted state dict differs from the "
+                             "seeded weights")
+    exp = _user_experiment(workdir, "converted_exp", cfg, data_dir)
+    ckpt = os.path.join(exp, "best_model.pt")
+    torch.save(converted, ckpt)
+
+    served = os.path.join(workdir, "served.npz")
+    calls, spans = [], {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _timed_evaluate(calls), _host_spans(spans):
+        predict_cli.main([exp, "--checkpoint", ckpt, "--save-preds", served,
+                          "--device", "cuda", "--dtype", "fp32", "--split",
+                          "all", "--ar-steps", str(AR_STEPS),
+                          "--max-samples", str(OFFLINE_REQUESTS)])
+    torch.cuda.synchronize()
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    counts = _launches()
+    expected = {"segment_sum": 8 * OFFLINE_REQUESTS, "edge_mlp": 0,
+                "edge_step": 0}
+    if counts != expected:
+        raise AssertionError(f"cli.predict launches {counts} (expected "
+                             f"{expected})")
+    (evaluate_ms, _), = calls
+
+    # The seeded weights' rollouts of the same samples, as evaluate_model
+    # runs them (serving copy, whole-trajectory rollout with the targets
+    # as forcing).
+    _, _, ds, _ = load_chunked_datasets(
+        data_dir, obs_window=cfg.data.obs_window_used, pred_steps=AR_STEPS,
+        n_features=cfg.data.num_features_used, test_split="all")
+    smodel, sgraphs = serving_copy(model, graphs, torch.device("cuda"),
+                                   torch.float32)
+    spec = RolloutSpec(obs_window=cfg.data.obs_window_used,
+                       num_features=cfg.data.num_features_used,
+                       use_residual=cfg.use_residual, remat=False,
+                       static_channels=tuple(cfg.static_channels),
+                       forcing_channels=tuple(cfg.forcing_channels))
+    g, c = 512 * 256, cfg.data.num_features_used
+    expect = []
+    for i in range(OFFLINE_REQUESTS):
+        x, y = ds.get(i)
+        window = torch.from_numpy(x.reshape(g, -1, c)).cuda()
+        forcing = torch.from_numpy(y.reshape(g, -1, c)).cuda()
+        with torch.inference_mode():
+            out = rollout_predict(
+                lambda inp, m, t, p_: smodel(inp, sgraphs, m), window,
+                AR_STEPS, spec, None, forcing=forcing)
+        expect.append(out.float().cpu().numpy().reshape(g, AR_STEPS * c))
+    p = np.load(served)["predictions"]
+    if p.shape != (OFFLINE_REQUESTS, g, AR_STEPS * c) \
+            or not np.isfinite(p).all():
+        raise AssertionError(f"served predictions {p.shape}")
+    if not np.array_equal(p, np.stack(expect)):
+        raise AssertionError("the converted checkpoint's rollout differs "
+                             "from the seeded weights': max|d| "
+                             f"{np.abs(p - np.stack(expect)).max()}")
+    setup_ms = cli_ms - evaluate_ms
+    _log(f"  {len(ref_sd)} reference tensors -> {len(converted)} port "
+         f"tensors in {convert_ms:.1f} ms, bitwise the seeded weights; "
+         f"cli.predict {cli_ms:.1f} ms for {OFFLINE_REQUESTS} requests "
+         f"(host clock): set-up (dataset, graphs, model, checkpoint) "
+         f"{setup_ms:.1f}, evaluate_model {evaluate_ms:.1f}, of which "
+         + ", ".join(f"{k} {v:.1f}" for k, v in spans.items())
+         + f"; {counts['segment_sum']} segment sums; predictions bitwise "
+         "the seeded weights' fp32 rollouts")
+    return {"convert_ms": convert_ms, "cli_predict_ms": cli_ms,
+            "cli_setup_ms": setup_ms, "cli_evaluate_ms": evaluate_ms,
+            "cli_host_ms_by_span": spans,
+            "reference_tensors": len(ref_sd),
+            "launches_per_rollout": counts["segment_sum"]
+            // OFFLINE_REQUESTS}, served
+
+
+def phase_compare_wrf(workdir, served, data_dir):
+    """10c: ``cli.compare_wrf.main`` on 10b's predictions with a seeded
+    WRF JSON export; its domain means against NumPy."""
+    from graphcast_lite_torch.cli import compare_wrf
+
+    _log("phase 10c: cli.compare_wrf on 10b's predictions, 10a's scalers "
+         "and coords, a seeded WRF JSON export (sample 0)")
+    bundle = np.load(served)
+    pred, truth = bundle["predictions"], bundle["ground_truth"]
+    c = int(bundle["n_features"])
+    sc = np.load(os.path.join(data_dir, "scalers.npz"))
+    co = np.load(os.path.join(data_dir, "coords.npz"))
+    lon2d, lat2d = np.meshgrid(co["longitude"], co["latitude"])
+    lat, lon = lat2d.ravel(), lon2d.ravel()
+    b = (compare_wrf.WRF_LAT_MIN, compare_wrf.WRF_LAT_MAX,
+         compare_wrf.WRF_LON_MIN, compare_wrf.WRF_LON_MAX)
+    inside = np.flatnonzero((lat >= b[0]) & (lat <= b[1]) & (lon >= b[2])
+                            & (lon <= b[3]))
+    with open(os.path.join(data_dir, "variables.json")) as f:
+        names = json.load(f)
+    n, g = pred.shape[:2]
+
+    def means(a, s, h, vi):
+        vals = a[s].reshape(g, AR_STEPS, c)[inside, h, vi] \
+            * sc["std"][vi] + sc["mean"][vi]
+        return float(vals.astype(np.float64).mean())
+
+    rng = np.random.RandomState(7)
+    hourly = {"t2_K": 280.0, "u10_ms": 0.0, "v10_ms": 0.0,
+              "psfc_Pa": 98000.0}
+    wrf = {"domain": "seeded", "domain_mean": {
+        k: [float(v + (300.0 if k == "psfc_Pa" else 2.0) * rng.randn())
+            for _ in range(25)] for k, v in hourly.items()}}
+    wrf_path = os.path.join(workdir, "wrf.json")
+    with open(wrf_path, "w") as f:
+        json.dump(wrf, f)
+    report = os.path.join(workdir, "wrf_report.json")
+    t0 = time.perf_counter()
+    compare_wrf.main(["--predictions", served, "--data-dir", data_dir,
+                      "--wrf-path", wrf_path, "--wrf-sample", "0",
+                      "--report-json", report])
+    wrf_ms = (time.perf_counter() - t0) * 1e3
+    with open(report) as f:
+        result = json.load(f)
+    if set(result["wrf"]) != {"t2m", "10u", "10v", "sp"} or inside.size == 0:
+        raise AssertionError(f"compared {sorted(result['wrf'])}, "
+                             f"{inside.size} points inside")
+    worst = 0.0
+    for var, table in result["wrf"].items():
+        vi = names.index(var)
+        for h, row in enumerate(table["rows"]):
+            for key, arr in (("ours", pred), ("era5", truth)):
+                ref = means(arr, 0, h, vi)
+                err = abs(row[key] - ref) / max(abs(ref), sc["std"][vi])
+                worst = max(worst, err)
+                if err > DOMAIN_MEAN_RTOL:
+                    raise AssertionError(f"{var} +{row['horizon_h']}h "
+                                         f"{key}: {row[key]} against {ref}")
+        if len(table["rows"]) != AR_STEPS:
+            raise AssertionError(f"{var}: {len(table['rows'])} rows")
+    _log(f"  {inside.size} grid points inside the WRF domain; domain means "
+         f"within {worst:.2e} of NumPy's (in units of max(|mean|, std); "
+         f"limit {DOMAIN_MEAN_RTOL:g}); compare_wrf {wrf_ms:.1f} ms (host clock)")
+    return {"points_inside": int(inside.size), "compare_wrf_ms": wrf_ms,
+            "domain_mean_worst_rel": worst, "samples": n}
+
+
+def _partition_plan(gs, num_shards, mode):
+    """(grid partition, mesh partition, {graph: (ShardedGraph, halos)}): the
+    graph set sharded as the JAX package's ``build_sharding_plan(gs,
+    num_shards, partition=mode)`` shards it."""
+    from graphcast_lite_torch.graphs import partition as part
+
+    if mode == "tiles":
+        shape = part.TileShape.factor(num_shards)
+        lat_e, lon_e = part.tile_boundaries(
+            np.concatenate([gs.grid_lat, gs.mesh_lat]),
+            np.concatenate([gs.grid_lon, gs.mesh_lon]),
+            np.concatenate([np.ones(gs.num_grid_nodes, np.float64),
+                            np.full(gs.num_mesh_nodes, MESH_NODE_WEIGHT,
+                                    np.float64)]),
+            shape)
+        grid, mesh = (part.build_node_partition(part.partition_nodes_by_tiles(
+            lats, lons, lat_e, lon_e, shape), num_shards)
+            for lats, lons in ((gs.grid_lat, gs.grid_lon),
+                               (gs.mesh_lat, gs.mesh_lon)))
+
+        def halos(sg):
+            return part.build_tiled_halos(sg, shape)
+    else:
+        grid, mesh = (part.build_node_partition(
+            part.partition_nodes_by_latitude(lats, num_shards), num_shards)
+            for lats in (gs.grid_lat, gs.mesh_lat))
+        halos = part.build_banded_halos
+    n = gs.num_grid_nodes
+    sharded = {
+        "enc": part.shard_graph_bipartite(gs.encoding, grid, mesh, 0, n),
+        "proc": part.shard_graph_bipartite(gs.processing, mesh, mesh),
+        "dec": part.shard_graph_bipartite(gs.decoding, mesh, grid, n, 0),
+    }
+    return grid, mesh, {k: (sg, halos(sg)) for k, sg in sharded.items()}
+
+
+def phase_partition(ctx):
+    """10d: the flagship graph set, its graphs on the card, sharded
+    PARTITION_SHARDS ways by latitude and by tiles (host planning for the
+    sharded model)."""
+    import dataclasses
+
+    from graphcast_lite_torch.graphs import partition as part
+
+    graphs, gs = ctx["graphs"], ctx["gs"]
+    _log(f"phase 10d: graphs.partition of the flagship graph set (its "
+         f"graphs on the card, read through .cpu()), {PARTITION_SHARDS} "
+         "shards by latitude (banded halos) and by tiles (tiled halos)")
+    if graphs.encoding.senders.device.type != "cuda":
+        raise AssertionError("the graphs are not on the card")
+    card = dataclasses.replace(gs, encoding=graphs.encoding,
+                               processing=graphs.processing,
+                               decoding=graphs.decoding)
+    rng = np.random.RandomState(11)
+    out = {}
+    for mode in ("lat", "tiles"):
+        t0 = time.perf_counter()
+        grid, mesh, plan = _partition_plan(card, PARTITION_SHARDS, mode)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        for p, n in ((grid, gs.num_grid_nodes), (mesh, gs.num_mesh_nodes)):
+            x = rng.randn(n, 3).astype(np.float32)
+            if p.node_mask.sum() != n or not np.array_equal(
+                    p.gather(p.scatter(x)), x):
+                raise AssertionError(f"{mode}: node partition round trip")
+        rows = {}
+        for name, (sg, halos) in plan.items():
+            graph = getattr(gs, {"enc": "encoding", "proc": "processing",
+                                 "dec": "decoding"}[name])
+            x = rng.randn(sg.num_nodes, 4).astype(np.float32)
+            if sg.edge_mask.sum() != graph.num_edges or not np.array_equal(
+                    part.gather_nodes(sg, part.scatter_nodes(sg, x)), x):
+                raise AssertionError(f"{mode} {name}: {sg.edge_mask.sum()} "
+                                     f"live edges of {graph.num_edges}, or "
+                                     "the scatter/gather round trip failed")
+            rows[name] = dict(halos.rows_exchanged_per_step(sg),
+                              edges_per_shard=int(sg.edge_mask.shape[1]),
+                              nodes_per_shard=sg.nodes_per_shard,
+                              slab=halos.slab_size, hub=halos.hub_size)
+        out[mode] = {"plan_ms": plan_ms, "graphs": rows}
+        _log(f"  {mode}: plan {plan_ms:.1f} ms (host clock); rows "
+             "exchanged a step (all_gather baseline / halo plan): "
+             + ", ".join(f"{k} {r['all_gather_baseline']} / {r['banded']}"
+                         for k, r in rows.items()))
+    return out
+
+
+def phase_offline(workdir, smi, ctx=None):
+    """Phase 10: the offline tooling on the port, on the card ``smi``
+    names.  ``ctx`` (model, graphs and gs of the seeded flagship on the
+    card, as phase 9a leaves them) saves a build; without it the flagship
+    is built over 10a's grid."""
+    t0 = time.perf_counter()
+    build, data_dir = phase_dataset_build(workdir)
+    if ctx is None:
+        model, graphs, gs = _seeded_model(data_dir)
+        ctx = dict(model=model, graphs=graphs, gs=gs)
+    serve, served = phase_converted_serve(workdir, data_dir, ctx)
+    wrf = phase_compare_wrf(workdir, served, data_dir)
+    partition = phase_partition(ctx)
+    _log("phase 10: the learned-MOS fit and cli.build_learned_mos are not "
+         "run on the card: they are host-side scikit-learn and joblib, "
+         "which the card's environment does not carry "
+         "(tests/test_torch_port_mos_wrf.py holds them against the JAX "
+         "package on the CPU)")
+    wall_s = time.perf_counter() - t0
+    _log(f"  phase 10 wall {wall_s:.1f} s on {smi}")
+    return {"card": smi, "dataset_build": build, "converted_serve": serve,
+            "compare_wrf": wrf, "partition": partition, "wall_s": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4674,6 +5244,8 @@ def main() -> int:
                         "ladder": phase_ladder(workdir),
                         "cascade": phase_regional_cascade(da_ctx),
                         "operational": phase_operational(workdir, da_ctx)}
+    with tempfile.TemporaryDirectory() as workdir:
+        offline = phase_offline(workdir, smi, da_ctx)
     ladder = assimilation["ladder"]
     fused_steps = {name: row["launches_per_step"]
                    for name, row in fused["bf16"].items()}
@@ -4733,7 +5305,9 @@ def main() -> int:
                    "ladder_per_rollout": ladder["launches_per_rollout"],
                    "ladder_rollouts": ladder["rollouts"],
                    "live_forecast": assimilation["operational"][
-                       "launches"]})
+                       "launches"]},
+               launches_per_rollout_phase10=offline["converted_serve"][
+                   "launches_per_rollout"])
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -4771,6 +5345,7 @@ def main() -> int:
     _log(json.dumps({"regional": regional}))
     _log(json.dumps({"cnn": cnn}))
     _log(json.dumps({"assimilation": assimilation}))
+    _log(json.dumps({"offline": offline}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

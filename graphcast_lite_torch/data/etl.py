@@ -22,7 +22,7 @@ Covers the reference's offline builder scripts that operate on LOCAL data
                               paired with fine truth)
 
 Network-dependent acquisition (WB2/ARCO zarr, CDS API, ERA5 download) is
-the JAX package's ``data.remote`` and is not part of this package yet.
+``data.remote`` (``python -m graphcast_lite_torch.data.remote``).
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     """Every module of the package, and chip_smoke (whose main runs only
     under ``__main__``), imports without jax, flax, optax, pydantic,
-    msgpack, sklearn, matplotlib, joblib, netCDF4 or anything of
-    graphcast_lite_tpu (the card's machine has none of them)."""
+    msgpack, sklearn, matplotlib, joblib, netCDF4, xarray, gcsfs, cdsapi,
+    threadpoolctl or anything of graphcast_lite_tpu (the card's machine
+    has none of them)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import graphcast_lite_torch as pkg
@@ -34,8 +35,8 @@ def test_port_imports_no_jax():
         import chip_smoke
         assert callable(chip_smoke.main)
         banned = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack",
-                  "sklearn", "matplotlib", "joblib", "netCDF4",
-                  "graphcast_lite_tpu")
+                  "sklearn", "matplotlib", "joblib", "netCDF4", "xarray",
+                  "gcsfs", "cdsapi", "threadpoolctl", "graphcast_lite_tpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in banned)
         print(len(names), "modules")
@@ -45,7 +46,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 73 since data assimilation and the serving entry points
+    # 80 since the offline tooling (constants, utils.torch_convert,
+    # postprocessing.mos_training, cli.{build_learned_mos, compare_wrf},
+    # data.remote, graphs.partition); 73 since data assimilation and the
+    # serving entry points
     # (assimilation.{observations, nudging, optimal_interpolation},
     # postprocessing.corrections, inference.{maps, regional_pipelines},
     # operational.{bundle, live}, cli.{evaluate_pipeline, check,
@@ -59,7 +63,42 @@ def test_port_imports_no_jax():
     # with the trainer (utils.logs, utils.flax_msgpack, training.checkpoint,
     # cli.make_demo and cli.train), 38 with the train step, 35 with the COO
     # routes.
-    assert int(proc.stdout.split()[0]) >= 73, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 80, proc.stdout
+
+
+OFFLINE_MODULES = ("constants", "utils.torch_convert",
+                   "postprocessing.mos_training", "cli.build_learned_mos",
+                   "cli.compare_wrf", "data.remote", "graphs.partition")
+
+
+@pytest.mark.parametrize("name", OFFLINE_MODULES)
+def test_offline_module_imports_stay_lazy(name):
+    """The offline tooling names no JAX, no module of the JAX package and
+    none of its optional dependencies at module level: sklearn and joblib
+    (learned MOS), netCDF4 (the WRF reader), xarray, gcsfs and cdsapi
+    (the dataset openers) are imported inside the functions that use
+    them, and threadpoolctl nowhere."""
+    import ast
+
+    path = os.path.join(REPO, "graphcast_lite_torch",
+                        *name.split(".")) + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    banned = {"jax", "jaxlib", "flax", "optax", "graphcast_lite_tpu"}
+    optional = {"sklearn", "joblib", "netCDF4", "xarray", "gcsfs", "cdsapi",
+                "threadpoolctl"}
+    top, inner = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = {node.module.split(".")[0]}
+        else:
+            continue
+        (top if node in tree.body else inner).update(mods)
+    assert not (top | inner) & banned, name
+    assert not top & optional, (name, top & optional)
+    assert "threadpoolctl" not in inner, name
 
 
 @pytest.fixture(scope="module")
