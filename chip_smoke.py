@@ -210,18 +210,51 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    ``cli.compare_wrf.main`` on 10b's predictions, 10a's scalers and
    coords and a seeded WRF JSON export; its domain means against NumPy.
    10d: ``graphs.partition`` of the flagship graph set, its graphs on
-   the card, 4 shards by latitude and by tiles as the JAX package's
-   ``build_sharding_plan`` draws them: the scatter / gather round trips,
+   the card, 4 shards by latitude and by tiles through
+   ``parallel.sharded_model.build_sharding_plan``: the scatter / gather round trips,
    every edge placed once, rows exchanged a step and the host ms.  The
    learned-MOS fit does not run on the card (no sklearn or joblib there).
+
+11. Multi-device training (``parallel/``; no new kernel: the sharded
+   step launches the segment sum on shard-local CSRs, and ``edge_mlp``
+   under ``GCLT_MEGA_EDGE=1``).  11a: one rank over NCCL, the seeded
+   flagship at full width through ``make_sharded_train_step`` (AR 4,
+   Adam): in fp32 (TF32 off) against the one-device ``make_train_step``
+   on the plain step's route (``GCLT_LAZY_EDGE=0``: the same LayerNorm
+   variance formula), the loss within ``TRAIN_LOSS_RTOL`` and every
+   gradient within ``TRAIN_GRAD_RTOL`` x its largest; 3 bf16 steps
+   against fp32 masters (the first loss within 2^-5 of the fp32 one, the
+   loss falls), exact segment-sum launches every step by CSR and shape
+   (``_sharded_launches``), step ms (CUDA events) against the one-device
+   default route's, peak memory beside ``estimate_sharded_hbm``; one step
+   under ``GCLT_MEGA_EDGE=1`` (its ``edge_mlp`` launches); one bf16
+   forward by stage, and from it a mesh node's work against a grid-space
+   row's (the plans' ``MESH_NODE_WEIGHT``).  11c:
+   ``Trainer(mesh=, graph_set=).fit`` on that rank, one epoch of 2 bf16
+   steps on phase 6a's seeded set: the files it writes, its ``evaluate``
+   (loss, ACC, RMSE) against the one-device ``evaluate`` on the same
+   weights (1e-5), rank 0's checkpoint loading back bitwise.  11b: 4
+   spawned ranks sharing the card over gloo with explicit host staging
+   (NCCL allows one rank a device), fp32, 2 steps each on the tiles and
+   the latitude plans: every rank's loss and rank 0's gradients against
+   11a's fp32 step, the ranks' parameters bitwise equal after each step,
+   the rows received an exchange against the plan's
+   ``rows_exchanged_per_step``, each rank's exact segment-sum launches,
+   the staged bytes and seconds; then the segment sum (on rank 0's
+   processor receiver CSR and the processor's and the encoder's extended
+   sender-table CSRs) and ``edge_mlp`` (at the shard's processor shape)
+   against their plain versions in fp32 and bf16, two launches bitwise
+   equal, timed as in phase 7a.  Four ranks on one card measure
+   correctness and halo volume, not scaling.
 
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
 ``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}``,
-``{"offline": ...}`` and ``{"kernels": [...]}`` lines (the kernels'
-launches counted in the serve, the train steps, the fit, the demo's
-training, the regional head steps and phases 9 and 10; the segment sum's
-also by design in the serve and the train step) and, last,
+``{"offline": ...}``, ``{"sharded": ...}`` and ``{"kernels": [...]}``
+lines (the kernels' launches counted in the serve, the train steps, the
+fit, the demo's training, the regional head steps and phases 9, 10 and
+11; the segment sum's also by design in the serve and the train step)
+and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
 card.
@@ -4646,7 +4679,6 @@ OFFLINE_CHUNK = 6
 CUT_EXIT = 75
 OFFLINE_REQUESTS = 2
 PARTITION_SHARDS = 4
-MESH_NODE_WEIGHT = 7.0
 # (offset, scale) of each channel's seeded field in physical units before
 # the builder's float16 range scaling; None marks the land-sea mask.
 OFFLINE_FIELDS = {
@@ -5072,38 +5104,17 @@ def phase_compare_wrf(workdir, served, data_dir):
 
 def _partition_plan(gs, num_shards, mode):
     """(grid partition, mesh partition, {graph: (ShardedGraph, halos)}): the
-    graph set sharded as the JAX package's ``build_sharding_plan(gs,
-    num_shards, partition=mode)`` shards it."""
-    from graphcast_lite_torch.graphs import partition as part
+    graph set sharded by ``parallel.sharded_model.build_sharding_plan(gs,
+    num_shards, halo_mode="banded", partition=mode)`` (the halo plan of
+    every graph, whichever moves fewer rows)."""
+    from graphcast_lite_torch.parallel.sharded_model import \
+        build_sharding_plan
 
-    if mode == "tiles":
-        shape = part.TileShape.factor(num_shards)
-        lat_e, lon_e = part.tile_boundaries(
-            np.concatenate([gs.grid_lat, gs.mesh_lat]),
-            np.concatenate([gs.grid_lon, gs.mesh_lon]),
-            np.concatenate([np.ones(gs.num_grid_nodes, np.float64),
-                            np.full(gs.num_mesh_nodes, MESH_NODE_WEIGHT,
-                                    np.float64)]),
-            shape)
-        grid, mesh = (part.build_node_partition(part.partition_nodes_by_tiles(
-            lats, lons, lat_e, lon_e, shape), num_shards)
-            for lats, lons in ((gs.grid_lat, gs.grid_lon),
-                               (gs.mesh_lat, gs.mesh_lon)))
-
-        def halos(sg):
-            return part.build_tiled_halos(sg, shape)
-    else:
-        grid, mesh = (part.build_node_partition(
-            part.partition_nodes_by_latitude(lats, num_shards), num_shards)
-            for lats in (gs.grid_lat, gs.mesh_lat))
-        halos = part.build_banded_halos
-    n = gs.num_grid_nodes
-    sharded = {
-        "enc": part.shard_graph_bipartite(gs.encoding, grid, mesh, 0, n),
-        "proc": part.shard_graph_bipartite(gs.processing, mesh, mesh),
-        "dec": part.shard_graph_bipartite(gs.decoding, mesh, grid, n, 0),
-    }
-    return grid, mesh, {k: (sg, halos(sg)) for k, sg in sharded.items()}
+    plan = build_sharding_plan(gs, num_shards, halo_mode="banded",
+                               partition=mode)
+    return plan.grid_part, plan.mesh_part, {
+        k: (getattr(plan, k), getattr(plan, f"{k}_halos"))
+        for k in ("enc", "proc", "dec")}
 
 
 def phase_partition(ctx):
@@ -5180,6 +5191,712 @@ def phase_offline(workdir, smi, ctx=None):
             "compare_wrf": wrf, "partition": partition, "wall_s": wall_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: multi-device training (parallel/)
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 3          # 11a: timed bf16 steps (the first a warm-up)
+SHARDED_RANKS = 4          # 11b: ranks on the one card
+SHARDED_RANK_STEPS = 2
+SHARDED_FIT_STEPS = 2      # 11c
+SHARDED_TIMEOUT_S = 600
+# 11a: the bf16 sharded step's loss against its fp32 twin, relative.
+SHARDED_BF16_RTOL = 2.0 ** -5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _seeded_flagship(cfg, gs):
+    """The flagship with phase 7b's seeded weights, on the card."""
+    from graphcast_lite_torch.models.weather import WeatherModel
+
+    return WeatherModel(cfg.pipeline, cfg.data, gs.num_grid_nodes,
+                        gs.num_mesh_nodes,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+
+
+def _sharded_spec(cfg):
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+
+    return RolloutSpec(obs_window=cfg.data.obs_window_used,
+                       num_features=cfg.data.num_features_used,
+                       use_residual=cfg.use_residual,
+                       remat=cfg.tpu.remat_rollout,
+                       static_channels=tuple(cfg.static_channels),
+                       forcing_channels=tuple(cfg.forcing_channels))
+
+
+def _conv_widths(block):
+    return list(block.gcn.hidden_dims or []) + [int(block.gcn.output_dim)]
+
+
+def _sharded_launches(arrs, cfg, ar_steps, mega=False) -> dict:
+    """The segment-sum launches one sharded AR-``ar_steps`` train step
+    (BPTT, a checkpoint per AR step) makes on a rank, by CSR and shape
+    (``cuda_segment.launches_by_csr``): label -> [key, count].  Per AR
+    step: each GCN layer of the encoder and the decoder aggregates over
+    the shard's receiver CSR in the forward and in the recompute and takes
+    its gather adjoint over the extended sender table's CSR once; each
+    processor step's fused edge unit aggregates over the receiver CSR in
+    the forward and the recompute (its forward tail is ``edge_mlp`` under
+    ``GCLT_MEGA_EDGE=1``) and scatters ``d_xr`` and ``d_xs`` over the
+    receiver CSR and the extended sender CSR in the backward.  Under a
+    halo plan each exchange's backward also scatters the cotangents of the
+    rows it sent (each boundary slab and the hub) over their CSRs."""
+    out = {}
+
+    def add(label, ip, r, e, f, n):
+        entry = out.setdefault(f"{label} F={f}", [(ip.data_ptr(), r, e, f),
+                                                  0])
+        entry[1] += ar_steps * n
+
+    mp = cfg.pipeline.processor.gcn.num_message_passing_steps
+    hid = int(cfg.pipeline.processor.gcn.output_dim)
+    for label, ga, widths, recv_n in (
+            ("encoder", arrs.enc, _conv_widths(cfg.pipeline.encoder), 2),
+            ("decoder", arrs.dec, _conv_widths(cfg.pipeline.decoder), 2),
+            ("processor", arrs.proc, [hid] * mp, 1 if mega else 3)):
+        g = ga.graph
+        takes = [t for t, _ in ga.slabs] + (
+            [ga.hub] if ga.hub is not None else [])
+        for f in widths:
+            add(f"{label} receivers", g.indptr, g.num_receivers,
+                g.padded_num_edges, f, recv_n)
+            add(f"{label} senders (extended table)", g.s_indptr,
+                g.num_nodes, g.padded_num_edges, f, 1)
+            for i, (idx, _, ip) in enumerate(takes):
+                add(f"{label} halo rows {i}", ip, ip.numel() - 1,
+                    idx.numel(), f, 1)
+    return out
+
+
+class _StageTimer:
+    """CUDA events around the sharded forward's encoder (its MLP towers and
+    graph stack), processor and decoder (its towers and stack):
+    ``parallel.sharded_model``'s module functions wrapped for the block.
+    A tower belongs to the encoder until the processor has run."""
+
+    def __init__(self):
+        self.ms = {"encoder": 0.0, "processor": 0.0, "decoder": 0.0}
+        self._events = []
+        self._processed = False
+
+    def _wrap(self, fn, stage_of):
+        def wrapped(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            stage = stage_of(args)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self._events.append((stage, start, end))
+            if stage == "processor":
+                self._processed = True
+            return out
+        return wrapped
+
+    @contextlib.contextmanager
+    def timing(self):
+        from graphcast_lite_torch.parallel import sharded_model as sm
+
+        saved = (sm._mlp_tower, sm._gcn_stack, sm._interaction_processor)
+
+        def graph_stage(args):
+            return {"enc": "encoder", "dec": "decoder",
+                    "proc": "processor"}[args[4].name]
+
+        sm._mlp_tower = self._wrap(sm._mlp_tower, lambda a: (
+            "decoder" if self._processed else "encoder"))
+        sm._gcn_stack = self._wrap(sm._gcn_stack, graph_stage)
+        sm._interaction_processor = self._wrap(sm._interaction_processor,
+                                               lambda a: "processor")
+        try:
+            yield self
+        finally:
+            sm._mlp_tower, sm._gcn_stack, sm._interaction_processor = saved
+            torch.cuda.synchronize()
+            for stage, a, b in self._events:
+                self.ms[stage] += a.elapsed_time(b)
+            self._events.clear()
+
+
+def phase_sharded_one_rank(ctx, smi):
+    """11a: the sharded train step on one rank over NCCL at the flagship's
+    full width.  Leaves the process group up for 11c; returns (results,
+    mesh, the fp32 run 11b is held to)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.parallel import sharded_model as sm
+    from graphcast_lite_torch.parallel.sharding import make_mesh
+    from graphcast_lite_torch.training.loss import channel_mask, \
+        lat_weights_from_axis
+
+    gs, meta = ctx["gs"], ctx["meta"]
+    cfg = presets.interaction_net_512x256()
+    n_feat = cfg.data.num_features_used
+    mp = cfg.pipeline.processor.gcn.num_message_passing_steps
+    _log(f"phase 11a: the sharded train step (parallel.sharded_model) on one "
+         f"rank over NCCL, flagship 512x256 AR-{AR_STEPS}, Adam at lr "
+         f"{cfg.learning_rate}: fp32 (TF32 off) against the one-device "
+         "make_train_step on the plain step's route (GCLT_LAZY_EDGE=0, the "
+         "same E[(v - mu)^2] LayerNorm variance), then "
+         f"{SHARDED_STEPS} bf16 steps against fp32 masters; {smi}")
+    torch.cuda.set_device(0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    mesh = make_mesh()
+    t0 = time.perf_counter()
+    plan = sm.build_sharding_plan(gs, 1)
+    lw = lat_weights_from_axis(meta.num_latitudes, meta.num_longitudes)
+    cm = channel_mask(n_feat, cfg.static_channels, cfg.forcing_channels)
+    arrs = sm.plan_device_arrays(plan, gs, mesh, lat_weights=lw,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    fwd = sm.ShardedWeatherForward(cfg.pipeline, cfg.data, 1)
+    spec = _sharded_spec(cfg)
+    x, y = ctx["request"]
+    x_sh, y_sh = plan.scatter_grid(x[None]), plan.scatter_grid(y[None])
+    base = _seeded_flagship(cfg, gs)
+    _log(f"  plan + this rank's arrays: {plan_ms:.1f} ms (host clock); "
+         + ", ".join(f"{k}: {st['chosen']}" for k, st in
+                     plan.comm_stats.items())
+         + f"; processor shard E_pad={arrs.proc.graph.padded_num_edges}, "
+         f"sender table {arrs.proc.num_sender_rows} rows")
+
+    def sharded(model, dtype):
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+        return sm.make_sharded_train_step(fwd, spec, mesh, model, opt,
+                                          AR_STEPS, chan_mask=cm,
+                                          compute_dtype=dtype)
+
+    def counted(run, parts, n_mlp=0):
+        _reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        by_csr = {label: n for label, (_, n) in parts.items()}
+        expected = {"segment_sum": sum(by_csr.values()), "edge_mlp": n_mlp,
+                    "edge_step": 0, "by_csr": by_csr}
+        counts = dict(_launches(), by_csr=_csr_launches(parts))
+        if counts != expected:
+            raise AssertionError(f"sharded step launches {counts}, "
+                                 f"expected {expected}")
+        return out, counts
+
+    # fp32 (TF32 off): the sharded step against the one-device step.
+    parts = _sharded_launches(arrs, cfg, AR_STEPS)
+    m32 = copy.deepcopy(base)
+    (loss32, _), counts32 = counted(
+        lambda: sharded(m32, torch.float32)(x_sh, y_sh, arrs), parts)
+    loss32 = loss32.item()
+    grads32 = _grads(m32)
+    del m32
+    with _route({"GCLT_LAZY_EDGE": "0"}):
+        ref_model, ref_step = _flagship_step(ctx, base, "float32")
+        loss_ref = ref_step(*(torch.from_numpy(a[None]).cuda()
+                              for a in (x, y))).item()
+        routes = sorted({s.route for s in
+                         ref_model.processor.graph_layer.inet.steps})
+        grads_ref = _grads(ref_model)
+        del ref_model, ref_step
+    torch.cuda.empty_cache()
+    if not (np.isfinite(loss32)
+            and abs(loss32 - loss_ref) <= TRAIN_LOSS_RTOL * abs(loss_ref)):
+        raise AssertionError(f"11a fp32: sharded loss {loss32} against the "
+                             f"one-device {loss_ref}")
+    worst = _grads_within("11a fp32 sharded", grads32, grads_ref)
+    _log(f"  fp32: sharded loss {loss32:.7f}, one-device ({routes}) "
+         f"{loss_ref:.7f}; {len(grads32)} gradients, largest error "
+         f"{worst[0]:.2e} of its tolerance ({worst[1]}); "
+         f"{counts32['segment_sum']} segment sums a step")
+
+    # bf16: SHARDED_STEPS steps, exact launches each, CUDA events.
+    m16 = copy.deepcopy(base)
+    step16 = sharded(m16, torch.bfloat16)
+    losses, ms = [], []
+    for i in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def run():
+            start.record()
+            out = step16(x_sh, y_sh, arrs)
+            end.record()
+            return out
+
+        (loss, _), counts = counted(run, parts)
+        losses.append(loss.item())
+        if i > 0:
+            ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"11a bf16 losses {losses}")
+    bf16_rel = abs(losses[0] - loss32) / abs(loss32)
+    if bf16_rel > SHARDED_BF16_RTOL:
+        raise AssertionError(f"11a: bf16 loss {losses[0]} against fp32 "
+                             f"{loss32}: {bf16_rel:.3e} > 2^-5")
+    # Stage times of one bf16 forward: the card's mesh-to-grid work ratio.
+    timer = _StageTimer()
+    with torch.no_grad(), timer.timing():
+        fwd({n: p.to(torch.bfloat16) for n, p in m16.named_parameters()},
+            torch.from_numpy(x_sh[0, 0]).cuda().bfloat16(), arrs)
+    stages = dict(timer.ms)
+    g_rows, m_rows = gs.num_grid_nodes, gs.num_mesh_nodes
+    mesh_weight = (stages["processor"] / m_rows) / (
+        (stages["encoder"] + stages["decoder"]) / (g_rows + m_rows))
+    del m16, step16
+    # GCLT_MEGA_EDGE=1: the fused unit's forward tail is edge_mlp.
+    mega_parts = _sharded_launches(arrs, cfg, AR_STEPS, mega=True)
+    with _route({"GCLT_MEGA_EDGE": "1"}):
+        mm = copy.deepcopy(base)
+        (loss_mega, _), counts_mega = counted(
+            lambda: sharded(mm, torch.bfloat16)(x_sh, y_sh, arrs),
+            mega_parts, n_mlp=2 * mp * AR_STEPS)
+        del mm
+    # The one-device bf16 step on the default route, timed alike.
+    one_model, one_step = _flagship_step(ctx, base, "bfloat16")
+    xt, yt = (torch.from_numpy(a[None]).cuda() for a in (x, y))
+    one_ms = []
+    for i in range(SHARDED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one_step(xt, yt)
+        end.record()
+        torch.cuda.synchronize()
+        if i > 0:
+            one_ms.append(start.elapsed_time(end))
+    del one_model, one_step
+    torch.cuda.empty_cache()
+    step_ms, one_step_ms = sum(ms) / len(ms), sum(one_ms) / len(one_ms)
+    hbm = sm.estimate_sharded_hbm(plan, num_params=sum(
+        p.numel() for p in base.parameters()), obs_window=spec.obs_window,
+        num_features=n_feat)
+    out = {
+        "card": smi, "plan_ms": plan_ms,
+        "comm_stats": plan.comm_stats,
+        "fp32": {"loss": loss32, "loss_one_device": loss_ref,
+                 "one_device_routes": routes,
+                 "worst_grad_err_of_tol": worst[0],
+                 "worst_grad_leaf": worst[1]},
+        "bf16": {"losses": losses, "rel_to_fp32": bf16_rel,
+                 "step_ms": step_ms, "step_ms_runs": ms,
+                 "peak_mem_bytes": peak,
+                 "estimate_sharded_hbm_gb": hbm},
+        "launches_per_step": {k: v for k, v in counts.items()
+                              if k != "by_csr"},
+        "segment_sum_launches_by_csr": counts["by_csr"],
+        "mega": {"loss": loss_mega.item(),
+                 "launches_per_step": {k: v for k, v in counts_mega.items()
+                                       if k != "by_csr"}},
+        "one_device_step_ms": one_step_ms, "one_device_step_ms_runs": one_ms,
+        "sharded_s1_overhead": step_ms / one_step_ms - 1.0,
+        "stage_ms": stages, "mesh_node_weight_measured": mesh_weight,
+    }
+    _log(f"  bf16: losses {', '.join(f'{v:.6f}' for v in losses)} (step 1 "
+         f"{bf16_rel:.2e} from fp32); step {', '.join(f'{t:.2f}' for t in ms)}"
+         f" ms (mean {step_ms:.2f}; CUDA events) against the one-device "
+         f"default route's {one_step_ms:.2f} ms: overhead "
+         f"{out['sharded_s1_overhead']:+.3f}; peak {peak / 2**30:.3f} GiB "
+         f"(estimate_sharded_hbm {hbm['total_gb']:.3f} GB); "
+         f"{counts['segment_sum']} segment sums a step ("
+         + ", ".join(f"{k} {v}" for k, v in counts["by_csr"].items()) + ")")
+    _log(f"  GCLT_MEGA_EDGE=1: {counts_mega['edge_mlp']} edge_mlp and "
+         f"{counts_mega['segment_sum']} segment sums a step, loss "
+         f"{loss_mega.item():.6f}")
+    _log("  one bf16 sharded forward by stage (CUDA events): "
+         + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+         + f"; a mesh node's work against a grid-space row's: "
+         f"{mesh_weight:.2f} (the plans use MESH_NODE_WEIGHT "
+         f"{sm.MESH_NODE_WEIGHT})")
+    fp32_run = {"loss": loss32, "grads": grads32,
+                "state": {n: t.detach().cpu() for n, t in
+                          base.state_dict().items()}}
+    return out, mesh, fp32_run
+
+
+def _sharded_rank(rank, world, store, payload_path, out_dir):
+    """One of 11b's ranks: gloo (host-staged) on the one card, the sharded
+    fp32 train step for ``SHARDED_RANK_STEPS`` steps."""
+    import datetime
+    import hashlib
+    import pickle
+
+    import torch.distributed as dist
+
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.ops import cuda_segment
+    from graphcast_lite_torch.parallel import collectives
+    from graphcast_lite_torch.parallel import sharded_model as sm
+    from graphcast_lite_torch.parallel.sharding import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with open(payload_path, "rb") as f:
+        p = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg, plan = p["cfg"], p["plan"]
+        mesh = make_mesh(data_parallel=1)
+        arrs = sm.plan_device_arrays(plan, p["statics"], mesh,
+                                     lat_weights=p["lw"], device="cuda")
+        model = WeatherModel(cfg.pipeline, cfg.data,
+                             plan.grid_part.num_nodes,
+                             plan.mesh_part.num_nodes).cuda()
+        model.load_state_dict(p["state"])
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+        fwd = sm.ShardedWeatherForward(cfg.pipeline, cfg.data, mesh.space)
+        step = sm.make_sharded_train_step(fwd, _sharded_spec(cfg), mesh,
+                                          model, opt, AR_STEPS,
+                                          chan_mask=p["cm"])
+        parts = _sharded_launches(arrs, cfg, AR_STEPS)
+        expected = sum(n for _, n in parts.values())
+        steps = []
+        for i in range(SHARDED_RANK_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            cuda_segment.launches = 0
+            cuda_segment.launches_by_csr.clear()
+            collectives.reset_transport()
+            sm.reset_halo_rows()
+            t0 = time.perf_counter()
+            loss, _ = step(p["x_sh"], p["y_sh"], arrs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            flat = torch.cat([q.detach().reshape(-1)
+                              for q in model.parameters()]).cpu()
+            steps.append({
+                "loss": loss.item(), "wall_ms": wall_ms,
+                "params_sha256": hashlib.sha256(
+                    flat.numpy().tobytes()).hexdigest(),
+                "segment_sum": cuda_segment.launches,
+                "segment_sum_expected": expected,
+                "by_csr_equal": {label: cuda_segment.launches_by_csr.get(
+                    key, 0) for label, (key, _) in parts.items()} == {
+                    label: n for label, (_, n) in parts.items()},
+                "halo_rows": dict(sm.halo_rows),
+                "halo_exchanges": dict(sm.halo_exchanges),
+                "transport": dict(collectives.transport),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+            if i == 0 and rank == 0:
+                grads = _grads(model)
+        out = {"steps": steps, "mesh_index": (mesh.data_index,
+                                              mesh.space_index),
+               "modes": {k: getattr(arrs, k).mode
+                         for k in ("enc", "proc", "dec")}}
+        if rank == 0:
+            out["grads"] = grads
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _spawn_ranks(fn, world, workdir, payload):
+    """Run ``fn(rank, world, store, payload_path, out_dir)`` on ``world``
+    spawned processes; their results in rank order.  A rank that raises,
+    or ranks that outlive SHARDED_TIMEOUT_S, fail the phase."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    os.makedirs(workdir, exist_ok=True)
+    payload_path = os.path.join(workdir, "payload.pkl")
+    with open(payload_path, "wb") as f:
+        pickle.dump(payload, f)
+    store = os.path.join(workdir, "store")
+    ctx = mp.start_processes(fn, args=(world, store, payload_path, workdir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"{world} ranks outlived "
+                                 f"{SHARDED_TIMEOUT_S} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def phase_sharded_kernels(gs, plan):
+    """11b's kernel checks on rank 0's shard of ``plan``: the segment sum
+    on the processor's receiver CSR and on the extended sender tables'
+    CSRs (processor and encoder: the backward's d_xs and gather adjoint),
+    and ``edge_mlp`` at the shard's processor shape (the fused unit's
+    forward tail under GCLT_MEGA_EDGE=1), each against its plain version
+    in fp32 and bf16, two launches bitwise equal, and timed."""
+    from graphcast_lite_torch.ops import cuda_segment
+    from graphcast_lite_torch.parallel import sharded_model as sm
+
+    enc = sm.graph_arrays(plan.enc, plan.enc_halos, 0, "enc", True, "cuda")
+    proc = sm.graph_arrays(plan.proc, plan.proc_halos, 0, "proc", False,
+                           "cuda")
+    gen = torch.Generator().manual_seed(23)
+    seg = {}
+    for label, g, sender in (
+            ("processor receivers", proc.graph, False),
+            ("processor senders (extended table)", proc.graph, True),
+            ("encoder senders (extended table)", enc.graph, True)):
+        e = g.padded_num_edges
+        ip = g.s_indptr if sender else g.indptr
+        r = g.num_nodes if sender else g.num_receivers
+        for dtype in (torch.float32, torch.bfloat16):
+            msgs = torch.randn(e, 256, generator=gen).to("cuda", dtype)
+            msgs = msgs * g.edge_mask.to(dtype)[:, None]
+            if sender:
+                msgs = msgs.index_select(0, g.s_perm)
+            _check_kernel(f"shard 0 {label} F=256", msgs, ip, r)
+            first = cuda_segment.segment_sum(msgs, ip, r)
+            if not torch.equal(first, cuda_segment.segment_sum(msgs, ip, r)):
+                raise AssertionError(f"{label} {dtype}: two launches differ")
+        seg[label] = dict(_time_segment_sum(
+            f"shard 0 {label} bf16", msgs, ip, r), dtype="bfloat16",
+            rows=e, receivers=r, features=256)
+    g = proc.graph
+    label = (f"shard 0 processor E_pad={g.padded_num_edges} "
+             f"R={g.num_receivers} H=De=256")
+    mlp = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = _fused_case(gen, 0, g.num_receivers, 256, 256, dtype,
+                        recv=g.receivers.long().cpu())
+        t["mask"] = g.edge_mask.to(dtype)
+        _bitwise_edge_mlp(label, t, g.num_receivers)
+        mlp[str(dtype)[6:]] = _time_edge_mlp(label, t, g.num_receivers)
+    return seg, mlp
+
+
+def phase_sharded_four_ranks(ctx, fp32_run, workdir):
+    """11b: SHARDED_RANKS ranks on the one card (gloo, host-staged: NCCL
+    allows one rank a device), fp32 (TF32 off), SHARDED_RANK_STEPS steps
+    each on the tiles and the latitude plans; every rank's loss and rank
+    0's gradients against 11a's fp32 run, the ranks' parameters bitwise
+    equal after each step, the rows received an exchange against the
+    plan's ``rows_exchanged_per_step``, the launches, the staging."""
+    import types
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.parallel import sharded_model as sm
+    from graphcast_lite_torch.training.loss import channel_mask, \
+        lat_weights_from_axis
+
+    gs, meta = ctx["gs"], ctx["meta"]
+    cfg = presets.interaction_net_512x256()
+    x, y = ctx["request"]
+    _log(f"phase 11b: {SHARDED_RANKS} ranks sharing the one card (spawned "
+         "processes, gloo with explicit host staging), fp32 (TF32 off), "
+         f"{SHARDED_RANK_STEPS} steps each, partition tiles and lat; four "
+         "ranks on one card measure correctness and halo volume, not "
+         "scaling")
+    torch.cuda.empty_cache()
+    statics = types.SimpleNamespace(grid_static=gs.grid_static,
+                                    mesh_static=gs.mesh_static)
+    out, kernel_plan = {}, None
+    for partition in ("tiles", "lat"):
+        t0 = time.perf_counter()
+        plan = sm.build_sharding_plan(gs, SHARDED_RANKS,
+                                      partition=partition)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        kernel_plan = kernel_plan or plan
+        payload = {"cfg": cfg, "plan": plan, "statics": statics,
+                   "state": fp32_run["state"],
+                   "lw": lat_weights_from_axis(meta.num_latitudes,
+                                               meta.num_longitudes),
+                   "cm": channel_mask(cfg.data.num_features_used,
+                                      cfg.static_channels,
+                                      cfg.forcing_channels),
+                   "x_sh": plan.scatter_grid(x[None]),
+                   "y_sh": plan.scatter_grid(y[None])}
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_sharded_rank, SHARDED_RANKS,
+                             os.path.join(workdir, partition), payload)
+        wall_s = time.perf_counter() - t0
+        if sorted(r["mesh_index"] for r in ranks) != [
+                (0, s) for s in range(SHARDED_RANKS)]:
+            raise AssertionError(f"{partition}: grid places "
+                                 f"{[r['mesh_index'] for r in ranks]}")
+        for i in range(SHARDED_RANK_STEPS):
+            rows = [r["steps"][i] for r in ranks]
+            if len({s["params_sha256"] for s in rows}) != 1:
+                raise AssertionError(f"{partition} step {i}: the ranks' "
+                                     "parameters differ")
+            if len({s["loss"] for s in rows}) != 1:
+                raise AssertionError(f"{partition} step {i}: losses "
+                                     f"{[s['loss'] for s in rows]}")
+            for s in rows:
+                if s["segment_sum"] != s["segment_sum_expected"] \
+                        or not s["by_csr_equal"]:
+                    raise AssertionError(
+                        f"{partition} step {i}: {s['segment_sum']} segment "
+                        f"sums, expected {s['segment_sum_expected']}")
+        loss = ranks[0]["steps"][0]["loss"]
+        if abs(loss - fp32_run["loss"]) > TRAIN_LOSS_RTOL * abs(
+                fp32_run["loss"]):
+            raise AssertionError(f"{partition}: loss {loss} against 11a's "
+                                 f"fp32 {fp32_run['loss']}")
+        worst = _grads_within(f"11b {partition}", ranks[0]["grads"],
+                              fp32_run["grads"])
+        exchanged = {}
+        for name, st in plan.comm_stats.items():
+            got = sum(r["steps"][0]["halo_rows"][name]
+                      / r["steps"][0]["halo_exchanges"][name] for r in ranks)
+            want = (st["all_gather_baseline"] if st["chosen"] == "gather"
+                    else st["banded"])
+            if got != want:
+                raise AssertionError(f"{partition} {name}: {got} rows an "
+                                     f"exchange, the plan says {want}")
+            exchanged[name] = {"rows_per_exchange": got, "plan": st}
+        staged = [s["transport"] for r in ranks for s in r["steps"]]
+        out[partition] = {
+            "plan_ms": plan_ms, "wall_s": wall_s,
+            "modes": ranks[0]["modes"],
+            "losses": [r0["loss"] for r0 in ranks[0]["steps"]],
+            "worst_grad_err_of_tol": worst[0], "worst_grad_leaf": worst[1],
+            "exchanged": exchanged,
+            "step_wall_ms": [[s["wall_ms"] for s in r["steps"]]
+                             for r in ranks],
+            "segment_sum_per_step": [r["steps"][0]["segment_sum"]
+                                     for r in ranks],
+            "staged_bytes_per_step": sum(t["staged_bytes"] for t in staged)
+            / SHARDED_RANK_STEPS,
+            "staged_s_per_step": sum(t["staged_s"] for t in staged)
+            / SHARDED_RANK_STEPS,
+            "collectives_per_rank_step": staged[0]["collectives"],
+            "peak_mem_bytes": [r["steps"][-1]["peak_mem_bytes"]
+                               for r in ranks],
+        }
+        _log(f"  {partition}: plan {plan_ms:.1f} ms; modes "
+             f"{ranks[0]['modes']}; losses "
+             + ", ".join(f"{v:.7f}" for v in out[partition]["losses"])
+             + f" (11a fp32 {fp32_run['loss']:.7f}); gradients' largest "
+             f"error {worst[0]:.2e} of the tolerance ({worst[1]}); params "
+             "bitwise equal on every rank after each step; rows an "
+             "exchange (all ranks): " + ", ".join(
+                 f"{k} {v['rows_per_exchange']:.0f} (all_gather "
+                 f"{v['plan']['all_gather_baseline']})"
+                 for k, v in exchanged.items())
+             + f"; step wall {out[partition]['step_wall_ms'][0]} ms on rank"
+             f" 0 (host clock; four ranks on one card); staged "
+             f"{out[partition]['staged_bytes_per_step'] / 1e6:.1f} MB and "
+             f"{out[partition]['staged_s_per_step']:.3f} s a step over all "
+             f"ranks; {out[partition]['segment_sum_per_step'][0]} segment "
+             f"sums a rank-step; spawn to results {wall_s:.1f} s")
+    _log("phase 11b: the segment sum and edge_mlp on rank 0's shard of the "
+         "tiles plan")
+    seg, mlp = phase_sharded_kernels(gs, kernel_plan)
+    out["kernels"] = {"segment_sum": seg, "edge_mlp": mlp}
+    return out
+
+
+def phase_sharded_fit(ctx, mesh, workdir):
+    """11c: ``Trainer(mesh=, graph_set=).fit`` at one rank, one epoch of
+    SHARDED_FIT_STEPS bf16 steps on phase 6a's seeded dataset; the
+    sharded ``evaluate`` against the one-device ``evaluate`` on the same
+    weights; rank 0's checkpoint loads back."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.data.dataset import BatchIterator, \
+        load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+    from graphcast_lite_torch.training.trainer import Trainer
+
+    cfg = presets.interaction_net_512x256()
+    cfg.tpu.compute_dtype = "bfloat16"
+    cfg.num_epochs = 1
+    n_feat = cfg.data.num_features_used
+    _log(f"phase 11c: Trainer(mesh=, graph_set=).fit on one rank, 1 epoch x "
+         f"{SHARDED_FIT_STEPS} steps, bf16 against fp32 masters; the sharded "
+         "evaluate against the one-device evaluate (fp32)")
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "fit_data"), n_time=FIT_FRAMES, n_lon=512,
+        n_lat=256, n_feat=n_feat, static_channels=list(cfg.static_channels),
+        seed=1)
+    train_ds, val_ds, _, meta = load_chunked_datasets(
+        data_dir, obs_window=cfg.data.obs_window_used,
+        pred_steps=cfg.data.pred_window_used, n_features=n_feat)
+    model = _seeded_flagship(cfg, ctx["gs"])
+    results_dir = os.path.join(workdir, "sharded_fit")
+    t0 = time.perf_counter()
+    trainer = Trainer(model, ctx["graphs"], cfg, meta, results_dir,
+                      mesh=mesh, graph_set=ctx["gs"], device="cuda")
+    state = trainer.init_state(seed=0)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = trainer.fit(state, train_ds, val_ds,
+                          max_steps_per_epoch=SHARDED_FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    for name in ("checkpoint/state.pt", "checkpoint/meta.json",
+                 "best_model.pt", "results.json", "training_log.txt",
+                 "metrics.jsonl"):
+        if not os.path.exists(os.path.join(results_dir, name)):
+            raise AssertionError(f"sharded fit wrote no {name}")
+    losses = results["train_losses"] + results["val_losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"sharded fit losses {results}")
+    loader = BatchIterator(val_ds, cfg.batch_size, shuffle=False,
+                           drop_remainder=False)
+    sharded_eval = trainer.evaluate(state, loader)
+    one = Trainer(model, ctx["graphs"], cfg, meta,
+                  os.path.join(workdir, "one_device_eval"), device="cuda")
+    one_eval = one.evaluate(state, loader)
+    for what, a, b in zip(("loss", "acc", "rmse"), sharded_eval, one_eval):
+        if not abs(a - b) <= 1e-5 * max(abs(b), 1.0):
+            raise AssertionError(f"11c evaluate {what}: sharded {a}, "
+                                 f"one-device {b}")
+    saved = {n: p.detach().clone() for n, p in model.named_parameters()}
+    again = Trainer(model, ctx["graphs"], cfg, meta, results_dir, mesh=mesh,
+                    graph_set=ctx["gs"], device="cuda")
+    state2 = again.init_state(seed=1)
+    meta2 = again.load_checkpoint(state2)
+    if meta2["epoch"] != 0 or not all(
+            torch.equal(p, saved[n]) for n, p in model.named_parameters()):
+        raise AssertionError("11c: the checkpoint did not load back")
+    out = {"setup_s": setup_s, "fit_s": fit_s, "results": results,
+           "evaluate_sharded": sharded_eval, "evaluate_one_device": one_eval}
+    _log(f"  trainer set-up (plan, arrays, init) {setup_s:.1f} s; fit "
+         f"{fit_s:.1f} s (host clock); losses {results}; evaluate sharded "
+         f"{sharded_eval} / one-device {one_eval}; rank 0's checkpoint "
+         "loads back bitwise")
+    return out
+
+
+def phase_sharded(ctx, smi):
+    """Phase 11: multi-device training on the port (``parallel/``)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    one_rank, mesh, fp32_run = phase_sharded_one_rank(ctx, smi)
+    with tempfile.TemporaryDirectory() as workdir:
+        fit = phase_sharded_fit(ctx, mesh, workdir)
+        dist.destroy_process_group()
+        four = phase_sharded_four_ranks(ctx, fp32_run, workdir)
+    wall_s = time.perf_counter() - t0
+    _log(f"  phase 11 wall {wall_s:.1f} s on {smi}")
+    return {"card": smi, "one_rank": one_rank, "four_ranks": four,
+            "fit": fit, "wall_s": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5246,6 +5963,8 @@ def main() -> int:
                         "operational": phase_operational(workdir, da_ctx)}
     with tempfile.TemporaryDirectory() as workdir:
         offline = phase_offline(workdir, smi, da_ctx)
+    sharded = phase_sharded(ctx, smi)
+    one_rank = sharded["one_rank"]
     ladder = assimilation["ladder"]
     fused_steps = {name: row["launches_per_step"]
                    for name, row in fused["bf16"].items()}
@@ -5307,7 +6026,17 @@ def main() -> int:
                    "live_forecast": assimilation["operational"][
                        "launches"]},
                launches_per_rollout_phase10=offline["converted_serve"][
-                   "launches_per_rollout"])
+                   "launches_per_rollout"],
+               launches_per_sharded_step=one_rank["launches_per_step"][
+                   "segment_sum"],
+               launches_per_sharded_step_by_csr=one_rank[
+                   "segment_sum_launches_by_csr"],
+               launches_per_sharded_rank_step={
+                   part: row["segment_sum_per_step"]
+                   for part, row in sharded["four_ranks"].items()
+                   if part != "kernels"},
+               at_shard_shapes=sharded["four_ranks"]["kernels"][
+                   "segment_sum"])
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -5326,6 +6055,10 @@ def main() -> int:
             extra["launches_per_regional_head_step"] = {
                 n: c[name] for n, c in head_steps.items()}
             extra["at_regional_shape"] = mlp_regional
+            extra["launches_per_sharded_step_mega"] = one_rank["mega"][
+                "launches_per_step"][name]
+            extra["at_shard_shape"] = sharded["four_ranks"]["kernels"][
+                "edge_mlp"]
         extra["designs"] = {
             "bf16, H and De in {128, 256}": "hopper_bf16",
             "fp32, H and De in {128, 256}": "hopper_fp32",
@@ -5346,6 +6079,7 @@ def main() -> int:
     _log(json.dumps({"cnn": cnn}))
     _log(json.dumps({"assimilation": assimilation}))
     _log(json.dumps({"offline": offline}))
+    _log(json.dumps({"sharded": sharded}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

@@ -1,6 +1,5 @@
 """Training: the AR-P BPTT + Adam step in mixed precision and the epoch
-loop around it (torch counterpart of ``graphcast_lite_tpu.training.trainer``,
-without its sharded ``mesh=`` path).
+loop around it (torch counterpart of ``graphcast_lite_tpu.training.trainer``).
 
 ``make_train_step(model, graphs, spec, cfg)`` returns a ``TrainStep``;
 ``step(x, y)`` runs one step on a batch and returns the loss:
@@ -40,6 +39,20 @@ own mask).  The epoch's ``attention_threshold_schedule`` threshold prunes
 on the epoch's first batch only, once it is positive, with the mask of
 the batch's first sample (as the JAX package does); evaluation and the
 checkpoints carry the mask.
+
+Multi-device training: ``Trainer(..., mesh=, graph_set=)`` with a
+``parallel.sharding.ProcessMesh`` (one process a rank, e.g. under
+``torchrun``) and the host ``GraphSet`` trains through
+``parallel.sharded_model``: the sharding plan of ``graph_set`` over the
+mesh's space axis, this rank's shard of it, the sharded train and eval
+steps, the batch split over the data axis.  Every rank reads the same
+batch and takes its own block; the parameters start broadcast from rank
+0 and stay equal on every rank (the gradients are all-reduced before each
+Adam step).  Rank 0 alone writes the logs, the checkpoints and the best
+model; the other ranks wait at a barrier.  SparseGAT's mask is then the
+rank's per-shard [E_s] mask; the checkpoint holds every shard's ([S,
+E_s], gathered over the space group).  There is no CLI flag for it, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -310,11 +323,17 @@ class Trainer:
         ``device='cpu'``).  ``optimizer`` over the model's parameters
         replaces ``build_optimizer``'s Adam (the CNN trainers pass
         ``training.optim.ClippedAdamW``); ``extra_loss_fn(out [B, G, C],
-        target)`` is added to each AR step's training loss."""
-        if mesh is not None or graph_set is not None:
-            raise NotImplementedError(
-                "sharded training (mesh= / graph_set=) is not ported yet "
-                "(ROADMAP A12: multi-device)")
+        target)`` is added to each AR step's training loss.  ``mesh`` (a
+        ``parallel.sharding.ProcessMesh``) + ``graph_set`` (the host
+        ``GraphSet``) switch training to the sharded path
+        (``parallel.sharded_model``)."""
+        if mesh is not None:
+            if graph_set is None:
+                raise ValueError("mesh= requires graph_set= (host GraphSet)")
+            if extra_loss_fn is not None:
+                raise NotImplementedError(
+                    "extra_loss_fn is not supported on the sharded path"
+                )
         self.using_sparse_gat = (
             config.pipeline is not None
             and config.pipeline.processor.gcn.layer_type
@@ -326,7 +345,8 @@ class Trainer:
         self.config = config
         self.metadata = metadata
         self.results_dir = results_dir
-        os.makedirs(results_dir, exist_ok=True)
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(results_dir, exist_ok=True)
         self.spec = RolloutSpec(
             obs_window=config.data.obs_window_used,
             num_features=config.data.num_features_used,
@@ -367,8 +387,40 @@ class Trainer:
             build_optimizer(self.model, config.learning_rate,
                             processor_lr_factor)
         self.extra_loss_fn = extra_loss_fn
-        self._train_steps: Dict[Tuple[int, bool], TrainStep] = {}
+        self._train_steps: Dict[Tuple, Any] = {}
         self._graphs_cast: Optional[ModelGraphs] = None
+
+        # ---- multi-device path (parallel/sharded_model) --------------------
+        self.mesh = mesh
+        self._plan = self._plan_arrays = self._sharded_fwd = None
+        self._sharded_eval = None
+        if mesh is not None:
+            from ..parallel.sharded_model import ShardedWeatherForward, \
+                build_sharding_plan, plan_device_arrays
+
+            if config.batch_size % mesh.data != 0:
+                raise ValueError(
+                    f"config.batch_size ({config.batch_size}) must be "
+                    f"divisible by the data-parallel mesh axis ({mesh.data})"
+                )
+            self._plan = build_sharding_plan(graph_set, mesh.space)
+            self._plan_arrays = plan_device_arrays(
+                self._plan, graph_set, mesh, lat_weights=self.lat_weights,
+                spatial_mask=self.spatial_mask, device=self.device)
+            self._sharded_fwd = ShardedWeatherForward(
+                config.pipeline, config.data, mesh.space)
+
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0 of a
+        mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.world_group)
 
     # ------------------------------------------------------------------ core
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -387,10 +439,18 @@ class Trainer:
                 generator=gen,
             )
             self.model.load_state_dict(fresh.state_dict())
+        if self.mesh is not None:
+            from ..parallel.sharding import replicated
+
+            replicated(self.model, self.mesh)
         self.optimizer.state.clear()
         mask = None
         if self.using_sparse_gat:
-            mask = self.graphs.processing.edge_mask.detach().clone().float()
+            # mesh path: the rank's per-shard [E_s] mask of the plan;
+            # single device: the padded COO [E_pad].
+            src = (self._plan_arrays.proc.graph if self.mesh is not None
+                   else self.graphs.processing)
+            mask = src.edge_mask.detach().clone().float()
         return TrainState(model=self.model, optimizer=self.optimizer,
                           edge_mask=mask)
 
@@ -415,6 +475,9 @@ class Trainer:
                 is not self.optimizer:
             raise ValueError("the state is not this Trainer's "
                              "(use Trainer.init_state)")
+        if self.mesh is not None:
+            return self._sharded_train_step(state, x, y, steps, thr, prune,
+                                            freeze_processor)
         key = (int(steps), bool(freeze_processor))
         step = self._train_steps.get(key)
         if step is None:
@@ -427,6 +490,32 @@ class Trainer:
                 extra_loss_fn=self.extra_loss_fn,
             )
         loss, mask = step.run(x, y, state.edge_mask, thr, prune)
+        return dataclasses.replace(state, edge_mask=mask), loss
+
+    def _sharded_train_step(self, state: TrainState, x, y, steps, thr,
+                            prune, freeze_processor):
+        from ..parallel.sharded_model import make_sharded_train_step
+
+        if x.shape[0] % self.mesh.data != 0:
+            raise ValueError(
+                f"sharded training needs batch ({x.shape[0]}) divisible by "
+                f"the data-parallel axis ({self.mesh.data}); use "
+                "drop_remainder batching or a compatible batch_size"
+            )
+        key = ("sharded", int(steps), bool(prune), bool(freeze_processor))
+        step = self._train_steps.get(key)
+        if step is None:
+            step = self._train_steps[key] = make_sharded_train_step(
+                self._sharded_fwd, self.spec, self.mesh, self.model,
+                self.optimizer, steps, chan_mask=self.chan_mask,
+                compute_dtype=self._compute_dtype,
+                freeze_processor=freeze_processor, prune=prune,
+            )
+        loss, mask = step(self._plan.scatter_grid(np.asarray(x)),
+                          self._plan.scatter_grid(np.asarray(y)),
+                          self._plan_arrays, state.edge_mask, thr)
+        if not self.using_sparse_gat:
+            mask = None
         return dataclasses.replace(state, edge_mask=mask), loss
 
     def _eval_batch(self, state: TrainState, x, y):
@@ -456,12 +545,48 @@ class Trainer:
         losses, accs, rmses = [], [], []
         with torch.no_grad():
             for x, y in loader:
-                l, a, r = self._eval_batch(state, x, y)
+                if self.mesh is not None:
+                    l, a, r = self._sharded_eval_batch(state, x, y)
+                else:
+                    l, a, r = self._eval_batch(state, x, y)
                 losses.append(l)
                 accs.append(a)
                 rmses.append(r ** 2)
         n = max(len(losses), 1)
         return sum(losses) / n, sum(accs) / n, (sum(rmses) / n) ** 0.5
+
+    def _sharded_eval_batch(self, state: TrainState, x, y):
+        """``_eval_batch`` on the mesh: a partial batch is padded to a
+        multiple of the data axis, the padded samples masked out of every
+        metric."""
+        from ..parallel.sharded_model import make_sharded_eval_step
+
+        if self._sharded_eval is None:
+            self._sharded_eval = make_sharded_eval_step(
+                self._sharded_fwd, self.spec, self.mesh, self.model,
+                chan_mask=self.chan_mask, exclude_channels=self._exclude)
+        x, y = np.asarray(x), np.asarray(y)
+        b = x.shape[0]
+        b_pad = -(-b // self.mesh.data) * self.mesh.data
+        mask = np.zeros(b_pad, np.float32)
+        mask[:b] = 1.0
+        if b_pad != b:
+            x = np.pad(x, ((0, b_pad - b),) + ((0, 0),) * (x.ndim - 1))
+            y = np.pad(y, ((0, b_pad - b),) + ((0, 0),) * (y.ndim - 1))
+        return self._sharded_eval(
+            self._plan.scatter_grid(x), self._plan.scatter_grid(y), mask,
+            self._plan_arrays,
+            state.edge_mask if self.using_sparse_gat else None)
+
+    def _saved_mask(self, state: TrainState) -> Optional[torch.Tensor]:
+        """The edge mask a checkpoint holds: on a mesh every shard's
+        ([S, E_s], gathered over the space group)."""
+        if self.mesh is None or state.edge_mask is None:
+            return state.edge_mask
+        from ..parallel.collectives import all_gather_rows
+
+        return all_gather_rows(state.edge_mask[None],
+                               self.mesh.space_group)
 
     def load_checkpoint(self, state: TrainState) -> Dict[str, Any]:
         """Restore ``<results_dir>/checkpoint`` into the state's model,
@@ -473,7 +598,14 @@ class Trainer:
             load = ckpt_lib.load_checkpoint
         else:
             load = ckpt_lib.load_flax_checkpoint
-        return load(ckpt_dir, state.model, state.optimizer, state.edge_mask)
+        mask = state.edge_mask
+        if self.mesh is not None and mask is not None:
+            mask = mask.new_zeros((self.mesh.space,) + tuple(mask.shape))
+        meta = load(ckpt_dir, state.model, state.optimizer, mask)
+        if mask is not None and mask is not state.edge_mask:
+            with torch.no_grad():
+                state.edge_mask.copy_(mask[self.mesh.space_index])
+        return meta
 
     # ------------------------------------------------------------------ loop
     def fit(
@@ -498,6 +630,8 @@ class Trainer:
         ar_steps = 1
 
         ckpt_dir = os.path.join(self.results_dir, "checkpoint")
+        writer = self._writer
+        print_losses = print_losses and writer
         if resume and os.path.exists(os.path.join(ckpt_dir,
                                                   ckpt_lib.META_FILE)):
             meta = self.load_checkpoint(state)
@@ -513,13 +647,14 @@ class Trainer:
         log_path = os.path.join(self.results_dir, "training_log.txt")
 
         def log(msg: str):
-            with open(log_path, "a") as f:
-                f.write(msg + "\n")
+            if writer:
+                with open(log_path, "a") as f:
+                    f.write(msg + "\n")
 
         from ..utils.logs import MetricsLogger
 
-        metrics = MetricsLogger(self.results_dir)
-        profile_dir = os.environ.get("GCLT_PROFILE_DIR")
+        metrics = MetricsLogger(self.results_dir) if writer else None
+        profile_dir = os.environ.get("GCLT_PROFILE_DIR") if writer else None
 
         log(f"=== Training started: {datetime.now().isoformat()} ===")
         log(f"epochs={num_epochs}  max_ar={max_ar}  "
@@ -586,21 +721,24 @@ class Trainer:
                     f"AR={ar_steps} ({time.time() - t_epoch:.1f}s)"
                 )
 
-            metrics.log({
+            record = {
                 "epoch": epoch + 1, "ar_steps": ar_steps,
                 "train_loss": train_loss, "val_loss": v_loss,
                 "val_acc": v_acc, "raw_rmse": v_rmse,
                 "attention_threshold": thr,
                 "epoch_seconds": time.time() - t_epoch,
-            })
+            }
+            if writer:
+                metrics.log(record)
 
             if best_val - v_loss > cfg.early_stopping_delta:
                 best_val = v_loss
                 patience = 0
-                ckpt_lib.save_params(
-                    os.path.join(self.results_dir, "best_model.pt"),
-                    state.model,
-                )
+                if writer:
+                    ckpt_lib.save_params(
+                        os.path.join(self.results_dir, "best_model.pt"),
+                        state.model,
+                    )
             else:
                 patience += 1
 
@@ -608,18 +746,21 @@ class Trainer:
                 f"{v_loss:10.5f}  {v_acc:8.4f}  {best_val:10.5f}  "
                 f"{patience:8d}  {datetime.now().strftime('%H:%M:%S')}")
 
-            ckpt_lib.save_checkpoint(
-                ckpt_dir, state.model, state.optimizer,
-                {
-                    "epoch": epoch,
-                    "ar_steps": ar_steps,
-                    "best_val_loss": best_val,
-                    "patience_counter": patience,
-                    "train_losses": train_losses,
-                    "val_losses": val_losses,
-                },
-                edge_mask=state.edge_mask,
-            )
+            saved_mask = self._saved_mask(state)
+            if writer:
+                ckpt_lib.save_checkpoint(
+                    ckpt_dir, state.model, state.optimizer,
+                    {
+                        "epoch": epoch,
+                        "ar_steps": ar_steps,
+                        "best_val_loss": best_val,
+                        "patience_counter": patience,
+                        "train_losses": train_losses,
+                        "val_losses": val_losses,
+                    },
+                    edge_mask=saved_mask,
+                )
+            self._barrier()
 
             if patience >= cfg.early_stopping_patience:
                 if print_losses:
@@ -629,8 +770,11 @@ class Trainer:
 
         log(f"=== Training finished: {datetime.now().isoformat()} ===")
         results = {"train_losses": train_losses, "val_losses": val_losses}
-        with open(os.path.join(self.results_dir, "results.json"), "w") as f:
-            json.dump(results, f)
+        if writer:
+            with open(os.path.join(self.results_dir, "results.json"),
+                      "w") as f:
+                json.dump(results, f)
+        self._barrier()
         self.final_state = state
         return results
 

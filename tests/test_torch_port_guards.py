@@ -46,7 +46,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 80 since the offline tooling (constants, utils.torch_convert,
+    # 85 since multi-device training (parallel/__init__, parallel.sharding,
+    # parallel.collectives, parallel.spmd, parallel.sharded_model); 80
+    # since the offline tooling (constants, utils.torch_convert,
     # postprocessing.mos_training, cli.{build_learned_mos, compare_wrf},
     # data.remote, graphs.partition); 73 since data assimilation and the
     # serving entry points
@@ -63,7 +65,7 @@ def test_port_imports_no_jax():
     # with the trainer (utils.logs, utils.flax_msgpack, training.checkpoint,
     # cli.make_demo and cli.train), 38 with the train step, 35 with the COO
     # routes.
-    assert int(proc.stdout.split()[0]) >= 80, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 85, proc.stdout
 
 
 OFFLINE_MODULES = ("constants", "utils.torch_convert",
@@ -99,6 +101,35 @@ def test_offline_module_imports_stay_lazy(name):
     assert not (top | inner) & banned, name
     assert not top & optional, (name, top & optional)
     assert "threadpoolctl" not in inner, name
+
+
+PARALLEL_MODULES = ("parallel.sharding", "parallel.collectives",
+                    "parallel.spmd", "parallel.sharded_model")
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_parallel_modules_import_torch_distributed_and_no_jax(name):
+    """The multi-device modules import torch (``torch.distributed`` is
+    allowed there), numpy, the standard library and the package itself:
+    no JAX and nothing of the JAX package, at any level."""
+    import ast
+    import sys
+
+    path = os.path.join(REPO, "graphcast_lite_torch",
+                        *name.split(".")) + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    tops = {m.split(".")[0] for m in mods}
+    allowed = {"torch", "numpy"} | set(sys.stdlib_module_names)
+    assert tops <= allowed, (name, tops - allowed)
+    if name in ("parallel.sharding", "parallel.collectives"):
+        assert "torch.distributed" in mods, (name, mods)
 
 
 @pytest.fixture(scope="module")

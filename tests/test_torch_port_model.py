@@ -244,10 +244,12 @@ def test_rollout_predict_ar4_bf16(lazy_edge):
 
 def test_unported_paths_raise(tmp_path):
     """Every layer family builds and runs now (GAT, SparseGAT, SimpleConv,
-    the PReLU InteractionNet, the processor under a runtime mask); what is
-    still to be ported raises and names its ROADMAP item: sharded
-    training (A12).  A grid / U-Net config
-    loads as a ``GridExperimentConfig`` (A10's CNN half)."""
+    the PReLU InteractionNet, the processor under a runtime mask), and
+    nothing is left unported: sharded training (A12) runs through
+    ``Trainer(mesh=, graph_set=)``, which raises the JAX package's errors
+    for ``mesh=`` without ``graph_set=`` and for an ``extra_loss_fn`` on the
+    mesh.  A grid / U-Net config loads as a ``GridExperimentConfig``
+    (A10's CNN half)."""
     import json
 
     from graphcast_lite_torch.config import GATProps, GraphBlock, \
@@ -279,5 +281,8 @@ def test_unported_paths_raise(tmp_path):
     grid = load_experiment_config(str(path))
     assert isinstance(grid, GridExperimentConfig)
     assert (grid.num_features, grid.base_filters) == (5, 16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="mesh= requires graph_set="):
         Trainer(None, None, None, None, str(tmp_path), mesh=object())
+    with pytest.raises(NotImplementedError, match="extra_loss_fn"):
+        Trainer(None, None, None, None, str(tmp_path), mesh=object(),
+                graph_set=object(), extra_loss_fn=lambda o, t: 0.0)
