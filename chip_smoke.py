@@ -75,7 +75,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    3b the segment sum at phase 1c's shapes in fp32.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
-   AR-4, on the reg-block route and on each COO route, and compares them.
+   AR-2, on the reg-block route and on each COO route, and compares them.
    4b: the four WB2 64x32 BASELINE configurations at their published
    widths (GCN, GAT at 4 heads, SparseGAT at its 0.1356 threshold, the
    obs-5 product graph), seeded weights, fp32: one request (exact
@@ -87,7 +87,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    reg-edge unit's sender scatter, the encoder's and the decoder's GCNConv
    gather adjoints; a decoder sender reaches 696 edges), on the permuted
    cotangent rows the backward builds.  5b: the 64x32 architecture's fp32
-   AR-4 train step (``make_train_step``) on the card against the CPU:
+   AR-2 train step (``make_train_step``) on the card against the CPU:
    loss, every gradient and the exact segment-sum launches, then the
    card's Adam update against its closed form.  5c: the flagship in bf16
    mixed precision, 5 train steps on one seeded batch through
@@ -113,8 +113,8 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    README's demo loop through the CLIs' ``main(argv)`` on the card:
    ``make_demo --size medium``, ``train --max-steps-per-epoch 8`` (at
    least one segment sum every step, the loss falls), ``predict --ar-steps
-   2`` at K = 1 and ``--rollouts-per-dispatch 4`` (accepted as the JAX
-   package's CLI takes it, no effect yet: the same report).  6c: on a
+   2`` at K = 1 and ``--rollouts-per-dispatch 4`` (the amortized serve:
+   its report within ``SERVE_K_RTOL`` of K = 1's).  6c: on a
    synthetic 64x32 set of 33 features, SparseGAT through ``cli.train``
    for 12 epochs (pruning from epoch index 6; the live edges after each
    epoch), a ``--resume`` from its checkpoint after epoch 11 ending on the
@@ -154,15 +154,17 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    each head over the 64x32 architecture, card against CPU in fp32.  7d:
    a regional-mesh model (61x41 grid at 0.25 deg, mesh [3, 5] pruned to
    the region, 19 features, hidden 128, 8 steps) and the 64x32
-   architecture on a flat grid, card against CPU in fp32: one AR-4
-   request and one AR-4 train step each.
+   architecture on a flat grid, card against CPU in fp32: one AR-2
+   request and one AR-2 train step each.
 8. The CNN stacks (no hand-written kernel: cuDNN, cuFFT, cuBLAS) at the
    reference's regional widths on its 41x61 grid, fp32: 8a ``WeatherUNet``
    (92 -> 23 channels, base 64), ``WeatherUNetV2`` (4 heads, 4 modes) and
    ``DownscalerUNet`` (base 48), their parameter counts asserted, one
    forward and one batch-8 train step (V1 and V2 over AR 4, V2 with the
-   spectral and Sobel terms) on the card against the CPU, the card's
-   gradients against a float64 evaluation of the step; 8b
+   spectral and Sobel terms) on the card against the CPU, one model call
+   a sample, the card's gradients against a float64 evaluation of the
+   step, and the card's step with the batch in one call against the same
+   evaluation (``CNN_BATCH_GRAD_L2_RTOL``); 8b
    ``cli.train_unet`` (v2 from the flat config, v1 from flags) on a
    seeded synthetic 41x61 x 23 set, ``evaluate_model`` AR 4, then train
    step and AR-4 rollout ms (CUDA events), peak memory and a profiled
@@ -174,7 +176,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    GNN forwards launch the segment sum; the OI solve is
    ``torch.linalg.solve``).  9a: the flagship through ``cli.predict``'s
    ``main`` (seeded weights, default route, bf16 and fp32 with TF32 off)
-   on phase 6a's seeded 11-frame 512x256 set, 3 AR-4 requests each: raw,
+   on phase 6a's seeded 11-frame 512x256 set, 2 AR-4 requests each: raw,
    ``--da nudging`` (13,107 stations) and ``--da oi --obs-roi-only
    --region 20 60 60 140`` (6,498 ROI points, one ~650 x 650 fp32 solve a
    step on the card): exactly 8 segment sums a rollout, the nudged AR-step-1
@@ -235,7 +237,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    (loss, ACC, RMSE) against the one-device ``evaluate`` on the same
    weights (1e-5), rank 0's checkpoint loading back bitwise.  11b: 4
    spawned ranks sharing the card over gloo with explicit host staging
-   (NCCL allows one rank a device), fp32, 2 steps each on the tiles and
+   (NCCL allows one rank a device), fp32, one step each on the tiles and
    the latitude plans: every rank's loss and rank 0's gradients against
    11a's fp32 step, the ranks' parameters bitwise equal after each step,
    the rows received an exchange against the plan's
@@ -247,13 +249,37 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    equal, timed as in phase 7a.  Four ranks on one card measure
    correctness and halo volume, not scaling.
 
+12. The batched forward (B samples in one model call).  12a: ``edge_mlp``
+   and ``edge_step`` on batches of 2 and 3 in every design (bf16 and fp32
+   at H = De = 256 on phase 1b's tilings too, ``tile16`` at H = 384; the
+   edge step with per-sample W1e, b_eff, a and c), each against its
+   batched plain version at the fused tolerances and each sample bitwise
+   against a launch on that sample alone; the segment sum at the flagship
+   encoder and multimesh shapes at B = 4, bitwise against single
+   launches; at the flagship shapes each batched launch timed beside its
+   B single launches, its bound, its plain version and (the segment sum)
+   ``index_add_``.  12b: the flagship train step at B = 2 (bf16 against
+   fp32 masters, AR 4) on the reg-block default and the COO fused + mega
+   routes, one model call a batch against ``GCLT_BATCH_VMAP=0``: forward
+   losses within ``BATCH_LOSS_RTOL``, exact launches every step (the
+   batch's equal to one sample's, the loop's twice), step ms, peak
+   memory, idle share.  12c: ``evaluate_model(rollouts_per_dispatch=4)``
+   over 5 samples against K = 1 (fp32): every metric within
+   ``SERVE_K_RTOL``, one model call an AR step a chunk, exact launches,
+   wall ms; one K = 4 bf16 request on the edge-step and mega routes; a
+   4-sample AR-4 rollout in one call against 4 single rollouts.  12d: the
+   CNN stacks' batch-8 train step, batched against the loop: losses, ms,
+   idle share, device kernels.
+
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
 ``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}``,
-``{"offline": ...}``, ``{"sharded": ...}`` and ``{"kernels": [...]}``
-lines (the kernels' launches counted in the serve, the train steps, the
-fit, the demo's training, the regional head steps and phases 9, 10 and
-11; the segment sum's also by design in the serve and the train step)
+``{"offline": ...}``, ``{"sharded": ...}``, ``{"batched": ...}`` and
+``{"kernels": [...]}`` lines (the kernels' launches counted in the serve,
+the train steps, the fit, the demo's training, the regional head steps
+and phases 9, 10, 11 and 12; the segment sum's also by design in the
+serve and the train step; each kernel's batched figures under
+``batched``)
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
@@ -334,6 +360,9 @@ TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 5
 REQUESTS = 3
 AR_STEPS = 4
+# The AR steps of the card-vs-CPU runs of phase 4, 5b and 7d: the CPU
+# half, at full depth, was most of those phases.
+CPU_AR_STEPS = 2
 # Phase 6a: epochs of Trainer.fit (AR 1, 2, 3, 4 at epochs_per_stage 1),
 # steps an epoch, and the frames of its dataset: 6 windows of obs 2 +
 # AR 4, 4 of them train samples, 1 validation and 1 test sample.
@@ -341,7 +370,7 @@ FIT_EPOCHS = 4
 FIT_STEPS = 2
 FIT_FRAMES = 11
 # Phase 6b: the demo's steps an epoch, and a --rollouts-per-dispatch K
-# (accepted, no effect until the batched forward).
+# (the amortized serve; its report held to K = 1's within SERVE_K_RTOL).
 DEMO_STEPS = 8
 DEMO_K = 4
 # The COO routes of the processor, the switches that pick them (the JAX
@@ -439,7 +468,14 @@ REGIONAL_HIDDEN = 256
 REGIONAL_STEPS = 3
 
 
+_T0 = time.perf_counter()
+
+
 def _log(*args):
+    """Print a line; a phase's first line carries the seconds since the
+    script started."""
+    if args and str(args[0]).startswith("phase "):
+        args = (f"[{time.perf_counter() - _T0:.1f} s]",) + args
     print(*args, flush=True)
 
 
@@ -1422,7 +1458,8 @@ def _stage_ms(model, run):
 
 
 def _profile(run, top_n=12):
-    """(device busy ms, wall ms, [(kernel, calls, device ms)]) of one run
+    """(device busy ms, wall ms, [(kernel, calls, device ms)] of the
+    ``top_n`` kernels by device time, or of all with None) of one run
     under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1701,7 +1738,8 @@ def phase_numerics():
     from graphcast_lite_torch.training.rollout import RolloutSpec, \
         rollout_predict
 
-    _log("phase 4: 64x32 flagship architecture, fp32, card vs CPU, AR-4 "
+    _log("phase 4: 64x32 flagship architecture, fp32, card vs CPU, "
+         f"AR-{CPU_AR_STEPS} "
          f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, {E2E_TOL})")
     cfg = presets.interaction_net_64x32()
@@ -1725,19 +1763,24 @@ def phase_numerics():
             return m(inp, gr)[0], None
 
         with torch.inference_mode():
-            out = rollout_predict(model_fn, window.to(device), AR_STEPS, spec)
+            out = rollout_predict(model_fn, window.to(device), CPU_AR_STEPS,
+                                  spec)
         return out.cpu()
 
     routes = {"reg-block": ({}, {"segment_sum": 8, "edge_mlp": 0,
                                  "edge_step": 0})}
     routes.update(COO_ROUTES)
-    for name, (env, expected) in routes.items():
+    for name, (env, per_ar4) in routes.items():
+        # The routes' launches, stated per AR-4 rollout, every AR step alike.
+        expected = {k: n * CPU_AR_STEPS // AR_STEPS
+                    for k, n in per_ar4.items()}
         with _route(env):
             _reset_launches()
             card = run("cuda")
             counts = _launches()
             cpu = run("cpu")
-        if card.shape != (g, AR_STEPS, c) or not torch.isfinite(card).all():
+        if card.shape != (g, CPU_AR_STEPS, c) \
+                or not torch.isfinite(card).all():
             raise AssertionError(f"{name}: card output {tuple(card.shape)} "
                                  "not finite")
         if counts != expected:
@@ -1870,10 +1913,11 @@ def phase_train_numerics():
     from graphcast_lite_torch.training.rollout import RolloutSpec
     from graphcast_lite_torch.training.trainer import make_train_step
 
-    _log("phase 5b: 64x32 flagship architecture, fp32 AR-4 train step, card "
-         f"vs CPU (loss rtol {TRAIN_LOSS_RTOL}, each gradient "
-         f"{TRAIN_GRAD_RTOL} x its largest + 1e-6)")
+    _log(f"phase 5b: 64x32 flagship architecture, fp32 AR-{CPU_AR_STEPS} "
+         f"train step, card vs CPU (loss rtol {TRAIN_LOSS_RTOL}, each "
+         f"gradient {TRAIN_GRAD_RTOL} x its largest + 1e-6)")
     cfg = presets.interaction_net_64x32()
+    cfg.max_ar_steps = CPU_AR_STEPS
     lat, lon = presets.wb2_64x32_grid()
     gs = build_graph_set(lat, lon, cfg.graph.mesh_levels,
                          cfg.graph.grid2mesh_radius_query)
@@ -1886,14 +1930,14 @@ def phase_train_numerics():
                        use_residual=cfg.use_residual, remat=True)
     rng = np.random.RandomState(0)
     x = rng.randn(1, g, obs * c).astype(np.float32)
-    y = rng.randn(1, g, AR_STEPS * c).astype(np.float32)
+    y = rng.randn(1, g, CPU_AR_STEPS * c).astype(np.float32)
     lw = lat_weights_from_axis(len(lat), len(lon))
     out = {}
     for device in ("cuda", "cpu"):
         m = copy.deepcopy(model)
         step = make_train_step(m, graphs, spec, cfg, device=device,
                                lat_weights=lw)
-        parts = _train_launches(m, step.graphs)
+        parts = _train_launches(m, step.graphs, CPU_AR_STEPS)
         before = {n: p.detach().cpu().clone()
                   for n, p in m.named_parameters()}
         _reset_launches()
@@ -2438,9 +2482,10 @@ def phase_demo(workdir):
             reports.append(json.load(f))
         if _launches()["segment_sum"] == 0:
             raise AssertionError(f"predict K={k} launched no segment sum")
-    if reports[0] != reports[1]:
-        raise AssertionError(f"--rollouts-per-dispatch {DEMO_K} report "
-                             "differs from K = 1's")
+    # The amortized serve: K samples in one batched rollout, whose GEMMs
+    # sum in other orders than the single-sample ones.
+    k_rel = _reports_close(f"--rollouts-per-dispatch {DEMO_K} report",
+                           reports[1], reports[0], SERVE_K_RTOL)
     rep = reports[0]
     _log(f"  train {train_s:.1f} s: {len(per_step)} steps, segment sums per "
          f"step {min(per_step)}-{max(per_step)}, {train_counts}; loss "
@@ -2448,13 +2493,13 @@ def phase_demo(workdir):
     _log(f"  predict ({rep['num_samples']} samples, AR 2): skill vs "
          f"persistence {rep['skill'] * 100:.2f}% (RMSE {rep['rmse']:.6f}, "
          f"persistence {rep['baseline_rmse']:.6f}); K = {DEMO_K} report "
-         "equal to K = 1's")
+         f"within {k_rel:.3e} of K = 1's (tolerance {SERVE_K_RTOL})")
     return {"train_s": train_s, "steps": len(per_step),
             "segment_sum_launches_per_step": [min(per_step), max(per_step)],
             "launches": train_counts, "train_losses": losses,
             "skill": rep["skill"], "rmse": rep["rmse"],
             "baseline_rmse": rep["baseline_rmse"],
-            "samples": rep["num_samples"], "k_equal": True}
+            "samples": rep["num_samples"], "k_report_rel_diff": k_rel}
 
 
 def _baseline_graphs():
@@ -3628,8 +3673,8 @@ def phase_regional_grids():
     61x41 grid at 0.25 deg, 50-60 N, 85-100 E: mesh [3, 5] pruned to the
     region, 19 features, hidden 128, 8 InteractionNet steps) and the
     flagship architecture on a flat 64x32 grid (per-node coordinates), fp32
-    with seeded weights: one AR-4 request and one AR-4 train step each,
-    card against CPU."""
+    with seeded weights: one AR-``CPU_AR_STEPS`` request and train step
+    each, card against CPU."""
     import copy
 
     from graphcast_lite_torch import presets
@@ -3641,9 +3686,9 @@ def phase_regional_grids():
 
     _log("phase 7d: regional mesh (61x41 at 0.25 deg, mesh [3, 5] pruned, "
          "hidden 128, 8 steps) and flat 64x32 grid, fp32, card vs CPU: one "
-         f"AR-4 request ({E2E_TOL}) and one AR-4 train step (loss rtol "
-         f"{TRAIN_LOSS_RTOL}, each gradient {TRAIN_GRAD_RTOL} x its largest "
-         "+ 1e-6)")
+         f"AR-{CPU_AR_STEPS} request ({E2E_TOL}) and one AR-{CPU_AR_STEPS} "
+         f"train step (loss rtol {TRAIN_LOSS_RTOL}, each gradient "
+         f"{TRAIN_GRAD_RTOL} x its largest + 1e-6)")
     reg_cfg = presets.interaction_net_64x32(n_feat=19, hidden=128,
                                             mp_steps=8)
     lat = (50.0 + 0.25 * np.arange(41)).astype(np.float32)
@@ -3670,9 +3715,10 @@ def phase_regional_grids():
         graphs = ModelGraphs.from_graph_set(gs)
         spec = RolloutSpec(obs_window=obs, num_features=c,
                            use_residual=cfg.use_residual, remat=True)
+        cfg.max_ar_steps = CPU_AR_STEPS
         rng = np.random.RandomState(7)
         x = rng.randn(1, g, obs * c).astype(np.float32)
-        y = rng.randn(1, g, AR_STEPS * c).astype(np.float32)
+        y = rng.randn(1, g, CPU_AR_STEPS * c).astype(np.float32)
         res = {}
         for device in ("cuda", "cpu"):
             m = copy.deepcopy(model).to(device)
@@ -3681,7 +3727,7 @@ def phase_regional_grids():
             _reset_launches()
             with torch.inference_mode():
                 pred = rollout_predict(lambda inp, mk, t, p: m(inp, gr, mk),
-                                       window, AR_STEPS, spec)
+                                       window, CPU_AR_STEPS, spec)
             req = _launches()
             routes = {s.route for s in m.processor.graph_layer.inet.steps}
             step = make_train_step(m, graphs, spec, cfg, device=device)
@@ -3744,6 +3790,15 @@ CNN_TIMED = 5
 # cuDNN off does); V2 (GroupNorm) within 1e-5.  The bound allows 4x the
 # card's worst.
 CNN_GRAD_L2_RTOL = 2e-3
+# The same step with the batch in one model call (the default since the
+# batched forward; the check above runs one call a sample, as it did when
+# it was set): its cuDNN convolutions run on 8 images at once, in other
+# algorithms, and V1's ill-conditioned fp32 gradients move with any such
+# choice.  Measured on an H100: the batch 4.5e-3 from float64;
+# with cuDNN off in one conv layer at a time, 0.9e-3 to 5.8e-3 (batch or
+# loop); all of cuDNN off 1.6e-3; the CPU's plain fp32 step 3.55e-3.  The
+# bound allows about 4x the widest of those.
+CNN_BATCH_GRAD_L2_RTOL = 2e-2
 
 
 def _cnn_setup(name):
@@ -3821,8 +3876,11 @@ def _rel_l2(grads, ref):
 def phase_cnn_numerics():
     """8a: each CNN stack at full width on 41 x 61, card against CPU in
     fp32 (TF32 off): one forward and one train step (batch 8) through the
-    port's TrainStep on the same seeded weights and batch; the gradients
-    of both against a float64 evaluation of the step on the card."""
+    port's TrainStep on the same seeded weights and batch, one model call
+    a sample (GCLT_BATCH_VMAP=0); the gradients of both against a float64
+    evaluation of the step on the card; and the card's step with the batch
+    in one call (the default) against the same evaluation, at
+    CNN_BATCH_GRAD_L2_RTOL."""
     import copy
 
     _log(f"phase 8a: the CNN stacks at full width on {CNN_GRID[0]}x"
@@ -3830,7 +3888,9 @@ def phase_cnn_numerics():
          f"({E2E_TOL}) and one batch-8 train step (losses within "
          f"{TRAIN_LOSS_RTOL} relative of each other and of float64; the "
          f"card's gradients within {CNN_GRAD_L2_RTOL} relative L2 of a "
-         "float64 evaluation, the CPU's distance reported)")
+         "float64 evaluation, the CPU's distance reported), one model call "
+         "a sample; the batched card step's gradients within "
+         f"{CNN_BATCH_GRAD_L2_RTOL} of the same evaluation)")
     out = {}
     g = CNN_GRID[0] * CNN_GRID[1]
     for name in ("v1", "v2", "downscaler"):
@@ -3845,24 +3905,28 @@ def phase_cnn_numerics():
         x = rng.randn(cfg.batch_size, g, obs * c).astype(np.float32)
         y = rng.randn(cfg.batch_size, g, ar * c).astype(np.float32)
         res = {}
-        for device, float64 in (("cuda", False), ("cpu", False),
-                                ("cuda", True)):
+        for device, float64, vmap in (("cuda", False, "0"),
+                                      ("cpu", False, "0"),
+                                      ("cuda", True, "0"),
+                                      ("cuda", False, "1")):
             m = copy.deepcopy(model)
             step = _cnn_step(m, cfg, spec, extra, device, float64=float64)
             with torch.no_grad():
                 fwd, _ = m(torch.from_numpy(x[0]).to(
                     device, next(m.parameters()).dtype))
-            loss = step(x, y).item()
+            with _batch_vmap(vmap):
+                loss = step(x, y).item()
             if device == "cuda":
                 off = [n for n, p in m.named_parameters()
                        if p.device.type != "cuda"]
                 if off or fwd.device.type != "cuda":
                     raise AssertionError(f"{name}: not on the card: "
                                          f"{off[:3]} / {fwd.device}")
-            res[device, float64] = (fwd.cpu(), loss, _grads(m))
+            res[device, float64, vmap] = (fwd.cpu(), loss, _grads(m))
         (fwd, loss, grads), (fwd_cpu, loss_cpu, grads_cpu), \
-            (_, loss64, grads64) = (res["cuda", False], res["cpu", False],
-                                    res["cuda", True])
+            (_, loss64, grads64), (_, loss_b, grads_b) = (
+                res["cuda", False, "0"], res["cpu", False, "0"],
+                res["cuda", True, "0"], res["cuda", False, "1"])
         if fwd.shape != (g, c) or not torch.isfinite(fwd).all():
             raise AssertionError(f"{name}: forward {tuple(fwd.shape)}")
         err = (fwd - fwd_cpu).abs().max().item()
@@ -3879,6 +3943,13 @@ def phase_cnn_numerics():
         if card_l2 > CNN_GRAD_L2_RTOL:
             raise AssertionError(f"{name}: card gradients {card_l2:.3e} "
                                  f"from float64 > {CNN_GRAD_L2_RTOL}")
+        batch_l2 = _rel_l2(grads_b, grads64)
+        if not (np.isfinite(loss_b)
+                and abs(loss_b - loss64) <= TRAIN_LOSS_RTOL * abs(loss64)
+                and batch_l2 <= CNN_BATCH_GRAD_L2_RTOL):
+            raise AssertionError(f"{name}: batched card step loss {loss_b} "
+                                 f"(float64 {loss64}), gradients "
+                                 f"{batch_l2:.3e} from float64")
         gmax = max(float(v.abs().max()) for v in grads64.values())
         worst = max(((grads[n].double() - r).abs().max().item() / gmax, n)
                     for n, r in grads64.items())
@@ -3892,6 +3963,9 @@ def phase_cnn_numerics():
                      "loss_float64": loss64,
                      "grad_rel_l2_card_vs_float64": card_l2,
                      "grad_rel_l2_cpu_vs_float64": cpu_l2,
+                     "loss_card_batched": loss_b,
+                     "grad_rel_l2_card_batched_vs_float64": batch_l2,
+                     "grad_rel_l2_batched_tol": CNN_BATCH_GRAD_L2_RTOL,
                      "grad_rel_l2_card_vs_cpu": card_cpu,
                      "grad_rel_l2_tol": CNN_GRAD_L2_RTOL,
                      "worst_grad_err_of_largest": worst[0],
@@ -3901,7 +3975,9 @@ def phase_cnn_numerics():
              f"{loss64:.7f}; {len(grads)} gradients, relative L2 from "
              f"float64: card {card_l2:.2e} (tol {CNN_GRAD_L2_RTOL}), cpu "
              f"{cpu_l2:.2e}; card vs cpu {card_cpu:.2e}; largest leaf error "
-             f"{worst[0]:.2e} of the largest gradient ({worst[1]})")
+             f"{worst[0]:.2e} of the largest gradient ({worst[1]}); batched "
+             f"card step: loss {loss_b:.7f}, gradients {batch_l2:.2e} from "
+             f"float64 (tol {CNN_BATCH_GRAD_L2_RTOL})")
     return out
 
 
@@ -4117,10 +4193,10 @@ def phase_cnn_cascade(workdir):
 
 
 # Phase 9: data assimilation and the serving entry points.
-# 9a: the DA requests of each dtype (3 samples each: one window each of
-# the 11-frame set's first three), nudging's stations, and the README's
+# 9a: the DA requests of each dtype (2 samples each: one window each of
+# the 11-frame set's first two), nudging's stations, and the README's
 # ROI for OI (6,498 points of the 512x256 grid).
-DA_REQUESTS = 3
+DA_REQUESTS = 2
 DA_SPARSITY = 0.1
 DA_ROI_POINTS = 6498
 # 9b: the ladder's MOS calibration samples and evaluated samples, AR 4.
@@ -5197,7 +5273,7 @@ def phase_offline(workdir, smi, ctx=None):
 
 SHARDED_STEPS = 3          # 11a: timed bf16 steps (the first a warm-up)
 SHARDED_RANKS = 4          # 11b: ranks on the one card
-SHARDED_RANK_STEPS = 2
+SHARDED_RANK_STEPS = 1
 SHARDED_FIT_STEPS = 2      # 11c
 SHARDED_TIMEOUT_S = 600
 # 11a: the bf16 sharded step's loss against its fp32 twin, relative.
@@ -5897,6 +5973,756 @@ def phase_sharded(ctx, smi):
             "fit": fit, "wall_s": wall_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the batched forward (B samples in one model call).
+
+# 12a: the batch sizes of the fused kernels' cases, and the segment sum's.
+BATCH_SIZES = (2, 3)
+SEGMENT_BATCH = 4
+# 12b: the flagship train step's batch, its routes (switches, the route
+# every processor step records, COO processor, GCLT_MEGA_EDGE) and its
+# steps a mode (a warm-up, one timed and, batched, one profiled).  The
+# batched and the looped first losses (bf16 against fp32 masters, the same
+# weights and batch) may differ where a bf16 product's fp32 sum rounds to
+# the other side of a bf16 boundary in one of them (the GEMMs of B rows
+# and of one sample's may take other tilings); the bound allows 16 bf16
+# roundings of the loss.  (Measured equal on an H100.)
+TRAIN_BATCH = 2
+BATCH_TRAIN_ROUTES = {
+    "reg_block": ({}, "reg_block", False, False),
+    "fused_mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"}, "fused",
+                   True, True),
+}
+BATCH_TRAIN_STEPS = 3
+BATCH_LOSS_RTOL = 2.0 ** -4 * 2.0 ** -8
+# 12c: the amortized serve, K samples' trajectories in one batched rollout,
+# over SERVE_SAMPLES samples (a chunk of 4 and one of 1), fp32 with TF32
+# off: every number of the K report within SERVE_K_RTOL of the K = 1
+# report's (relative; 1e-12 absolute for values at 0): the batched GEMMs
+# sum in other orders than the single-sample ones.
+SERVE_K = 4
+SERVE_SAMPLES = 5
+SERVE_K_RTOL = 1e-5
+# ... at AR 2: the host's metrics (about 1.5 s a sample an AR step) are
+# most of a request, and the chunking needs no more steps.
+SERVE_AR = 2
+# The bf16 requests on the COO edge-step and mega routes: one chunk of 2
+# (the batched fused kernels on the serve's path; the host's metrics take
+# about 3 s a sample).
+FUSED_SERVE_SAMPLES = 2
+# 12d: the CNN stacks' batch-8 train step, batched against one call a
+# sample (fp32, TF32 off): the first losses within CNN_BATCH_RTOL (cuDNN
+# picks other algorithms at batch 8 and 1; BatchStatNorm's fp32 statistics
+# amplify that, see CNN_GRAD_L2_RTOL), and the steps timed.
+CNN_BATCH_RTOL = 1e-4
+CNN_BATCH_STEPS = 3
+
+
+@contextlib.contextmanager
+def _batch_vmap(flag: str):
+    """GCLT_BATCH_VMAP for the block (1: one model call a batch, 0: one a
+    sample); restored after."""
+    saved = os.environ.get("GCLT_BATCH_VMAP")
+    os.environ["GCLT_BATCH_VMAP"] = flag
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("GCLT_BATCH_VMAP", None)
+        else:
+            os.environ["GCLT_BATCH_VMAP"] = saved
+
+
+_PER_SAMPLE_KEYS = ("h_pre", "xsg", "v", "xr", "w1e", "b_eff", "a", "c")
+
+
+def _batched_case(gen, b, recv, r, hid, de, dtype):
+    """(batched inputs, per-sample cases): ``b`` draws of ``_fused_case``
+    on one receiver layout (so one mask and indptr), the per-sample inputs
+    stacked on a leading axis; W2 and b2 are sample 0's, shared."""
+    cases = [_fused_case(gen, 0, r, hid, de, dtype, recv=recv)
+             for _ in range(b)]
+    t = {k: torch.stack([c[k] for c in cases]) for k in _PER_SAMPLE_KEYS}
+    for k in ("w2", "b2", "mask", "indptr"):
+        t[k] = cases[0][k]
+    for c in cases:
+        c["w2"], c["b2"] = t["w2"], t["b2"]
+    return t, cases
+
+
+def _batched_mlp_check(label, t, cases, r, design):
+    """A batched edge_mlp launch against its batched plain version, and
+    each sample of it bitwise against a launch on that sample alone."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+
+    hid, de = t["w2"].shape
+    took = _mlp_design(t["h_pre"].dtype, hid, de)
+    if took != design:
+        raise AssertionError(f"edge_mlp {label}: design {took}, expected "
+                             f"{design}")
+    args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r)
+    u, agg = edge_mlp.edge_mlp(*args)
+    u_ref, agg_ref = edge_mlp.edge_mlp_reference(*args)
+    mag = cuda_segment.segment_sum_reference(
+        u_ref.float().abs() * t["mask"].float()[:, None], t["indptr"], r)
+    tol = FUSED_FP32_TOL if u.dtype == torch.float32 else FUSED_BF16_TOL
+    err = max(_close(f"edge_mlp {label} u", u, u_ref, tol),
+              _close(f"edge_mlp {label} agg", agg, agg_ref, tol,
+                     ORDER_RTOL * mag))
+    for i, c in enumerate(cases):
+        ui, aggi = edge_mlp.edge_mlp(c["h_pre"], t["w2"], t["b2"], t["mask"],
+                                     t["indptr"], r)
+        if not (torch.equal(ui, u[i]) and torch.equal(aggi, agg[i])):
+            raise AssertionError(f"edge_mlp {label}: sample {i} of the "
+                                 "batched launch differs from its own launch")
+    _log(f"  edge_mlp  {label:<52s} {str(u.dtype):<15s} max|err| {err:.3e} "
+         f"ok ({took}); each sample bitwise its own launch")
+    return err
+
+
+def _batched_step_args(t, r):
+    return (t["xsg"], t["v"], t["xr"], t["w1e"], t["b_eff"], t["w2"],
+            t["b2"], t["a"], t["c"], t["mask"], t["indptr"], r, "swish")
+
+
+def _batched_step_check(label, t, cases, r, design):
+    """A batched edge_step launch (per-sample W1e, b_eff, a, c) against its
+    batched plain version, and each sample of it (v', agg, stats) bitwise
+    against a launch on that sample alone."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_step
+
+    de, hid = t["w1e"].shape[-2:]
+    took = _step_design(t["v"].dtype, hid, de)
+    if took != design:
+        raise AssertionError(f"edge_step {label}: design {took}, expected "
+                             f"{design}")
+    args = _batched_step_args(t, r)
+    v_new, agg, stats = edge_step.edge_step(*args)
+    v_ref, agg_ref, stats_ref = edge_step.edge_step_reference(*args)
+    if stats.shape != (v_new.shape[0], 3):
+        raise AssertionError(f"edge_step {label}: stats {stats.shape}")
+    w = t["mask"].float()[:, None]
+    u_mag = (v_ref.float() - t["a"][:, None, :] * t["v"].float()
+             - t["c"][:, None, :]).abs() * w
+    agg_mag = cuda_segment.segment_sum_reference(u_mag, t["indptr"], r)
+    vf = v_ref.float()
+    stats_mag = torch.stack([(vf.abs() * w).sum((-2, -1)),
+                             (vf.square() * w).sum((-2, -1)),
+                             w.sum().expand(vf.shape[0])], dim=-1)
+    tol = FUSED_FP32_TOL if v_new.dtype == torch.float32 else FUSED_BF16_TOL
+    err = max(_close(f"edge_step {label} v_new", v_new, v_ref, tol),
+              _close(f"edge_step {label} agg", agg, agg_ref, tol,
+                     ORDER_RTOL * agg_mag))
+    stats_err = _close(f"edge_step {label} stats", stats, stats_ref,
+                       dict(atol=0.0, rtol=0.0), STATS_RTOL * stats_mag)
+    if not torch.equal(stats[:, 2], stats_ref[:, 2]):
+        raise AssertionError(f"edge_step {label}: row counts {stats[:, 2]}")
+    for i, c in enumerate(cases):
+        out = edge_step.edge_step(*_step_args(c, r))
+        if not all(torch.equal(a, b[i]) for a, b in zip(out, (v_new, agg,
+                                                              stats))):
+            raise AssertionError(f"edge_step {label}: sample {i} of the "
+                                 "batched launch differs from its own launch")
+    _log(f"  edge_step {label:<52s} {str(v_new.dtype):<15s} max|err| "
+         f"{err:.3e}, stats {stats_err:.3e} ok ({took}); each sample "
+         "bitwise its own launch")
+    return err
+
+
+def _time_batched(label, batched, singles, plain, bound):
+    """A batched launch against B single launches (in turns: batched,
+    singles, singles, batched; CUDA events) and the batched plain
+    version."""
+    runs = {"batched": [], "singles": []}
+    for which in ("batched", "singles", "singles", "batched"):
+        fn = batched if which == "batched" else singles
+        runs[which].append(_time_ms(fn, iters=20, warmup=3))
+    ms = sum(runs["batched"]) / 2
+    singles_ms = sum(runs["singles"]) / 2
+    plain_ms = _time_ms(plain, iters=3, warmup=1)
+    bound_ms, bound_by = bound
+    _log(f"  {label}: batched launch "
+         + ", ".join(f"{t * 1e3:.1f}" for t in runs["batched"])
+         + " us | the samples one launch each "
+         + ", ".join(f"{t * 1e3:.1f}" for t in runs["singles"])
+         + f" us | bound {bound_ms * 1e3:.1f} us ({bound_by}) | plain "
+         f"{plain_ms * 1e3:.1f} us")
+    return {"ms": ms, "ms_runs": runs["batched"], "single_launches_ms":
+            singles_ms, "single_launches_ms_runs": runs["singles"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "fraction_of_bound": bound_ms / ms}
+
+
+def phase_batched_kernels(gs):
+    """12a: the three kernels on batches.  The fused kernels at B = 2 and 3
+    on every design (bf16 and fp32 at H = De = 256, tile16 at H = 384)
+    and on phase 1b's tilings, each against its batched plain version at
+    the stated tolerances and each sample bitwise against a launch on that
+    sample alone; the segment sum at the flagship encoder and processor
+    shapes at B = 4, bitwise against single launches; each at the flagship
+    shapes timed beside its B single launches."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step
+
+    _log(f"phase 12a: the kernels on batches (B in {BATCH_SIZES}; fp32 "
+         f"{FUSED_FP32_TOL}, bf16 {FUSED_BF16_TOL}; each sample bitwise "
+         "against its own launch)")
+    gen = torch.Generator().manual_seed(12)
+    for dtype in (torch.float32, torch.bfloat16):
+        hop = "hopper_fp32" if dtype == torch.float32 else "hopper_bf16"
+        for b in BATCH_SIZES:
+            recv = torch.sort(torch.randint(0, 20_001, (60_000,),
+                                            generator=gen)).values
+            label = f"B={b} E=60000 R=20001 H=De=256"
+            t, cases = _batched_case(gen, b, recv, 20_001, 256, 256, dtype)
+            _batched_mlp_check(label, t, cases, 20_001, hop)
+            _batched_step_check(label, t, cases, 20_001, hop)
+            for tl, r, rcv in _tiling_cases(gen):
+                t, cases = _batched_case(gen, b, rcv, r, 256, 256, dtype)
+                _batched_mlp_check(f"B={b} {tl}", t, cases, r, hop)
+                _batched_step_check(f"B={b} {tl}", t, cases, r, hop)
+            # The 16-receiver design (H = 384; the fp32 edge step at
+            # 384 x 384 exceeds a block's shared memory: 384 x 128).
+            recv = torch.sort(torch.randint(0, 6_001, (20_000,),
+                                            generator=gen)).values
+            t, cases = _batched_case(gen, b, recv, 6_001, 384, 384, dtype)
+            _batched_mlp_check(f"B={b} E=20000 R=6001 H=De=384", t, cases,
+                               6_001, "tile16")
+            de = 384 if dtype == torch.bfloat16 else 128
+            t, cases = _batched_case(gen, b, recv, 6_001, 384, de, dtype)
+            _batched_step_check(f"B={b} E=20000 R=6001 H=384 De={de}", t,
+                                cases, 6_001, "tile16")
+
+    # The flagship shapes, bf16: the fused kernels on the multimesh at
+    # B = 2, the segment sum on the encoder and the multimesh at B = 4.
+    out = {}
+    gcuda = torch.Generator(device="cuda").manual_seed(12)
+    proc = gs.processing.to("cuda", torch.bfloat16)
+    r, e_pad, hid = proc.num_receivers, proc.padded_num_edges, 256
+    b = TRAIN_BATCH
+    t, cases = _batched_case(gen, b, gs.processing.receivers.long(), r, hid,
+                             hid, torch.bfloat16)
+    t["mask"] = proc.edge_mask
+    for c in cases:
+        c["mask"] = proc.edge_mask
+    label = f"flagship multimesh B={b} E_pad={e_pad} R={r} H=De={hid}"
+    mlp_err = _batched_mlp_check(label, t, cases, r, "hopper_bf16")
+    step_err = _batched_step_check(label, t, cases, r, "hopper_bf16")
+    mlp_args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r)
+    mlp_bytes = (_nbytes(t["h_pre"], t["w2"], t["b2"], t["mask"],
+                         t["indptr"]) + b * (e_pad + r) * hid * 2)
+    out["edge_mlp"] = dict(_time_batched(
+        f"edge_mlp {label}", lambda: edge_mlp.edge_mlp(*mlp_args),
+        lambda: [edge_mlp.edge_mlp(c["h_pre"], *mlp_args[1:])
+                 for c in cases],
+        lambda: edge_mlp.edge_mlp_reference(*mlp_args),
+        _bound(mlp_bytes, 2 * b * e_pad * hid * hid)),
+        batch=b, max_abs_err=mlp_err, design="hopper_bf16",
+        library_ms=None, library_call=None)
+    step_args = _batched_step_args(t, r)
+    step_bytes = (_nbytes(*step_args[:11]) + b * (e_pad + r) * hid * 2
+                  + b * 3 * 4)
+    out["edge_step"] = dict(_time_batched(
+        f"edge_step {label}", lambda: edge_step.edge_step(*step_args),
+        lambda: [edge_step.edge_step(*_step_args(c, r)) for c in cases],
+        lambda: edge_step.edge_step_reference(*step_args),
+        _bound(step_bytes, 4 * b * e_pad * hid * hid)),
+        batch=b, max_abs_err=step_err, design="hopper_bf16",
+        library_ms=None, library_call=None)
+
+    seg = {}
+    enc = gs.encoding.to("cuda")
+    b = SEGMENT_BATCH
+    # The multimesh at F 256 (balanced) and F 19 (narrow, the width of the
+    # decoder's gather adjoint).
+    for name, graph, f in (("encoder G2M", enc, 256),
+                           ("multimesh", proc, 256),
+                           ("multimesh F=19", proc, 19)):
+        e, rr = graph.padded_num_edges, graph.num_receivers
+        msgs = (torch.randn(b, e, f, generator=gcuda, device="cuda")
+                * graph.edge_mask.float()[:, None]).to(torch.bfloat16)
+        indptr = graph.indptr
+        whole = cuda_segment.segment_sum(msgs, indptr, rr)
+        ref = cuda_segment.segment_sum_reference(msgs, indptr, rr)
+        mag = cuda_segment.segment_sum_reference(msgs.float().abs(), indptr,
+                                                 rr)
+        err = _close(f"segment_sum {name} B={b}", whole, ref, BF16_TOL,
+                     ORDER_RTOL * mag)
+        for i in range(b):
+            if not torch.equal(cuda_segment.segment_sum(msgs[i], indptr, rr),
+                               whole[i]):
+                raise AssertionError(f"segment_sum {name}: sample {i} of the "
+                                     "batched launch differs from its own")
+        _log(f"  segment_sum {name} B={b} E_pad={e} R={rr} F={f} bf16: "
+             f"max|err| {err:.3e} ok "
+             f"({cuda_segment.segment_design(msgs.dtype, f)}); each "
+             "sample bitwise its own launch")
+        counts = (indptr[1:] - indptr[:-1]).long()
+        recv_ids = torch.repeat_interleave(
+            torch.arange(rr, device="cuda"), counts, output_size=e)
+        lib_out = torch.zeros(b, rr, f, dtype=msgs.dtype, device="cuda")
+        nbytes = _nbytes(msgs, indptr) + b * rr * f * 2
+        row = _time_batched(
+            f"segment_sum {name} B={b}",
+            lambda: cuda_segment.segment_sum(msgs, indptr, rr),
+            lambda: [cuda_segment.segment_sum(msgs[i], indptr, rr)
+                     for i in range(b)],
+            lambda: cuda_segment.segment_sum_reference(msgs, indptr, rr),
+            _bound(nbytes, msgs.numel()))
+        row["library_call"] = "out.index_add_(-2, receiver_ids, msgs)"
+        row["library_ms"] = _time_ms(
+            lambda: lib_out.index_add_(-2, recv_ids, msgs))
+        _log(f"    {row['library_call']}: {row['library_ms'] * 1e3:.1f} us")
+        seg[name] = dict(row, batch=b, max_abs_err=err,
+                         design=cuda_segment.segment_design(msgs.dtype, f))
+    out["segment_sum"] = seg
+    return out
+
+
+def _batched_serve_data(workdir, cfg):
+    """A seeded 11-frame 512x256 synthetic set, every window as a sample
+    (6 of obs 2 + AR 4)."""
+    from graphcast_lite_torch.data.dataset import load_chunked_datasets
+    from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
+
+    n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    data_dir = generate_synthetic_dataset(
+        os.path.join(workdir, "batched_data"), n_time=FIT_FRAMES, n_lon=512,
+        n_lat=256, n_feat=n_feat, static_channels=list(cfg.static_channels),
+        seed=12)
+    _, _, ds, meta = load_chunked_datasets(
+        data_dir, obs_window=obs, pred_steps=AR_STEPS, n_features=n_feat,
+        test_split="all")
+    if len(ds) < SERVE_SAMPLES:
+        raise AssertionError(f"{len(ds)} samples, {SERVE_SAMPLES} needed")
+    return ds, meta
+
+
+def _profile_counted(run):
+    """(device busy ms, wall ms, device kernels) of one run under
+    torch.profiler."""
+    busy_ms, wall_ms, kernels = _profile(run, top_n=None)
+    return busy_ms, wall_ms, sum(n for _, n, _ in kernels)
+
+
+def _timed_steps(step, x, y, n, profile=True):
+    """n steps of ``step`` on one batch: the first a warm-up, the last
+    profiled where ``profile``, the others timed (CUDA events), each one's
+    launches counted.  Returns (losses, step ms, launches of each step,
+    peak bytes, (busy ms, wall ms, device kernels) of the profiled step or
+    None)."""
+    losses, ms, counts = [], [], []
+    prof = None
+    for i in range(n):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        if profile and i == n - 1:
+            holder = []
+            prof = _profile_counted(lambda: holder.append(step(x, y)))
+            loss = holder[0]
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(x, y)
+            end.record()
+            torch.cuda.synchronize()
+            if i > 0:
+                ms.append(start.elapsed_time(end))
+        if i == (n - 2 if profile else n - 1):
+            peak = torch.cuda.max_memory_allocated()
+        counts.append(dict(_launches(), by_csr=dict(
+            _kernel_modules()["segment_sum"].launches_by_csr)))
+        losses.append(loss.item())
+    return losses, ms, counts, peak, prof
+
+
+def phase_batched_train(ctx, x, y):
+    """12b: the flagship train step at B = 2 (bf16 against fp32 masters,
+    AR 4) on the reg-block default and the COO fused + mega routes, the
+    batch in one model call against GCLT_BATCH_VMAP=0 (one a sample): the
+    first steps' losses (the same weights) within BATCH_LOSS_RTOL, exact
+    launches every step (the batched step as many as one sample's, the
+    looped one twice that), step ms, peak memory, the batched step's idle
+    share."""
+    _log(f"phase 12b: flagship 512x256 AR-4 train step at B={TRAIN_BATCH}, "
+         "bf16 against fp32 masters, the batch in one model call against "
+         f"GCLT_BATCH_VMAP=0 (first losses within {BATCH_LOSS_RTOL:.3e})")
+    out = {}
+    for name, (env, route, coo, mega) in BATCH_TRAIN_ROUTES.items():
+        row = {}
+        with _route(env):
+            for mode, flag in (("batched", "1"), ("loop", "0")):
+                with _batch_vmap(flag):
+                    model, step = _flagship_step(ctx, ctx["model"],
+                                                 "bfloat16")
+                    parts, mlp = _coo_train_launches(model, step.graphs, coo,
+                                                     mega)
+                    times = 1 if mode == "batched" else TRAIN_BATCH
+                    want = {key: n * times for key, n in parts.values()}
+                    # The looped step's trace is not taken: its 40,000
+                    # kernels cost the profiler more than the step.
+                    batched = mode == "batched"
+                    losses, ms, counts, peak, prof = _timed_steps(
+                        step, x, y, BATCH_TRAIN_STEPS - (not batched),
+                        profile=batched)
+                    # The first step's loss: both modes' copies start from
+                    # the same weights.
+                    fwd = losses[0]
+                    routes = {s.route for s in
+                              model.processor.graph_layer.inet.steps}
+                    if routes != {route}:
+                        raise AssertionError(f"12b {name} {mode}: routes "
+                                             f"{routes}")
+                    for i, c in enumerate(counts):
+                        if (c["by_csr"] != want
+                                or c["edge_mlp"] != mlp * times
+                                or c["edge_step"] != 0
+                                or c["segment_sum"] != sum(want.values())):
+                            raise AssertionError(
+                                f"12b {name} {mode} step {i}: launches "
+                                f"{c}, expected {want}, edge_mlp "
+                                f"{mlp * times}")
+                    if not all(np.isfinite(losses)):
+                        raise AssertionError(f"12b {name} {mode}: losses "
+                                             f"{losses}")
+                    row[mode] = {
+                        "first_loss": fwd, "losses": losses,
+                        "step_ms": sum(ms) / len(ms), "step_ms_runs": ms,
+                        "peak_mem_bytes": peak,
+                        "launches_per_step": {k: v for k, v in
+                                              counts[-1].items()
+                                              if k != "by_csr"}}
+                    line = (f"  {name} {mode}: first loss {fwd:.7f}; "
+                            "steps " + ", ".join(f"{t:.2f}" for t in ms)
+                            + f" ms; launches a step "
+                            f"{row[mode]['launches_per_step']}; peak "
+                            f"{peak / 2**30:.3f} GiB")
+                    if prof is not None:
+                        busy, wall, kern = prof
+                        row[mode].update(
+                            device_busy_ms=busy, profiled_wall_ms=wall,
+                            device_idle_share=1.0 - busy / wall,
+                            device_kernels_per_step=kern)
+                        line += (f"; profiled step idle "
+                                 f"{1.0 - busy / wall:.3f} ({busy:.1f} of "
+                                 f"{wall:.1f} ms busy, {kern} device "
+                                 "kernels)")
+                    _log(line)
+                    del model, step
+                    torch.cuda.empty_cache()
+        rel = abs(row["batched"]["first_loss"] - row["loop"][
+            "first_loss"]) / abs(row["loop"]["first_loss"])
+        if rel > BATCH_LOSS_RTOL:
+            raise AssertionError(f"12b {name}: batched first loss "
+                                 f"{row['batched']['first_loss']} vs loop "
+                                 f"{row['loop']['first_loss']} ({rel:.3e})")
+        row["first_loss_rel_diff"] = rel
+        row["speedup"] = row["loop"]["step_ms"] / row["batched"]["step_ms"]
+        _log(f"  {name}: batched / loop first loss {rel:.3e} apart; step "
+             f"{row['batched']['step_ms']:.2f} against "
+             f"{row['loop']['step_ms']:.2f} ms (x{row['speedup']:.3f})")
+        out[name] = row
+    return out
+
+
+def _report_numbers(obj, path=""):
+    """The numbers of a report's JSON by path, and its other leaves."""
+    if isinstance(obj, dict):
+        items = [(f"{path}.{k}", v) for k, v in sorted(obj.items())]
+    elif isinstance(obj, (list, tuple)):
+        items = [(f"{path}[{i}]", v) for i, v in enumerate(obj)]
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return {path: float(obj)}, {}
+    else:
+        return {}, {path: obj}
+    nums, other = {}, {}
+    for p, v in items:
+        n, o = _report_numbers(v, p)
+        nums.update(n)
+        other.update(o)
+    return nums, other
+
+
+def _reports_close(label, got, want, rtol):
+    """Raise unless two reports have the same structure and other leaves
+    and every number within ``rtol`` (1e-12 absolute at 0); returns the
+    largest relative difference."""
+    (gn, go), (wn, wo) = _report_numbers(got), _report_numbers(want)
+    if go != wo or set(gn) != set(wn):
+        raise AssertionError(f"{label}: reports differ in structure")
+    worst = 0.0
+    for p, w in wn.items():
+        d = abs(gn[p] - w)
+        if d > rtol * abs(w) + 1e-12:
+            raise AssertionError(f"{label}: {p} {gn[p]!r} vs {w!r}")
+        worst = max(worst, d / abs(w) if w else 0.0)
+    return worst
+
+
+class _CallRecorder:
+    """Counts the forward calls of every module of ``cls`` (the serving
+    copies ``evaluate_model`` makes included) by the leading shape of their
+    input (() for one sample, (K,) for a batch of K)."""
+
+    def __init__(self, cls):
+        self.cls, self.calls = cls, {}
+        self.handle = torch.nn.modules.module \
+            .register_module_forward_pre_hook(self._pre)
+
+    def _pre(self, m, args):
+        if not isinstance(m, self.cls):
+            return
+        key = tuple(args[0].shape[:-2])
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def take(self):
+        calls, self.calls = self.calls, {}
+        return {("x".join(map(str, k)) or "1 sample"): n
+                for k, n in calls.items()}
+
+
+def phase_batched_serve(ctx, ds, meta):
+    """12c: the amortized serve.  The flagship through ``evaluate_model``
+    over SERVE_SAMPLES samples at AR SERVE_AR, K = SERVE_K against K = 1
+    in fp32 (TF32
+    off): every metric within SERVE_K_RTOL, one model call an AR step a
+    chunk, exact launches, wall ms; one K = 4 bf16 request of
+    FUSED_SERVE_SAMPLES samples on the COO edge-step and mega routes (their
+    batched kernels on the main path, exact launches); an AR-4 rollout of
+    4 samples in one batched call against 4 single rollouts (bf16, CUDA
+    events)."""
+    import copy
+
+    from graphcast_lite_torch.inference.predict import evaluate_model
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.training.rollout import rollout_predict
+
+    _log(f"phase 12c: amortized serve, evaluate_model(rollouts_per_dispatch="
+         f"{SERVE_K}) over {SERVE_SAMPLES} samples, AR {SERVE_AR}, against "
+         f"K = 1 (fp32, metrics within {SERVE_K_RTOL}); K = {SERVE_K} bf16 "
+         "on the edge-step and mega routes; an AR-4 rollout of "
+         f"{SERVE_K} samples in one call against single ones")
+    spec, model, graphs = ctx["spec"], ctx["model"], ctx["graphs"]
+    cfg_kw = dict(ar_steps=SERVE_AR, use_residual=ctx["kw"]["use_residual"],
+                  static_channels=ctx["kw"]["static_channels"])
+    out = {}
+    rec = _CallRecorder(WeatherModel)
+    reports = {}
+    try:
+        for k in (1, SERVE_K):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = evaluate_model(model, graphs, ds, meta,
+                                 max_samples=SERVE_SAMPLES,
+                                 rollouts_per_dispatch=k, device="cuda",
+                                 dtype="fp32", **cfg_kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            calls, counts = rec.take(), _launches()
+            chunks = -(-SERVE_SAMPLES // k)
+            if k == 1:
+                want_calls = {"1 sample": SERVE_SAMPLES * SERVE_AR}
+            else:
+                sizes = [min(k, SERVE_SAMPLES - i)
+                         for i in range(0, SERVE_SAMPLES, k)]
+                want_calls = {}
+                for s in sizes:
+                    want_calls[str(s)] = want_calls.get(str(s), 0) + SERVE_AR
+            want = {"segment_sum": 2 * SERVE_AR * chunks, "edge_mlp": 0,
+                    "edge_step": 0}
+            if calls != want_calls or counts != want:
+                raise AssertionError(f"12c K={k}: model calls {calls} "
+                                     f"(expected {want_calls}), launches "
+                                     f"{counts} (expected {want})")
+            reports[k] = rep.to_json()
+            out[f"k{k}"] = {"wall_ms": wall, "model_calls": calls,
+                            "launches": counts, "rmse": rep.rmse,
+                            "num_samples": rep.num_samples}
+            _log(f"  fp32 K={k}: {rep.num_samples} samples, {wall:.1f} ms "
+                 f"wall ({wall / rep.num_samples:.1f} a sample); model calls "
+                 f"{calls}; launches {counts}; RMSE {rep.rmse:.7f}")
+    finally:
+        rec.handle.remove()
+    worst = _reports_close(f"12c K={SERVE_K}", reports[SERVE_K], reports[1],
+                           SERVE_K_RTOL)
+    out["report_rel_diff"] = worst
+    _log(f"  K={SERVE_K} report within {worst:.3e} of K=1's "
+         f"(tolerance {SERVE_K_RTOL})")
+
+    # bf16 on the COO routes with the fused kernels, one K-sample request.
+    smodel = copy.deepcopy(model).to("cuda", torch.bfloat16)
+    routes = {"edge_step": {"GCLT_REG_EDGE": "0", "GCLT_EDGE_STEP": "1"},
+              "mega": {"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"}}
+    rec = _CallRecorder(WeatherModel)
+    try:
+        for name, env in routes.items():
+            with _route(env):
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep = evaluate_model(smodel, graphs, ds, meta,
+                                     max_samples=FUSED_SERVE_SAMPLES,
+                                     rollouts_per_dispatch=SERVE_K,
+                                     device="cuda", dtype="bf16", **cfg_kw)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            calls, counts = rec.take(), _launches()
+            kern = "edge_step" if name == "edge_step" else "edge_mlp"
+            want = {"segment_sum": 2 * SERVE_AR, "edge_mlp": 0,
+                    "edge_step": 0}
+            want[kern] = 12 * SERVE_AR
+            if counts != want or calls != {str(FUSED_SERVE_SAMPLES):
+                                           SERVE_AR}:
+                raise AssertionError(f"12c {name}: launches {counts} "
+                                     f"(expected {want}), calls {calls}")
+            if not np.isfinite(rep.rmse):
+                raise AssertionError(f"12c {name}: RMSE {rep.rmse}")
+            out[name] = {"wall_ms": wall, "launches": counts,
+                         "model_calls": calls, "rmse": rep.rmse}
+            _log(f"  bf16 {name} K={SERVE_K}, {FUSED_SERVE_SAMPLES} samples: "
+                 f"{wall:.1f} ms wall; launches "
+                 f"{counts}; model calls {calls}; RMSE {rep.rmse:.6f}")
+    finally:
+        rec.handle.remove()
+
+    # Device time of one AR-4 rollout of K samples in one batched call
+    # against K single rollouts, bf16, reg-block.
+    sgraphs = graphs.to("cuda", torch.bfloat16)
+    g, obs, c = ds.n_nodes, spec.obs_window, spec.num_features
+    xs, ys = zip(*(ds.get(i) for i in range(SERVE_K)))
+    windows = torch.from_numpy(np.stack(xs).reshape(SERVE_K, g, obs, c)).to(
+        "cuda", torch.bfloat16)
+    forcing = torch.from_numpy(np.stack(ys)[..., :AR_STEPS * c].reshape(
+        SERVE_K, g, AR_STEPS, c)).to("cuda", torch.bfloat16)
+
+    def model_fn(inp, m, t, p):
+        return smodel(inp, sgraphs)[0], None
+
+    def batched():
+        with torch.inference_mode():
+            return rollout_predict(model_fn, windows, AR_STEPS, spec,
+                                   forcing=forcing)
+
+    def singles():
+        with torch.inference_mode():
+            return [rollout_predict(model_fn, windows[i], AR_STEPS, spec,
+                                    forcing=forcing[i])
+                    for i in range(SERVE_K)]
+
+    runs = {"batched": [], "singles": []}
+    for which in ("batched", "singles", "singles", "batched"):
+        runs[which].append(_time_ms(batched if which == "batched"
+                                    else singles, iters=1, warmup=1))
+    # [K, G, AR, C] as [K G, AR, C]: _rel_rms reads AR steps on axis 1.
+    rel = _rel_rms(batched().float().flatten(0, 1),
+                   torch.stack(singles()).float().flatten(0, 1),
+                   f"batched K={SERVE_K} rollout",
+                   ref="the same samples' single bf16 rollouts")
+    busy, wall, kern = _profile_counted(batched)
+    out["rollout"] = {
+        "batch": SERVE_K, "batched_ms": sum(runs["batched"]) / 2,
+        "batched_ms_runs": runs["batched"],
+        "singles_ms": sum(runs["singles"]) / 2,
+        "singles_ms_runs": runs["singles"], "bf16_rel_rms_vs_singles": rel,
+        "batched_device_idle_share": 1.0 - busy / wall,
+        "batched_device_kernels": kern}
+    _log(f"  AR-4 rollout of {SERVE_K} samples, bf16 reg-block: one batched "
+         "call " + ", ".join(f"{t:.2f}" for t in runs["batched"])
+         + " ms | one call a sample " + ", ".join(
+             f"{t:.2f}" for t in runs["singles"])
+         + f" ms; batched idle share {1.0 - busy / wall:.3f}, {kern} device "
+         "kernels")
+    return out
+
+
+def phase_batched_cnn():
+    """12d: each CNN stack's batch-8 train step (fp32, TF32 off) with the
+    batch in one model call against GCLT_BATCH_VMAP=0: the first steps'
+    losses (the same weights) within CNN_BATCH_RTOL; step ms for both; the
+    idle share and device kernels of a profiled batched step."""
+    import copy
+
+    _log(f"phase 12d: the CNN stacks' batch-8 train step, batched against "
+         f"GCLT_BATCH_VMAP=0 (fp32, first losses within {CNN_BATCH_RTOL})")
+    out = {}
+    for name in ("v1", "v2", "downscaler"):
+        base, cfg, spec, extra = _cnn_setup(name)
+        g = CNN_GRID[0] * CNN_GRID[1]
+        gen = torch.Generator().manual_seed(13)
+        b = CNN_CONFIG["batch_size"]
+        x = torch.randn(b, g, spec.obs_window * spec.num_features,
+                        generator=gen).cuda()
+        y = torch.randn(b, g, cfg.max_ar_steps * spec.num_features,
+                        generator=gen).cuda()
+        row = {}
+        for mode, flag in (("batched", "1"), ("loop", "0")):
+            with _batch_vmap(flag):
+                model = copy.deepcopy(base)
+                step = _cnn_step(model, cfg, spec, extra, "cuda")
+                # The looped step's trace is not taken (30,000 kernels a V2
+                # step: the profiler's cost is the step's).
+                batched = mode == "batched"
+                losses, ms, _, peak, prof = _timed_steps(
+                    step, x, y, CNN_BATCH_STEPS - (not batched),
+                    profile=batched)
+                if not all(np.isfinite(losses)):
+                    raise AssertionError(f"12d {name} {mode}: {losses}")
+                fwd = losses[0]  # the same weights in both modes
+                row[mode] = {"first_loss": fwd, "losses": losses,
+                             "step_ms": sum(ms) / len(ms),
+                             "step_ms_runs": ms, "peak_mem_bytes": peak}
+                line = (f"  {name} {mode}: first loss {fwd:.7f}; steps "
+                        + ", ".join(f"{t:.2f}" for t in ms) + " ms; peak "
+                        f"{peak / 2**30:.3f} GiB")
+                if prof is not None:
+                    busy, wall, kern = prof
+                    row[mode].update(device_busy_ms=busy,
+                                     profiled_wall_ms=wall,
+                                     device_idle_share=1.0 - busy / wall,
+                                     device_kernels_per_step=kern)
+                    line += (f"; profiled step idle {1.0 - busy / wall:.3f} "
+                             f"({busy:.1f} of {wall:.1f} ms busy, {kern} "
+                             "device kernels)")
+                _log(line)
+                del model, step
+                torch.cuda.empty_cache()
+        rel = abs(row["batched"]["first_loss"] - row["loop"][
+            "first_loss"]) / abs(row["loop"]["first_loss"])
+        if rel > CNN_BATCH_RTOL:
+            raise AssertionError(f"12d {name}: batched first loss "
+                                 f"{row['batched']['first_loss']} vs loop "
+                                 f"{row['loop']['first_loss']}")
+        row["first_loss_rel_diff"] = rel
+        row["speedup"] = row["loop"]["step_ms"] / row["batched"]["step_ms"]
+        _log(f"  {name}: losses {rel:.3e} apart; step "
+             f"{row['batched']['step_ms']:.2f} against "
+             f"{row['loop']['step_ms']:.2f} ms (x{row['speedup']:.3f})")
+        out[name] = row
+    return out
+
+
+def phase_batched(ctx, workdir, smi):
+    """Phase 12: the batched forward (12a kernels, 12b train step, 12c
+    amortized serve, 12d CNN stacks)."""
+    from graphcast_lite_torch import presets
+
+    t0 = time.perf_counter()
+    kernels = phase_batched_kernels(ctx["gs"])
+    ds, meta = _batched_serve_data(workdir, presets.interaction_net_512x256())
+    x, y = (torch.from_numpy(np.stack([a, b])).cuda()
+            for a, b in zip(ds.get(0), ds.get(1)))
+    out = {"card": smi, "kernels": kernels,
+           "train": phase_batched_train(ctx, x, y),
+           "serve": phase_batched_serve(ctx, ds, meta),
+           "cnn": phase_batched_cnn()}
+    out["phase_s"] = time.perf_counter() - t0
+    _log(f"  phase 12: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5964,6 +6790,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         offline = phase_offline(workdir, smi, da_ctx)
     sharded = phase_sharded(ctx, smi)
+    with tempfile.TemporaryDirectory() as workdir:
+        batched = phase_batched(ctx, workdir, smi)
     one_rank = sharded["one_rank"]
     ladder = assimilation["ladder"]
     fused_steps = {name: row["launches_per_step"]
@@ -6037,6 +6865,20 @@ def main() -> int:
                    if part != "kernels"},
                at_shard_shapes=sharded["four_ranks"]["kernels"][
                    "segment_sum"])
+    # Phase 12: each kernel on batches, and its launches in the batched
+    # train step (12b) and the amortized serve (12c).
+    bk, bt, bs = batched["kernels"], batched["train"], batched["serve"]
+    seg["batched"] = dict(
+        at_flagship_shapes=bk["segment_sum"],
+        launches_per_batched_train_step={
+            name: row["batched"]["launches_per_step"]["segment_sum"]
+            for name, row in bt.items()},
+        launches_per_looped_train_step={
+            name: row["loop"]["launches_per_step"]["segment_sum"]
+            for name, row in bt.items()},
+        launches_in_amortized_serve={
+            key: bs[key]["launches"]["segment_sum"]
+            for key in (f"k{SERVE_K}", "k1", "edge_step", "mega")})
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -6064,6 +6906,14 @@ def main() -> int:
             "fp32, H and De in {128, 256}": "hopper_fp32",
             "wider rows": "tile16"}
         extra["at_flagship_fp32"] = flagship32[name]
+        serve_route = "mega" if name == "edge_mlp" else "edge_step"
+        extra["batched"] = dict(
+            bk[name],
+            launches_in_amortized_serve=bs[serve_route]["launches"][name],
+            launches_per_batched_train_step=bt["fused_mega"]["batched"][
+                "launches_per_step"][name],
+            launches_per_looped_train_step=bt["fused_mega"]["loop"][
+                "launches_per_step"][name])
         kernels.append((name, src, tpu, dict(
             k, **extra, launches=n, launches_per_rollout=n,
             launches_per_train_step=train["launches_per_step"][name],
@@ -6080,6 +6930,7 @@ def main() -> int:
     _log(json.dumps({"assimilation": assimilation}))
     _log(json.dumps({"offline": offline}))
     _log(json.dumps({"sharded": sharded}))
+    _log(json.dumps({"batched": batched}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

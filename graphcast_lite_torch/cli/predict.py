@@ -101,9 +101,9 @@ def main(argv=None):
     parser.add_argument("--save-preds", default=None)
     parser.add_argument("--report-json", default=None)
     parser.add_argument("--rollouts-per-dispatch", type=int, default=1,
-                        help="accepted as the JAX package's amortized "
-                        "serve takes it; no effect until the batched "
-                        "forward (ROADMAP): each sample is its own rollout")
+                        help="amortized serve: K samples' whole "
+                        "trajectories as one batched rollout (no --da, "
+                        "one-step models)")
     # Data assimilation.
     parser.add_argument("--da", choices=["none", "nudging", "oi"],
                         default="none")

@@ -29,6 +29,15 @@
 // products at 495 TFLOP/s), bound it: 0.207 ms at the flagship, 0.181 ms
 // at the regional head's processing shape (E_pad 228,352, R 41,046).
 //
+// A batch.  B samples on one graph (the model's batched forward) share W2,
+// b2, the mask and indptr; h_pre, u and agg carry a leading sample axis
+// (rows = E_pad rows a sample, R aggregate rows a sample).  One launch
+// takes the whole batch: the 16-receiver and fp32 designs as a second grid
+// axis (blockIdx.y, the sample), the bf16 design's persistent blocks by
+// walking (sample, group) items, so that W2, loaded once a block, stays
+// resident across the samples a block takes.  Every sample's sums are the
+// ones a launch on that sample alone computes.
+//
 // Three designs (design() below).  Rows wider than 256 keep the
 // 16-receiver design of edge_tile.cuh: a block per 16 receivers, wmma (bf16)
 // or FMA (fp32) products into an fp32 tile in shared memory with W2
@@ -168,8 +177,12 @@ edge_mlp_kernel(const T* __restrict__ h, const T* __restrict__ w2,
                 const T* __restrict__ b2, const T* __restrict__ mask,
                 const int* __restrict__ indptr, T* __restrict__ u,
                 T* __restrict__ agg, int num_receivers, int hid, int de,
-                int act) {
+                int act, int rows) {
   const Layout l = make_layout(sizeof(T), hid, de, false);
+  // This block's sample (blockIdx.y).
+  h += static_cast<size_t>(blockIdx.y) * rows * hid;
+  u += static_cast<size_t>(blockIdx.y) * rows * de;
+  agg += static_cast<size_t>(blockIdx.y) * num_receivers * de;
   int* indptr_s = reinterpret_cast<int*>(smem + l.indptr);
   int* recv_s = reinterpret_cast<int*>(smem + l.recv);
   float* mask_s = reinterpret_cast<float*>(smem + l.mask);
@@ -243,7 +256,8 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
                      const bf16* __restrict__ b2,
                      const bf16* __restrict__ mask,
                      const int* __restrict__ indptr, bf16* __restrict__ u,
-                     bf16* __restrict__ agg, int num_receivers) {
+                     bf16* __restrict__ agg, int num_receivers, int rows,
+                     int batch) {
   using L = MlpLayout<H, DE>;
   constexpr int G = kMlpReceivers;
   constexpr int KB = H / 64;                // 64-deep K blocks
@@ -269,6 +283,8 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
   uint64_t* w2_full = reinterpret_cast<uint64_t*>(sp + L::bar);
 
   const int ngroups = (num_receivers + G - 1) / G;
+  // Items are (sample, group) pairs, k = sample * ngroups + group.
+  const int items = ngroups * batch;
   if (tid == 0) {
     mbar_init(w2_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -288,8 +304,9 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
 
   // W2 once, if this block has rows at all (a block must not exit with a
   // bulk copy in flight).
-  int nk = next_busy<G>(indptr, num_receivers, ngroups, blockIdx.x);
-  if (tid == 0 && nk < ngroups) {
+  int nk = next_busy_item<G>(indptr, num_receivers, ngroups, items,
+                             blockIdx.x);
+  if (tid == 0 && nk < items) {
     mbar_expect_tx(w2_full, H * DE * 2);
     for (int s = 0; s < DE / 64; ++s) {
       bulk_copy(base + L::w2 + s * H * 128,
@@ -297,16 +314,17 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
     }
   }
 
-  // Sub-tile rows [e0, e0 + nrows) into row stage st, rows past nrows
-  // zero-filled (act(0) = 0).
-  auto load_rows = [&](int st, int e0, int nrows) {
+  // Sub-tile rows [e0, e0 + nrows) of sample s into row stage st, rows
+  // past nrows zero-filled (act(0) = 0).
+  auto load_rows = [&](int st, int smp, int e0, int nrows) {
+    const bf16* hs = h + static_cast<size_t>(smp) * rows * H;
     const uint32_t dst = base + L::stages + st * L::kStage;
     for (int q = tid; q < kSubRows * (H / 8); q += kMlpThreads) {
       const int row = q / (H / 8);
       const int ch = q - row * (H / 8);
       const bool ok = row < nrows;
       cp_async16(dst + swz_chunk(row, ch),
-                 h + static_cast<size_t>(e0 + (ok ? row : 0)) * H + ch * 8,
+                 hs + static_cast<size_t>(e0 + (ok ? row : 0)) * H + ch * 8,
                  ok ? 16 : 0);
     }
   };
@@ -336,18 +354,21 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
     }
   };
 
-  if (nk < ngroups) {
-    const Group g = group_at<G>(indptr, num_receivers, nk);
+  if (nk < items) {
+    const Group g = group_at<G>(indptr, num_receivers, nk % ngroups);
     const int n = min(kSubRows, g.ee - g.eb);
-    load_rows(0, g.eb, n);
+    load_rows(0, nk / ngroups, g.eb, n);
     put_meta(0, g.eb, n, fetch_meta(g, g.eb, n));
   }
   cp_async_commit();
   bool w2_in = false;
   int t = 0;  // sub-tiles begun by this block
-  for (int k = blockIdx.x; k < ngroups; k += gridDim.x) {
-    const Group g = group_at<G>(indptr, num_receivers, k);
-    bf16* dst = agg + static_cast<size_t>(g.r0) * DE;
+  for (int k = blockIdx.x; k < items; k += gridDim.x) {
+    const int smp = k / ngroups;  // the item's sample
+    const Group g = group_at<G>(indptr, num_receivers, k - smp * ngroups);
+    bf16* us = u + static_cast<size_t>(smp) * rows * DE;
+    bf16* dst =
+        agg + (static_cast<size_t>(smp) * num_receivers + g.r0) * DE;
     if (g.ee == g.eb) {  // no rows: zero aggregates
       for (int i = tid; i < g.nr * DE / 2; i += kMlpThreads) {
         reinterpret_cast<bf162*>(dst)[i] = __float2bfloat162_rn(0.0f);
@@ -355,9 +376,10 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
       continue;
     }
     const int ntiles = g.tiles();
-    nk = next_busy<G>(indptr, num_receivers, ngroups, k + gridDim.x);
+    nk = next_busy_item<G>(indptr, num_receivers, ngroups, items,
+                           k + gridDim.x);
     Group gn{};
-    if (nk < ngroups) gn = group_at<G>(indptr, num_receivers, nk);
+    if (nk < items) gn = group_at<G>(indptr, num_receivers, nk % ngroups);
     for (int i = 0; i < ntiles; ++i, ++t) {
       const int st = t & 1;
       const int e0 = g.eb + i * kSubRows;
@@ -367,13 +389,14 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
       cp_async_wait<0>();
       __syncthreads();
       const bool in_group = i + 1 < ntiles;
-      const bool more = in_group || nk < ngroups;
+      const bool more = in_group || nk < items;
       const Group gx = in_group ? g : gn;
+      const int sx = in_group ? smp : nk / ngroups;
       const int e0n = in_group ? e0 + kSubRows : gn.eb;
       const int nn = min(kSubRows, gx.ee - e0n);
       Meta mt{};
       if (more) {
-        load_rows(st ^ 1, e0n, nn);
+        load_rows(st ^ 1, sx, e0n, nn);
         mt = fetch_meta(gx, e0n, nn);
       }
       cp_async_commit();
@@ -446,7 +469,7 @@ edge_mlp_bf16_kernel(const bf16* __restrict__ h,
       for (int q = tid; q < nrows * (DE / 8); q += kMlpThreads) {
         const int row = q / (DE / 8);
         const int ch = q - row * (DE / 8);
-        *reinterpret_cast<uint4*>(u + static_cast<size_t>(e0 + row) * DE +
+        *reinterpret_cast<uint4*>(us + static_cast<size_t>(e0 + row) * DE +
                                   ch * 8) =
             *reinterpret_cast<const uint4*>(ut + swz_chunk(row, ch));
       }
@@ -523,8 +546,13 @@ edge_mlp_f32_kernel(const float* __restrict__ h,
                     const float* __restrict__ b2,
                     const float* __restrict__ mask,
                     const int* __restrict__ indptr, float* __restrict__ u,
-                    float* __restrict__ agg, int num_receivers) {
+                    float* __restrict__ agg, int num_receivers, int rows,
+                    int /*batch*/) {
   using L = F32Layout<H, DE>;
+  // This block's sample (blockIdx.y).
+  h += static_cast<size_t>(blockIdx.y) * rows * H;
+  u += static_cast<size_t>(blockIdx.y) * rows * DE;
+  agg += static_cast<size_t>(blockIdx.y) * num_receivers * DE;
   constexpr int NK = H / 32;    // K-slabs of W2
   constexpr int NH = DE / 128;  // column halves of the epilogue
   const int tid = threadIdx.x;
@@ -687,26 +715,30 @@ template <typename T>
 cudaError_t launch_tile(int bytes, const void* h, const void* w2,
                         const void* b2, const void* mask, const int* indptr,
                         void* u, void* agg, int num_receivers, int hid,
-                        int de, int act, cudaStream_t stream) {
+                        int de, int act, int rows, int batch,
+                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       edge_mlp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (num_receivers + kTileReceivers - 1) / kTileReceivers;
-  edge_mlp_kernel<T><<<blocks, kThreads, bytes, stream>>>(
+  edge_mlp_kernel<T><<<dim3(blocks, batch), kThreads, bytes, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<const T*>(mask), indptr,
-      static_cast<T*>(u), static_cast<T*>(agg), num_receivers, hid, de, act);
+      static_cast<T*>(u), static_cast<T*>(agg), num_receivers, hid, de, act,
+      rows);
   return cudaGetLastError();
 }
 
 // One persistent block an SM (at most one fits), or one a work item
-// (receiver group, receiver) where there are fewer.
+// (receiver group, receiver) where there are fewer, times `ys` on the
+// grid's second axis.
 template <typename T, typename Kernel>
 cudaError_t launch_persistent(Kernel kernel, int threads, int bytes,
-                              int items, const void* h, const void* w2,
-                              const void* b2, const void* mask,
-                              const int* indptr, void* u, void* agg,
-                              int num_receivers, cudaStream_t stream) {
+                              int items, int ys, const void* h,
+                              const void* w2, const void* b2,
+                              const void* mask, const int* indptr, void* u,
+                              void* agg, int num_receivers, int rows,
+                              int batch, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -715,10 +747,10 @@ cudaError_t launch_persistent(Kernel kernel, int threads, int bytes,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  kernel<<<items < sms ? items : sms, threads, bytes, stream>>>(
+  kernel<<<dim3(items < sms ? items : sms, ys), threads, bytes, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<const T*>(mask), indptr,
-      static_cast<T*>(u), static_cast<T*>(agg), num_receivers);
+      static_cast<T*>(u), static_cast<T*>(agg), num_receivers, rows, batch);
   return cudaGetLastError();
 }
 
@@ -726,21 +758,22 @@ template <int H, int DE>
 cudaError_t launch_hopper(int dtype, const void* h, const void* w2_img,
                           const void* b2, const void* mask,
                           const int* indptr, void* u, void* agg,
-                          int num_receivers, int act, cudaStream_t stream) {
+                          int num_receivers, int act, int rows, int batch,
+                          cudaStream_t stream) {
   if (dtype == 1) {
-    // Block b walks receiver groups b, b + blocks, ...
+    // Block b walks the (sample, group) items b, b + blocks, ...
     return launch_persistent<bf16>(
         act == 0 ? edge_mlp_bf16_kernel<H, DE, 0>
                  : edge_mlp_bf16_kernel<H, DE, 1>,
         kMlpThreads, MlpLayout<H, DE>::bytes,
-        (num_receivers + kMlpReceivers - 1) / kMlpReceivers, h, w2_img, b2,
-        mask, indptr, u, agg, num_receivers, stream);
+        batch * ((num_receivers + kMlpReceivers - 1) / kMlpReceivers), 1, h,
+        w2_img, b2, mask, indptr, u, agg, num_receivers, rows, batch, stream);
   }
-  // Block b takes the receivers of its share of the rows.
+  // Block (b, s) takes the receivers of its share of sample s's rows.
   return launch_persistent<float>(
       act == 0 ? edge_mlp_f32_kernel<H, DE, 0> : edge_mlp_f32_kernel<H, DE, 1>,
-      kF32Threads, F32Layout<H, DE>::bytes, num_receivers, h, w2_img, b2,
-      mask, indptr, u, agg, num_receivers, stream);
+      kF32Threads, F32Layout<H, DE>::bytes, num_receivers, batch, h, w2_img,
+      b2, mask, indptr, u, agg, num_receivers, rows, batch, stream);
 }
 
 }  // namespace
@@ -773,35 +806,45 @@ extern "C" int gclt_edge_mlp_tile_receivers(int dtype, int hid, int de) {
   }
 }
 
+// The most samples one launch takes (the grid's second axis, or the
+// (sample, group) items' count): the launch's `batch` argument.
+extern "C" int gclt_edge_mlp_max_batch() { return 65535; }
+
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = swish/silu, 1 = relu.  w2
-// [H, De] is row-major, or the image gclt_edge_mlp_design names.  Returns
-// cudaGetLastError() after the launch.
+// [H, De] is row-major, or the image gclt_edge_mlp_design names.  h and u
+// hold `batch` samples of `rows` rows (rows = indptr[R]), agg `batch` of R
+// rows.  Returns cudaGetLastError() after the launch.
 extern "C" int gclt_edge_mlp(const void* h, const void* w2, const void* b2,
                              const void* mask, const void* indptr, void* u,
                              void* agg, int dtype, int num_receivers, int hid,
-                             int de, int act, void* stream) {
+                             int de, int act, int rows, int batch,
+                             void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bytes = smem_bytes(dtype, hid, de);
-  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes < 0 || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err;
   if (design(dtype, hid, de) == kTile16) {
     err = dtype == 0 ? launch_tile<float>(bytes, h, w2, b2, mask, ip, u, agg,
-                                          num_receivers, hid, de, act, s)
+                                          num_receivers, hid, de, act, rows,
+                                          batch, s)
                      : launch_tile<bf16>(bytes, h, w2, b2, mask, ip, u, agg,
-                                         num_receivers, hid, de, act, s);
+                                         num_receivers, hid, de, act, rows,
+                                         batch, s);
   } else if (hid == 128 && de == 128) {
     err = launch_hopper<128, 128>(dtype, h, w2, b2, mask, ip, u, agg,
-                                  num_receivers, act, s);
+                                  num_receivers, act, rows, batch, s);
   } else if (hid == 128) {
     err = launch_hopper<128, 256>(dtype, h, w2, b2, mask, ip, u, agg,
-                                  num_receivers, act, s);
+                                  num_receivers, act, rows, batch, s);
   } else if (de == 128) {
     err = launch_hopper<256, 128>(dtype, h, w2, b2, mask, ip, u, agg,
-                                  num_receivers, act, s);
+                                  num_receivers, act, rows, batch, s);
   } else {
     err = launch_hopper<256, 256>(dtype, h, w2, b2, mask, ip, u, agg,
-                                  num_receivers, act, s);
+                                  num_receivers, act, rows, batch, s);
   }
   return static_cast<int>(err);
 }

@@ -15,10 +15,11 @@ streaming NumPy metrics on the host —
 * physical-unit per-channel RMSE via the dataset scalers;
 * raw predictions + ground truth + sample offsets saved as .npz.
 
-``rollouts_per_dispatch=K`` is accepted, as the JAX package's amortized
-serve takes it, and has no effect yet: every sample is its own rollout,
-which is what K = 1 computes, until the batched ``[B, N, F]`` forward
-(ROADMAP) gives the port a K-sample call that saves time.
+``rollouts_per_dispatch=K > 1`` is the amortized serve of the JAX
+package: without an assimilator and for a one-step model, K samples'
+whole trajectories run as one batched rollout (``[K, G, obs, C]``, one
+model call a step for the K of them), buffered per sample and reported in
+sample order.
 """
 
 from __future__ import annotations
@@ -187,8 +188,13 @@ def evaluate_model(
     params and float graph arrays in ``dtype`` (``fp32`` | ``bf16``).
     ``edge_mask`` is SparseGAT's processing-edge mask (default: the
     graph's own, as the JAX package's ``cli.predict`` serves it).
-    ``rollouts_per_dispatch`` is accepted and has no effect yet (see the
-    module's docstring).
+    ``rollouts_per_dispatch=K > 1`` (no assimilator, ``direct_steps`` 1
+    only) batches K samples' whole trajectories into one rollout of the
+    batched model (the JAX package's amortized serve): the chunk is
+    ``range(i, min(i + K, n))``, its AR steps are its first sample's, each
+    sample's forcing comes from its own targets, and the metrics
+    accumulate in sample order, so that they equal K = 1's up to the
+    rounding of the batched products.
 
     ``postprocess(pred_flat [G, steps·C], sample_idx) -> pred_flat``
     corrects the finished trajectory before the metrics; unlike
@@ -242,6 +248,9 @@ def evaluate_model(
         ridx = np.flatnonzero(rmask)
 
     saved_preds, saved_gt, saved_offsets = [], [], []
+    pending: Dict[int, np.ndarray] = {}  # the amortized serve's chunk
+    amortized = (rollouts_per_dispatch > 1 and assimilator is None
+                 and direct_steps == 1)
 
     n = len(dataset)
     if max_samples is not None:
@@ -258,7 +267,22 @@ def evaluate_model(
         window = torch.from_numpy(x.reshape(g, obs, c)).to(dev, fdt)
         forcing = torch.from_numpy(targets).to(dev, fdt)
         with torch.inference_mode():
-            if assimilator is None or direct_steps > 1:
+            if amortized:
+                if i not in pending:
+                    idxs = range(i, min(i + rollouts_per_dispatch, n))
+                    ws, ts = [], []
+                    for j in idxs:
+                        xj, yj = dataset.get(j)
+                        ws.append(xj.reshape(g, obs, c))
+                        ts.append(yj.reshape(g, -1, c))
+                    outb = rollout_predict(
+                        model_fn, torch.from_numpy(np.stack(ws)).to(dev, fdt),
+                        steps, spec, edge_mask,
+                        forcing=torch.from_numpy(np.stack(ts)).to(dev, fdt))
+                    outb = outb.float().cpu().numpy()  # [K, G, steps, C]
+                    pending.update({j: outb[k] for k, j in enumerate(idxs)})
+                pred_flat = pending.pop(i).reshape(g, steps * c)
+            elif assimilator is None or direct_steps > 1:
                 out = rollout_predict(model_fn, window, steps, spec,
                                       edge_mask, forcing=forcing)
                 out = out.float().cpu().numpy()           # [G, steps, C]

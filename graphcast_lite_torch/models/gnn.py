@@ -17,6 +17,12 @@ of ``graphcast_lite_tpu.models.gnn``).
   (``InteractionNetLayer.forward``), picked as the JAX package picks them
   (``_use_lazy_processor``).
 
+Every layer also takes a batch: node features [B, N, F] (the graph and
+the edge mask shared by the samples) give [B, R, F], each sample as the
+single-sample call computes it (the JAX package's ``vmap``); every
+aggregation, gather adjoint and scatter of the batch is one launch of the
+segment-sum kernel, and the fused kernels take the batch in one launch.
+
 Every layer takes one route on the card, the receiver-sorted COO layout
 through the segment-sum kernel: the JAX package's ELL branches
 (``ops/ell.py``, taken where a graph has a neighbour table) compute the
@@ -151,7 +157,8 @@ class GCNConv(nn.Module):
 
 class _GATCore(nn.Module):
     """Shared math of GATConv / SparseGATConv: (x, graph, mask) -> (out,
-    α), α the mean-head attention of each edge (zero on masked edges)."""
+    α), α the mean-head attention of each edge (zero on masked edges); on a
+    batch, α of sample 0, the sample that decides pruning."""
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  negative_slope: float = 0.2, use_bias: bool = True,
@@ -175,8 +182,9 @@ class _GATCore(nn.Module):
                              "convention")
         mask = _edge_mask(graph, edge_mask)
         h, c = self.heads, self.features
-        xw = x @ self.kernel                           # [N, H·C]
-        xp = xw.reshape(-1, h, c)
+        xw = x @ self.kernel                           # [..., N, H·C]
+        lead = xw.shape[:-2]
+        xp = xw.reshape(xw.shape[:-1] + (h, c))
         a_src = (xp * self.att_src).sum(-1)            # [N, H]
         a_dst = (xp * self.att_dst).sum(-1)
         logits = (gather_rows(a_src, graph.senders, _senders(graph))
@@ -186,17 +194,19 @@ class _GATCore(nn.Module):
         self_logits = F.leaky_relu(a_src + a_dst, self.negative_slope)
         w, self_w = seg_ops.segment_softmax_coo(logits, graph, mask,
                                                 self_logits)
-        # Messages as [E, H·C] rows: the segment sum reads a 3-D input as
-        # [B, E, F].
+        # Messages as [..., E, H·C] rows: the segment sum reads a 3-D input
+        # as [B, E, F].
         e = graph.padded_num_edges
         msgs = (gather_rows(xw, graph.senders, _senders(graph))
-                .reshape(e, h, c) * w[..., None]).reshape(e, h * c)
-        out = seg_ops.aggregate_sum(msgs, graph, mask).reshape(-1, h, c)
-        out = out + xp * self_w[..., None]
-        out = out.mean(dim=1)                          # concat=False
+                .reshape(lead + (e, h, c)) * w[..., None]) \
+            .reshape(lead + (e, h * c))
+        out = seg_ops.aggregate_sum(msgs, graph, mask)
+        out = out.reshape(out.shape[:-1] + (h, c)) + xp * self_w[..., None]
+        out = out.mean(dim=-2)                         # concat=False
         if self.bias is not None:
             out = out + self.bias
-        return out, w.mean(dim=-1) * mask
+        alpha = w.mean(dim=-1) * mask
+        return out, (alpha[0] if lead else alpha)
 
 
 class GATConv(nn.Module):
@@ -216,7 +226,9 @@ class SparseGATConv(nn.Module):
     """GAT that can return a pruned edge mask: with ``prune``, the edges
     whose mean-head attention is below ``attention_threshold`` leave the
     returned mask (the caller carries it to later steps and epochs).  Self
-    loops are implicit and never pruned."""
+    loops are implicit and never pruned.  On a batch the mask is shared and
+    pruning is decided on sample 0, as the JAX package's trainer keeps the
+    first sample's mask of its vmapped model."""
 
     def __init__(self, in_features: int, features: int, heads: int = 1,
                  generator: Optional[torch.Generator] = None):
@@ -431,43 +443,53 @@ class InteractionNetLayer(nn.Module):
         return self.node_norm(x + self.node_mlp(torch.cat([x, agg], dim=-1)))
 
     def _affine(self, mu, var):
-        """The next step's (a, c) from the masked stats (fp32)."""
-        inv_sigma = torch.rsqrt(var + 1e-5)
+        """The next step's (a, c) from the masked stats (fp32; a batch's
+        [B] stats give [B, De])."""
+        inv_sigma = torch.rsqrt(var + 1e-5)[..., None]
+        mu = mu[..., None]
         gamma = self.edge_norm.weight.float()
         beta = self.edge_norm.bias.float()
         return gamma * inv_sigma, beta - gamma * mu * inv_sigma
 
     def lazy(self, x, v, a, c, graph: Graph, edge_mask=None):
-        """The lazy-LN step: (x, v, a, c) -> (x', v', a', c')."""
+        """The lazy-LN step: (x, v, a, c) -> (x', v', a', c').
+
+        A batch is a leading axis: x [B, N, d]; v [B, E, De] or the shared
+        [E, De] of the first step; a, c [B, De] or the shared [De].  The
+        folded weights are then per sample (``w1e_eff`` [B, De, H],
+        ``b1_eff`` [B, H]), and so are the statistics and (a', c')."""
         mask = _edge_mask(graph, edge_mask)
         d, de, hid = self.node_dim, self.edge_dim, self.hidden_dim
         k0, b0 = self.edge_mlp.lin_0.kernel, self.edge_mlp.lin_0.bias
         k1, b1 = self.edge_mlp.lin_1.kernel, self.edge_mlp.lin_1.bias
         w1s, w1r, w1e = k0[:d], k0[d:2 * d], k0[2 * d:]
-        w1e_eff = a[:, None].to(w1e.dtype) * w1e
+        w1e_eff = a[..., :, None].to(w1e.dtype) * w1e
         b1_eff = b0 + c.to(w1e.dtype) @ w1e
+        b1_row = b1_eff[..., None, :]  # broadcasts over a sample's rows
+        a_row, c_row = a.to(v.dtype)[..., None, :], c.to(v.dtype)[..., None, :]
 
         rb = graph.reg_blocks
         if _use_reg_blocks(graph, edge_mask) \
-                and v.shape[0] == rb.rows_padded:
+                and v.shape[-2] == rb.rows_padded:
             self.route = "reg_block"
             static = RegStatic(block_recv=rb.block_recv, block_k=rb.block_k,
                                num_nodes=graph.num_receivers,
                                activation=self.activation)
             u, agg_sum = reg_edge_tail(
                 static, x, v, rb.mask.to(x.dtype), rb.senders, rb.s_perm,
-                rb.s_indptr, w1s, w1r, w1e_eff, b1_eff, k1, b1,
+                rb.s_indptr, w1s, w1r, w1e_eff, b1_row, k1, b1,
             )
             new_x = self._node_step(x, agg_sum, graph, edge_mask)
             # Lazy-LN residual + masked graph-mode stats (pad rows carry u
             # but are mask-excluded; their values are never read).
-            v_new = a.to(v.dtype)[None, :] * v + c.to(v.dtype) + u
+            v_new = a_row * v + c_row + u
             w = rb.mask.float()[:, None]
             vf = v_new.float()
             denom = torch.clamp(w.sum() * de, min=1.0)
-            mu = (vf * w).sum() / denom
-            var = torch.clamp((torch.square(vf) * w).sum() / denom
-                              - torch.square(mu), min=0.0)
+            # One sample's rows and features: scalars, or [B] on a batch.
+            mu = (vf * w).sum(dim=(-2, -1)) / denom
+            var = torch.clamp((torch.square(vf) * w).sum(dim=(-2, -1))
+                              / denom - torch.square(mu), min=0.0)
             return (new_x, v_new) + self._affine(mu, var)
 
         if _use_edge_step_path(graph, hid, de, self.activation):
@@ -475,15 +497,25 @@ class InteractionNetLayer(nn.Module):
             # the two node projections stay outside.
             self.route = "edge_step"
             xsg = gather_rows(x @ w1s, graph.senders, _senders(graph))
+            if x.dim() == 3:
+                # The kernel takes every per-sample input with its batch
+                # axis: the first step's shared v, a, c and folded weights
+                # are expanded to it.
+                bsz = x.shape[0]
+                v = v.expand((bsz,) + v.shape[-2:]).contiguous()
+                a, c = a.expand(bsz, de), c.expand(bsz, de)
+                w1e_eff = w1e_eff.expand(bsz, de, hid).contiguous()
+                b1_eff = b1_eff.expand(bsz, hid)
             v_new, agg_sum, stats = edge_step.edge_step(
-                xsg, v, x @ w1r, w1e_eff, b1_eff, k1, b1, a.float(),
-                c.float(), mask, graph.indptr, graph.num_receivers,
-                self.activation,
+                xsg, v, x @ w1r, w1e_eff, b1_eff.contiguous(), k1, b1,
+                a.float().contiguous(), c.float().contiguous(), mask,
+                graph.indptr, graph.num_receivers, self.activation,
             )
             new_x = self._node_step(x, agg_sum, graph, mask)
-            denom = torch.clamp(stats[2] * de, min=1.0)
-            mu = stats[0] / denom
-            var = torch.clamp(stats[1] / denom - torch.square(mu), min=0.0)
+            denom = torch.clamp(stats[..., 2] * de, min=1.0)
+            mu = stats[..., 0] / denom
+            var = torch.clamp(stats[..., 1] / denom - torch.square(mu),
+                              min=0.0)
             return (new_x, v_new) + self._affine(mu, var)
 
         if _use_fused_edge_path(graph, hid, de, self.activation):
@@ -492,13 +524,13 @@ class InteractionNetLayer(nn.Module):
             # autograd.  The unit returns the mean aggregate.
             self.route = "fused"
             u, agg = edge_pipeline(
-                x, v, mask, w1s, w1r, w1e_eff, b1_eff, k1, b1, graph,
+                x, v, mask, w1s, w1r, w1e_eff, b1_row, k1, b1, graph,
                 self.activation, deg=seg_ops.masked_in_degree(graph, mask))
             new_x = self._node_update(x, agg)
         else:
             h = (gather_rows(x @ w1s, graph.senders, _senders(graph))
                  + gather_rows(x @ w1r, graph.receivers, _receivers(graph))
-                 + v @ w1e_eff + b1_eff)
+                 + v @ w1e_eff + b1_row)
             if _use_mega_edge_path(graph, hid, de, self.activation):
                 self.route = "mega"
                 u, agg_sum = edge_mlp.edge_mlp(h, k1, b1, mask, graph.indptr,
@@ -510,13 +542,15 @@ class InteractionNetLayer(nn.Module):
                 agg_sum = seg_ops.aggregate_sum(u, graph, mask)
             new_x = self._node_step(x, agg_sum, graph, mask)
         # Residual in the pre-norm space + masked graph-mode stats (fp32,
-        # PyGLayerNorm semantics: scalar mean/var over masked elements).
-        v_new = a.to(v.dtype)[None, :] * v + c.to(v.dtype) + u
+        # PyGLayerNorm semantics: scalar mean/var over masked elements of
+        # each sample).
+        v_new = a_row * v + c_row + u
         vf = v_new.float()
         w = mask.float()[:, None]
         denom = torch.clamp(w.sum() * de, min=1.0)
-        mu = (vf * w).sum() / denom
-        var = (torch.square(vf - mu) * w).sum() / denom
+        mu = (vf * w).sum(dim=(-2, -1)) / denom
+        var = (torch.square(vf - mu[..., None, None]) * w).sum(
+            dim=(-2, -1)) / denom
         return (new_x, v_new) + self._affine(mu, var)
 
 

@@ -9,8 +9,9 @@ its parameter tree maps onto these modules one to one
   torch.nn.Linear's init bounds U(±1/sqrt(fan_in));
 * ``PReLU`` — ONE shared slope ``alpha`` [1], initialized to 0.25;
 * ``PyGLayerNorm`` — torch_geometric.nn.LayerNorm, modes ``node`` (per-row
-  over channels) and ``graph`` (one mean/var over every element, with an
-  optional row mask);
+  over channels) and ``graph`` (one mean/var over every element of a
+  sample, with an optional row mask; a leading batch axis keeps one pair
+  per sample);
 * ``MLPTower`` — Linear→PReLU per hidden layer (each with its own slope),
   final Linear, optional trailing PyGLayerNorm.
 
@@ -114,13 +115,15 @@ class PyGLayerNorm(nn.Module):
             mean = xf.mean(dim=-1, keepdim=True)
             var = xf.var(dim=-1, unbiased=False, keepdim=True)
         elif mask is None:
-            mean = xf.mean()
-            var = xf.var(unbiased=False)
+            # One sample's rows: the last two axes ([B, N, C] is B samples).
+            mean = xf.mean(dim=(-2, -1), keepdim=True)
+            var = xf.var(dim=(-2, -1), unbiased=False, keepdim=True)
         else:
             w = mask.float()[:, None]
             denom = torch.clamp(w.sum() * x.shape[-1], min=1.0)
-            mean = (xf * w).sum() / denom
-            var = (torch.square(xf - mean) * w).sum() / denom
+            mean = (xf * w).sum(dim=(-2, -1), keepdim=True) / denom
+            var = (torch.square(xf - mean) * w).sum(dim=(-2, -1),
+                                                    keepdim=True) / denom
         mean, var = mean.to(x.dtype), var.to(x.dtype)
         out = (x - mean) / torch.sqrt(var + self.eps)
         return out * self.weight + self.bias

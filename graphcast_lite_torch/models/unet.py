@@ -18,7 +18,8 @@ JAX package's parameter tree maps onto them by a rename and a transpose
 The flax defaults are kept: GELU is the tanh approximation, GroupNorm and
 LayerNorm use eps 1e-6, ``BatchStatNorm`` eps 1e-5 with the biased
 variance of its input's (N, H, W), in evaluation too (it has no running
-averages).  ``init_weights(generator)`` draws flax's initial values
+averages); inside ``per_sample_statistics()`` each image's (H, W).
+``init_weights(generator)`` draws flax's initial values
 (LeCun truncated normal kernels, zero biases, unit norm scales, the
 spectral weights' scaled normal) from an explicit ``torch.Generator``;
 they are not the JAX package's numbers.
@@ -26,8 +27,10 @@ they are not the JAX package's numbers.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +42,24 @@ __all__ = [
     "DownscalerUNet",
     "upsample_align_corners",
     "init_weights",
+    "per_sample_statistics",
 ]
+
+_PER_SAMPLE = contextvars.ContextVar("gclt_batch_stat_per_sample",
+                                     default=False)
+
+
+@contextlib.contextmanager
+def per_sample_statistics() -> Iterator[None]:
+    """Within it, ``BatchStatNorm`` normalizes each image of its input by
+    that image's own (H, W) statistics: a batch of B images computes what
+    B calls on one image each compute, as the JAX package's trainer
+    ``vmap``s the single-image model (``models.grid_adapter``)."""
+    token = _PER_SAMPLE.set(True)
+    try:
+        yield
+    finally:
+        _PER_SAMPLE.reset(token)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -80,7 +100,8 @@ def _conv3(cin: int, cout: int) -> nn.Conv2d:
 class BatchStatNorm(nn.Module):
     """Stateless batch normalization: normalizes by the current input's
     (N, H, W) statistics (biased variance) with a learnable per-channel
-    ``weight`` and ``bias``, in training and evaluation alike."""
+    ``weight`` and ``bias``, in training and evaluation alike; by each
+    image's (H, W) statistics inside ``per_sample_statistics()``."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -89,8 +110,9 @@ class BatchStatNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=(0, 2, 3), keepdim=True)
-        var = x.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+        dims = (2, 3) if _PER_SAMPLE.get() else (0, 2, 3)
+        mean = x.mean(dim=dims, keepdim=True)
+        var = x.var(dim=dims, unbiased=False, keepdim=True)
         w = self.weight[None, :, None, None]
         b = self.bias[None, :, None, None]
         return (x - mean) * torch.rsqrt(var + self.eps) * w + b

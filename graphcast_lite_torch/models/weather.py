@@ -1,10 +1,16 @@
 """The flagship encode-process-decode weather model (torch counterpart of
 ``graphcast_lite_tpu.models.weather``).
 
-Single-sample forward:
+Forward, on one sample or a batch:
 
     out, mask = model(x_grid, graphs, mask, attention_threshold, prune)
                                            # x_grid [G, obs·F] -> [G, C_out]
+                                           # or [B, G, obs·F] -> [B, G, C_out]
+
+A batch is B samples in one call, each computed as the single-sample
+model computes it (the JAX package's ``jax.vmap`` of its model): the
+graphs, the parameters and the edge mask are shared, and each sample keeps
+its own graph-mode LayerNorm statistics.
 
 SparseGAT's edge pruning is an explicit processing-edge mask carried
 through the call and returned updated (only SparseGAT changes it).  With a
@@ -219,7 +225,8 @@ class WeatherModel(nn.Module):
 
     Returns (grid_prediction [N, C_out], processing-edge mask); with
     ``with_latents`` also the encoder grid latents and the processed mesh
-    latents.
+    latents.  A leading batch axis on ``x_grid`` runs B samples in one
+    call; SparseGAT's returned mask is then sample 0's.
     """
 
     def __init__(self, pipeline: PipelineConfig, data: DataConfig,
@@ -250,32 +257,38 @@ class WeatherModel(nn.Module):
                 attention_threshold=0.0, prune: bool = False,
                 with_latents: bool = False):
         n_grid = self.num_grid_nodes
+        lead = x_grid.shape[:-2]  # () or (B,)
         if self.product_model is not None:
-            # Time-major window over the T x N product graph; keep the
-            # last time slice.
+            # Time-major window over the T x N product graph, per sample;
+            # keep the last time slice.
             obs, feats = self.obs_window, self.num_features
-            xt = x_grid.reshape(n_grid, obs, feats).transpose(0, 1) \
-                .reshape(obs * n_grid, feats)
+            xt = x_grid.reshape(lead + (n_grid, obs, feats)) \
+                .transpose(-3, -2).reshape(lead + (obs * n_grid, feats))
             xt, _ = self.product_model(xt, graphs.product)
-            x_grid = xt[-n_grid:]
+            x_grid = xt[..., -n_grid:, :]
         # Static features; zero dynamic state for mesh nodes; concat.
-        grid_in = torch.cat([x_grid, graphs.grid_static], dim=-1)
-        mesh_dyn = x_grid.new_zeros((self.num_mesh_nodes, x_grid.shape[-1]))
-        mesh_in = torch.cat([mesh_dyn, graphs.mesh_static], dim=-1)
-        x = torch.cat([grid_in, mesh_in], dim=0)        # [(N+M), C]
+        grid_static = graphs.grid_static.expand(
+            lead + graphs.grid_static.shape)
+        mesh_static = graphs.mesh_static.expand(
+            lead + graphs.mesh_static.shape)
+        grid_in = torch.cat([x_grid, grid_static], dim=-1)
+        mesh_dyn = x_grid.new_zeros(lead + (self.num_mesh_nodes,
+                                            x_grid.shape[-1]))
+        mesh_in = torch.cat([mesh_dyn, mesh_static], dim=-1)
+        x = torch.cat([grid_in, mesh_in], dim=-2)       # [..., (N+M), C]
 
         x, _ = self.encoder(x, graphs.encoding)
-        grid_latent = x[:n_grid]
-        mesh_latent = x[n_grid:]
+        grid_latent = x[..., :n_grid, :]
+        mesh_latent = x[..., n_grid:, :]
 
         mesh_processed, new_mask = self.processor(
             mesh_latent, graphs.processing, processing_edge_mask,
             attention_threshold, prune,
         )
 
-        combined = torch.cat([grid_latent, mesh_processed], dim=0)
+        combined = torch.cat([grid_latent, mesh_processed], dim=-2)
         decoded, _ = self.decoder(combined, graphs.decoding)
-        out = decoded[:n_grid]
+        out = decoded[..., :n_grid, :]
         if with_latents:
             return out, new_mask, grid_latent, mesh_processed
         return out, new_mask

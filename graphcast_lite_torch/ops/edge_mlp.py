@@ -12,7 +12,11 @@ returns
   summed in fp32 and cast once.
 
 Rows are receiver-sorted; ``indptr`` is the graph's receiver CSR offsets,
-which take the place of the reference's chunk schedule.
+which take the place of the reference's chunk schedule.  A batch of B
+samples on the graph (``h_pre`` [B, E_pad, H] -> u [B, E_pad, De], agg_sum
+[B, R, De]) shares ``w2``, ``b2``, the mask and ``indptr`` and is one
+launch: the reference's ``pallas_call`` batches the kernel by a grid axis
+under ``vmap``.
 
 * On a CPU tensor the wrapper runs ``edge_mlp_reference``.
 * On a CUDA tensor it launches ``csrc/edge_mlp.cu`` (built by
@@ -22,13 +26,17 @@ which take the place of the reference's chunk schedule.
   - ``hopper_bf16``, bf16 at H and De in {128, 256} (the flagship's
     widths): W2 resident in shared memory as wgmma's B operand, handed
     over as a ``wgmma_b_image``; persistent blocks walk groups of
-    ``HOPPER_RECEIVERS`` receivers (``hopper_geometry``).
+    ``HOPPER_RECEIVERS`` receivers (``hopper_geometry``), a batch's
+    (sample, group) items in turn, W2 loaded once a block.
   - ``hopper_fp32``, fp32 at the same widths: 3xTF32 wgmma products, W2
     streamed through shared memory in K-slabs of its ``tf32x3_b_image``;
     persistent blocks take the receivers of equal shares of the rows
     (``fp32_bounds``) and walk them in steps of ``F32_STEP_ROWS`` rows.
   - ``tile16``, wider rows in either dtype: the 16-receiver design of
     ``edge_tile.cuh`` on row-major W2.
+
+  ``hopper_fp32`` and ``tile16`` take a batch's samples on a second grid
+  axis.
 
 ``launches`` counts kernel launches (never plain-version calls).  There is
 no backward: the reference kernel has none either.
@@ -73,7 +81,8 @@ SIGNATURES = {
     "gclt_edge_mlp_smem": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_mlp_design": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_mlp_tile_receivers": (ctypes.c_int, [ctypes.c_int] * 3),
-    "gclt_edge_mlp": (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    "gclt_edge_mlp_max_batch": (ctypes.c_int, []),
+    "gclt_edge_mlp": (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p]),
 }
 
@@ -111,7 +120,9 @@ def hopper_geometry(num_receivers: int, sms: int) -> Tuple[int, int]:
     """(groups, blocks) of a Hopper launch: group ``g`` owns receivers
     ``[g * HOPPER_RECEIVERS, min((g + 1) * HOPPER_RECEIVERS, R))``;
     ``min(groups, sms)`` persistent blocks, block ``b`` walking groups
-    ``b, b + blocks, ...``."""
+    ``b, b + blocks, ...``.  (A batch of B walks B · groups items, item
+    ``k`` being group ``k % groups`` of sample ``k // groups``, on
+    ``min(B · groups, sms)`` blocks.)"""
     groups = -(-num_receivers // HOPPER_RECEIVERS)
     return groups, min(groups, sms)
 
@@ -165,7 +176,7 @@ def _image_order(k: int, n: int, device: torch.device) -> torch.Tensor:
 
 def wgmma_b_image(w: torch.Tensor) -> torch.Tensor:
     """``w`` [K, N] as the Hopper kernels' weight slabs: [N / 64, K / 64,
-    64, 64].
+    64, 64]; a batch [B, K, N] -> one image a sample, [B, N / 64, ...].
 
     Slab ``cb`` is the shared-memory image of the column block
     ``w[:, 64 cb : 64 cb + 64]`` as wgmma's B operand in the
@@ -174,9 +185,11 @@ def wgmma_b_image(w: torch.Tensor) -> torch.Tensor:
     ``q`` stored at place ``q ^ (n % 8)``.  K and N are multiples of 64.
     One gather with a cached order: it runs on every call, since the edge
     step's caller folds the LayerNorm scale into W1e per step."""
-    k, n = w.shape
+    k, n = w.shape[-2:]
+    lead = w.shape[:-2]
     order = _image_order(k, n, w.device)
-    return w.reshape(-1).index_select(0, order).view(n // 64, k // 64, 64, 64)
+    return w.reshape(lead + (-1,)).index_select(-1, order).view(
+        lead + (n // 64, k // 64, 64, 64))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -215,12 +228,14 @@ def tf32x3_b_image(w: torch.Tensor) -> torch.Tensor:
     wgmma's tf32 B operand, K-major with the 128-byte swizzle: row ``n``
     holds the 32 values of column ``n`` in 8 chunks of 4, chunk ``q``
     stored at place ``q ^ (n % 8)``.  The kernel copies one slab (both
-    parts, 256 N bytes) at a time.  K is a multiple of 32, N of 8."""
-    k, n = w.shape
+    parts, 256 N bytes) at a time.  K is a multiple of 32, N of 8.  A batch
+    [B, K, N] -> one image a sample, [B, K / 32, 2, N, 32]."""
+    k, n = w.shape[-2:]
+    lead = w.shape[:-2]
     order = _tf32_image_order(k, n, w.device)
-    parts = [p.reshape(-1).index_select(0, order).view(k // 32, n, 32)
-             for p in tf32_split(w.float())]
-    return torch.stack(parts, 1)
+    parts = [p.reshape(lead + (-1,)).index_select(-1, order)
+             .view(lead + (k // 32, n, 32)) for p in tf32_split(w.float())]
+    return torch.stack(parts, -3)
 
 
 def edge_mlp_reference(h_pre: torch.Tensor, w2: torch.Tensor,
@@ -228,7 +243,8 @@ def edge_mlp_reference(h_pre: torch.Tensor, w2: torch.Tensor,
                        indptr: torch.Tensor, num_receivers: int,
                        activation: str = "swish"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version, with the kernel's rounding points."""
+    """Plain torch version, with the kernel's rounding points (a batch
+    [B, E_pad, H] -> [B, E_pad, De], [B, R, De])."""
     dt = h_pre.dtype
     a = act_fn(activation)(h_pre.float()).to(dt)
     u = (a.float() @ w2.float() + b2.float()).to(dt)
@@ -259,7 +275,8 @@ def edge_mlp(h_pre: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
              activation: str = "swish"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(u [E_pad, De], agg_sum [R, De]) of receiver-sorted rows h_pre
-    [E_pad, H]."""
+    [E_pad, H]; a batch h_pre [B, E_pad, H] -> ([B, E_pad, De], [B, R,
+    De]) in one launch."""
     if h_pre.device.type == "cpu":
         return edge_mlp_reference(h_pre, w2, b2, mask, indptr,
                                   num_receivers, activation)
@@ -267,7 +284,12 @@ def edge_mlp(h_pre: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
         raise ValueError(f"edge_mlp: unsupported device {h_pre.device}")
     if h_pre.dtype not in nvcc_build.DTYPE_CODES:
         raise TypeError(f"edge_mlp: dtype {h_pre.dtype} (fp32/bf16 only)")
-    e_pad, hid = h_pre.shape
+    if h_pre.dim() not in (2, 3):
+        raise ValueError(f"edge_mlp: h_pre {tuple(h_pre.shape)}, expected "
+                         "[E_pad, H] or [B, E_pad, H]")
+    lead = h_pre.shape[:-2]
+    batch = h_pre.shape[0] if lead else 1
+    e_pad, hid = h_pre.shape[-2:]
     de = w2.shape[-1]
     if not supports(hid, de, activation):
         raise ValueError(f"edge_mlp: H {hid} / De {de} not multiples of 128 "
@@ -283,6 +305,9 @@ def edge_mlp(h_pre: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                  h_pre.device)
     check_inputs("edge_mlp", (indptr,), torch.int32, h_pre.device)
     lib = nvcc_build.load(SOURCE, SIGNATURES)
+    if batch > lib.gclt_edge_mlp_max_batch():
+        raise ValueError(f"edge_mlp: batch {batch} > "
+                         f"{lib.gclt_edge_mlp_max_batch()}")
     code = nvcc_build.DTYPE_CODES[h_pre.dtype]
     smem = lib.gclt_edge_mlp_smem(code, hid, de)
     if smem > MAX_SMEM:
@@ -293,15 +318,17 @@ def edge_mlp(h_pre: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
         w2 = wgmma_b_image(w2)
     elif kind == "hopper_fp32":
         w2 = tf32x3_b_image(w2)
-    u = torch.empty((e_pad, de), dtype=h_pre.dtype, device=h_pre.device)
-    agg = torch.empty((num_receivers, de), dtype=h_pre.dtype,
+    u = torch.empty(lead + (e_pad, de), dtype=h_pre.dtype,
+                    device=h_pre.device)
+    agg = torch.empty(lead + (num_receivers, de), dtype=h_pre.dtype,
                       device=h_pre.device)
     with torch.cuda.device(h_pre.device):
         stream = torch.cuda.current_stream(h_pre.device).cuda_stream
         err = lib.gclt_edge_mlp(
             h_pre.data_ptr(), w2.data_ptr(), b2.data_ptr(), mask.data_ptr(),
             indptr.data_ptr(), u.data_ptr(), agg.data_ptr(), code,
-            num_receivers, hid, de, ACTIVATIONS[activation], stream,
+            num_receivers, hid, de, ACTIVATIONS[activation], e_pad, batch,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"edge_mlp kernel launch failed: CUDA error {err}")

@@ -11,6 +11,14 @@ of ``v``:
     agg   = segment_sum(u · mask)                  (fp32, cast once)
     stats = (Σ v_new·w, Σ v_new²·w, Σ w)  fp32,    w = mask per row
 
+A batch of B samples on the graph is a leading axis of every input and
+output but ``w2``, ``b2``, the mask and ``indptr``, which the samples
+share: each sample folds its own LayerNorm statistics into ``w1e`` /
+``b_eff``, so those are per sample ([B, De, H], [B, H]), and the stats are
+[B, 3].  One launch takes the batch, its samples on a second grid axis
+(the reference's ``pallas_call`` batches the kernel by a grid axis under
+``vmap``).
+
 ``xsg = (x @ W1s)[senders]`` and ``xr = x @ W1r`` are computed outside, as
 the reference leaves them to XLA.  ``indptr`` (the graph's receiver CSR
 offsets) takes the place of the reference's step schedule
@@ -75,8 +83,9 @@ SIGNATURES = {
     "gclt_edge_step_smem": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_step_design": (ctypes.c_int, [ctypes.c_int] * 3),
     "gclt_edge_step_tile_receivers": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gclt_edge_step_max_batch": (ctypes.c_int, []),
     "gclt_edge_step": (ctypes.c_int, [ctypes.c_void_p] * 16
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
 }
 
 
@@ -104,9 +113,10 @@ def tile_receivers(dtype: torch.dtype, hidden_dim: int,
             "hopper_fp32": 0}[design(dtype, hidden_dim, edge_dim)]
 
 
-def launch_geometry(num_receivers: int, tile: int,
-                    sms: int = 0) -> Tuple[int, tuple]:
-    """(items, shape of the per-item statistics scratch).  ``tile`` > 0:
+def launch_geometry(num_receivers: int, tile: int, sms: int = 0,
+                    batch: int = 1) -> Tuple[int, tuple]:
+    """(items a sample, shape of the per-item statistics scratch of
+    ``batch`` samples).  ``tile`` > 0:
     group ``g`` owns receivers ``[g * tile, min((g + 1) * tile,
     num_receivers))``; the 16-receiver design runs a block per group, the
     Hopper bf16 kernel a persistent block per SM over them (``sms`` is not
@@ -120,14 +130,15 @@ def launch_geometry(num_receivers: int, tile: int,
     else:
         raise ValueError(f"launch_geometry: tile 0 takes the SM count, "
                          f"got sms={sms}")
-    return items, (items, 3)
+    return items, (batch * items, 3)
 
 
-def workspace_shape(num_receivers: int, hidden_dim: int,
-                    sms: int) -> tuple:
+def workspace_shape(num_receivers: int, hidden_dim: int, sms: int,
+                    batch: int = 1) -> tuple:
     """The ``hopper_fp32`` launch's h workspace: ``F32_STEP_ROWS`` rows of
-    H fp32 for each of its ``min(num_receivers, sms)`` blocks."""
-    return (min(num_receivers, sms), F32_STEP_ROWS, hidden_dim)
+    H fp32 for each of its ``min(num_receivers, sms)`` blocks of each of
+    ``batch`` samples."""
+    return (batch * min(num_receivers, sms), F32_STEP_ROWS, hidden_dim)
 
 
 def _receivers(indptr: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -140,20 +151,22 @@ def _receivers(indptr: torch.Tensor, num_rows: int) -> torch.Tensor:
 def edge_step_reference(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
                         num_receivers: int, activation: str = "swish"
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain torch version, with the kernel's rounding points."""
+    """Plain torch version, with the kernel's rounding points (a batch as
+    ``edge_step`` takes it)."""
     dt = v.dtype
-    recv = _receivers(indptr, v.shape[0])
+    recv = _receivers(indptr, v.shape[-2])
     ep = (v.float() @ w1e.float()).to(dt)
-    h = xsg + xr.index_select(0, recv) + ep + b_eff
+    h = xsg + xr.index_select(-2, recv) + ep + b_eff[..., None, :]
     act = act_fn(activation)(h.float()).to(dt)
     u = (act.float() @ w2.float()).to(dt) + b2
-    v_new = a.to(dt) * v + c.to(dt) + u
-    w = mask.float()
-    agg = cuda_segment.segment_sum_reference(u.float() * w[:, None], indptr,
+    v_new = a.to(dt)[..., None, :] * v + c.to(dt)[..., None, :] + u
+    w = mask.float()[:, None]
+    agg = cuda_segment.segment_sum_reference(u.float() * w, indptr,
                                              num_receivers).to(dt)
     vf = v_new.float()
-    stats = torch.stack([(vf * w[:, None]).sum(),
-                         (vf.square() * w[:, None]).sum(), w.sum()])
+    stats = torch.stack([(vf * w).sum(dim=(-2, -1)),
+                         (vf.square() * w).sum(dim=(-2, -1)),
+                         (w.sum() * torch.ones_like(vf[..., 0, 0]))], dim=-1)
     return v_new, agg, stats
 
 
@@ -164,7 +177,9 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
 
     Shapes: xsg [E_pad, H], v [E_pad, De], xr [R, H], w1e [De, H],
     b_eff [H], w2 [H, De], b2 [De], a and c [De] fp32, mask [E_pad],
-    indptr [R + 1] int32."""
+    indptr [R + 1] int32.  A batch: xsg, v, xr, w1e, b_eff, a and c with a
+    leading [B] (w2, b2, mask and indptr shared) -> ([B, E_pad, De], [B,
+    R, De], [B, 3]), one launch."""
     if v.device.type == "cpu":
         return edge_step_reference(xsg, v, xr, w1e, b_eff, w2, b2, a, c,
                                    mask, indptr, num_receivers, activation)
@@ -172,15 +187,22 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
         raise ValueError(f"edge_step: unsupported device {v.device}")
     if v.dtype not in nvcc_build.DTYPE_CODES:
         raise TypeError(f"edge_step: dtype {v.dtype} (fp32/bf16 only)")
-    e_pad, de = v.shape
+    if v.dim() not in (2, 3):
+        raise ValueError(f"edge_step: v {tuple(v.shape)}, expected "
+                         "[E_pad, De] or [B, E_pad, De]")
+    lead = v.shape[:-2]
+    batch = v.shape[0] if lead else 1
+    e_pad, de = v.shape[-2:]
     hid = xsg.shape[-1]
     if not supports(hid, de, activation):
         raise ValueError(f"edge_step: H {hid} / De {de} not multiples of "
                          f"128 or activation {activation!r} not taken")
-    shapes = {"xsg": (xsg, (e_pad, hid)), "xr": (xr, (num_receivers, hid)),
-              "w1e": (w1e, (de, hid)), "b_eff": (b_eff, (hid,)),
-              "w2": (w2, (hid, de)), "b2": (b2, (de,)), "a": (a, (de,)),
-              "c": (c, (de,)), "mask": (mask, (e_pad,)),
+    shapes = {"xsg": (xsg, lead + (e_pad, hid)),
+              "xr": (xr, lead + (num_receivers, hid)),
+              "w1e": (w1e, lead + (de, hid)), "b_eff": (b_eff, lead + (hid,)),
+              "w2": (w2, (hid, de)), "b2": (b2, (de,)),
+              "a": (a, lead + (de,)), "c": (c, lead + (de,)),
+              "mask": (mask, (e_pad,)),
               "indptr": (indptr, (num_receivers + 1,))}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
@@ -193,6 +215,9 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
     check_inputs("edge_step", (a, c), torch.float32, v.device)
     check_inputs("edge_step", (indptr,), torch.int32, v.device)
     lib = nvcc_build.load(SOURCE, SIGNATURES)
+    if batch > lib.gclt_edge_step_max_batch():
+        raise ValueError(f"edge_step: batch {batch} > "
+                         f"{lib.gclt_edge_step_max_batch()}")
     code = nvcc_build.DTYPE_CODES[v.dtype]
     smem = lib.gclt_edge_step_smem(code, hid, de)
     if smem > MAX_SMEM:
@@ -204,19 +229,19 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
     work_ptr = None  # the h workspace, which only hopper_fp32 takes
     if kind == "hopper_fp32":
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _, partials_shape = launch_geometry(num_receivers, tile, sms)
+        _, partials_shape = launch_geometry(num_receivers, tile, sms, batch)
         w1e, w2 = tf32x3_b_image(w1e), tf32x3_b_image(w2)
-        work = torch.empty(workspace_shape(num_receivers, hid, sms),
+        work = torch.empty(workspace_shape(num_receivers, hid, sms, batch),
                            dtype=torch.float32, device=dev)
         work_ptr = work.data_ptr()
     else:
-        _, partials_shape = launch_geometry(num_receivers, tile)
+        _, partials_shape = launch_geometry(num_receivers, tile, 0, batch)
         if kind == "hopper_bf16":
             w1e, w2 = wgmma_b_image(w1e), wgmma_b_image(w2)
-    v_new = torch.empty((e_pad, de), dtype=v.dtype, device=dev)
-    agg = torch.empty((num_receivers, de), dtype=v.dtype, device=dev)
+    v_new = torch.empty(lead + (e_pad, de), dtype=v.dtype, device=dev)
+    agg = torch.empty(lead + (num_receivers, de), dtype=v.dtype, device=dev)
     partials = torch.empty(partials_shape, dtype=torch.float32, device=dev)
-    stats = torch.empty((3,), dtype=torch.float32, device=dev)
+    stats = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gclt_edge_step(
@@ -225,7 +250,7 @@ def edge_step(xsg, v, xr, w1e, b_eff, w2, b2, a, c, mask, indptr,
             c.data_ptr(), mask.data_ptr(), indptr.data_ptr(),
             v_new.data_ptr(), agg.data_ptr(), partials.data_ptr(),
             stats.data_ptr(), work_ptr, code, num_receivers, hid, de,
-            ACTIVATIONS[activation], stream,
+            ACTIVATIONS[activation], e_pad, batch, stream,
         )
     if err != 0:
         raise RuntimeError(f"edge_step kernel launch failed: CUDA error {err}")

@@ -119,9 +119,10 @@ def _edge_tail(static: _Static, h_pre, w2, b2, mask, indptr):
 
 
 def _h_pre(x, e_attr, w1s, w1r, w1e, b1, senders, receivers):
-    return ((x @ w1s).index_select(0, senders)
-            + (x @ w1r).index_select(0, receivers)
+    return ((x @ w1s).index_select(-2, senders)
+            + (x @ w1r).index_select(-2, receivers)
             + e_attr @ w1e + b1)
+
 
 
 def _scatter_both(static: _Static, d_hp, indptr, s_perm, s_indptr):
@@ -129,7 +130,7 @@ def _scatter_both(static: _Static, d_hp, indptr, s_perm, s_indptr):
     through the segment-sum kernel."""
     d_xr = cuda_segment.segment_sum(d_hp.contiguous(), indptr,
                                     static.num_receivers)
-    d_xs = cuda_segment.segment_sum(d_hp.index_select(0, s_perm), s_indptr,
+    d_xs = cuda_segment.segment_sum(d_hp.index_select(-2, s_perm), s_indptr,
                                     static.num_nodes)
     return d_xr, d_xs
 
@@ -157,6 +158,7 @@ class _EdgePipeline(torch.autograd.Function):
         u, agg_sum = _edge_tail(static, h_pre, w2, b2, mask, indptr)
         agg = agg_sum / deg.clamp(min=1.0)[:, None].to(agg_sum.dtype)
         ctx.static = static
+        ctx.b2_shape = b2.shape
         ctx.saved_h_pre = _save_h_pre()
         ctx.save_for_backward(
             x, e_attr, mask, deg, w1s, w1r, w1e, b1, w2, senders, receivers,
@@ -172,18 +174,21 @@ class _EdgePipeline(torch.autograd.Function):
             h_pre = _h_pre(x, e_attr, w1s, w1r, w1e, b1, senders, receivers)
         inv = 1.0 / deg.clamp(min=1.0).to(d_agg.dtype)
         d_sum = d_agg * inv[:, None]                          # [R, De]
-        d_eu_tot = d_eu + mask[:, None] * d_sum.index_select(0, receivers)
-        d_w2 = _act_fn(static.activation)(h_pre).T @ d_eu_tot
-        d_b2 = d_eu_tot.sum(dim=0)
+        d_eu_tot = d_eu + mask[:, None] * d_sum.index_select(-2, receivers)
+        # A batch: an input the samples share (a weight; the first step's
+        # edge state and folded W1e / b1) gets the sum of their gradients.
+        d_w2 = (_act_fn(static.activation)(h_pre).mT @ d_eu_tot) \
+            .sum_to_size(w2.shape)
+        d_b2 = d_eu_tot.sum_to_size(ctx.b2_shape)
         d_hp = _act_backward(static.activation, d_eu_tot @ w2.T,
                              h_pre)                           # [E, H]
-        d_b1 = d_hp.sum(dim=0)
-        d_e = d_hp @ w1e.T
-        d_w1e = e_attr.T @ d_hp
+        d_b1 = d_hp.sum_to_size(b1.shape)
+        d_e = (d_hp @ w1e.mT).sum_to_size(e_attr.shape)
+        d_w1e = (e_attr.mT @ d_hp).sum_to_size(w1e.shape)
         d_xr, d_xs = _scatter_both(static, d_hp, indptr, s_perm, s_indptr)
         d_x = d_xs @ w1s.T + d_xr @ w1r.T
-        d_w1s = x.T @ d_xs
-        d_w1r = x.T @ d_xr
+        d_w1s = (x.mT @ d_xs).sum_to_size(w1s.shape)
+        d_w1r = (x.mT @ d_xr).sum_to_size(w1r.shape)
         return (None, d_x, d_e, None, None, d_w1s, d_w1r, d_w1e, d_b1, d_w2,
                 d_b2, None, None, None, None, None)
 
@@ -193,6 +198,10 @@ def edge_pipeline(x, e_attr, mask, w1s, w1r, w1e, b1, w2, b2, graph,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(edge_update [E_pad, De], agg_mean [R, De]) for one InteractionNet
     step on ``graph`` (the senders' CSR spans ``graph.num_nodes`` rows).
+    A batch is a leading axis: ``x`` [B, N, d] -> ([B, E_pad, De], [B, R,
+    De]), with ``e_attr``, ``w1e`` and ``b1`` either per sample ([B, ...],
+    ``b1`` as [B, 1, H]) or shared; a shared input's gradient sums the
+    samples'.
     ``deg`` is the in-degree [R] under ``mask`` (default
     ``ops.segment.masked_in_degree``: the graph's static degree for its
     own mask); the mask gets no gradient.  Callers gate on
@@ -220,10 +229,11 @@ class _EdgeGatherMlpAgg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static, xs, xr, ep, b1, w2, b2, mask, senders,
                 receivers, indptr, s_perm, s_indptr):
-        h_pre = (xs.index_select(0, senders) + xr.index_select(0, receivers)
-                 + ep + b1)
+        h_pre = (xs.index_select(-2, senders)
+                 + xr.index_select(-2, receivers) + ep + b1)
         u, agg_sum = _edge_tail(static, h_pre, w2, b2, mask, indptr)
         ctx.static = static
+        ctx.b_shapes = (b1.shape, b2.shape)
         ctx.save_for_backward(w2, mask, h_pre, receivers, indptr, s_perm,
                               s_indptr)
         return u, agg_sum
@@ -233,11 +243,12 @@ class _EdgeGatherMlpAgg(torch.autograd.Function):
         w2, mask, h_pre, receivers, indptr, s_perm, s_indptr = \
             ctx.saved_tensors
         static = ctx.static
-        d_eu_tot = d_eu + mask[:, None] * d_agg.index_select(0, receivers)
-        d_w2 = _act_fn(static.activation)(h_pre).T @ d_eu_tot
-        d_b2 = d_eu_tot.sum(dim=0)
+        d_eu_tot = d_eu + mask[:, None] * d_agg.index_select(-2, receivers)
+        d_w2 = (_act_fn(static.activation)(h_pre).mT @ d_eu_tot) \
+            .sum_to_size(w2.shape)
+        d_b2 = d_eu_tot.sum_to_size(ctx.b_shapes[1])
         d_hp = _act_backward(static.activation, d_eu_tot @ w2.T, h_pre)
-        d_b1 = d_hp.sum(dim=0)
+        d_b1 = d_hp.sum_to_size(ctx.b_shapes[0])
         d_xr, d_xs = _scatter_both(static, d_hp, indptr, s_perm, s_indptr)
         return (None, d_xs, d_xr, d_hp, d_b1, d_w2, d_b2, None, None, None,
                 None, None, None)
@@ -265,8 +276,8 @@ def edge_gather_mlp_agg(xs, xr, ep, b1, w2, b2, mask, senders, receivers,
                      activation=activation)
     args = (xs, xr, ep, b1, w2, b2)
     if not (torch.is_grad_enabled() and any(a.requires_grad for a in args)):
-        h_pre = (xs.index_select(0, senders) + xr.index_select(0, receivers)
-                 + ep + b1)
+        h_pre = (xs.index_select(-2, senders)
+                 + xr.index_select(-2, receivers) + ep + b1)
         return _edge_tail(static, h_pre, w2, b2, mask, indptr)
     return _EdgeGatherMlpAgg.apply(static, xs, xr, ep, b1, w2, b2, mask,
                                    senders, receivers, indptr, s_perm,

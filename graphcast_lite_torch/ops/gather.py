@@ -35,12 +35,14 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, perm, indptr):
         ctx.save_for_backward(perm, indptr)
-        return table.index_select(0, idx)
+        return table.index_select(-2, idx)
 
     @staticmethod
     def backward(ctx, g):
         perm, indptr = ctx.saved_tensors
-        g_sorted = g.contiguous() if perm is None else g.index_select(0, perm)
+        g_sorted = g.contiguous() if perm is None \
+            else g.index_select(-2, perm)
+        # A batch [B, E, F] is one launch of the kernel.
         d_table = cuda_segment.segment_sum(g_sorted, indptr,
                                            indptr.numel() - 1)
         return d_table, None, None, None
@@ -48,7 +50,8 @@ class _GatherRows(torch.autograd.Function):
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 aux: GatherAux) -> torch.Tensor:
-    """[N, F] rows picked by ``idx`` [E] -> [E, F].
+    """[N, F] rows picked by ``idx`` [E] -> [E, F]; a batch [B, N, F]
+    gathers each sample's rows -> [B, E, F].
 
     ``aux`` = (perm, indptr), the sorted CSR of ``idx`` over the N rows
     (``graphs.structure.sender_csr``; perm ``None`` for a sorted index),
@@ -56,8 +59,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     the gather is a plain ``index_select``."""
     perm, indptr = aux
     if not (torch.is_grad_enabled() and table.requires_grad):
-        return table.index_select(0, idx)
-    if indptr.numel() - 1 != table.shape[0]:
+        return table.index_select(-2, idx)
+    if indptr.numel() - 1 != table.shape[-2]:
         raise ValueError(f"gather_rows: CSR over {indptr.numel() - 1} rows, "
-                         f"table of {table.shape[0]}")
+                         f"table of {table.shape[-2]}")
     return _GatherRows.apply(table, idx, perm, indptr)

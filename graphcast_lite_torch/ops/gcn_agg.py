@@ -51,26 +51,27 @@ class _GcnAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, senders, receivers, indptr, s_perm,
                 s_indptr):
-        msgs = x.index_select(0, senders) * scale[:, None]
+        msgs = x.index_select(-2, senders) * scale[:, None]
         ctx.save_for_backward(scale, receivers, s_perm, s_indptr)
         return cuda_segment.segment_sum(msgs, indptr, indptr.numel() - 1)
 
     @staticmethod
     def backward(ctx, d_agg):
         scale, receivers, s_perm, s_indptr = ctx.saved_tensors
-        d_msgs = d_agg.index_select(0, receivers) * scale[:, None]
-        d_x = cuda_segment.segment_sum(d_msgs.index_select(0, s_perm),
+        d_msgs = d_agg.index_select(-2, receivers) * scale[:, None]
+        d_x = cuda_segment.segment_sum(d_msgs.index_select(-2, s_perm),
                                        s_indptr, s_indptr.numel() - 1)
         return d_x, None, None, None, None, None, None
 
 
 def gcn_aggregate(x: torch.Tensor, scale: torch.Tensor,
                   graph) -> torch.Tensor:
-    """``agg[r] = Σ_e scale[e] · x[sender[e]]`` [R, F]; ``scale`` [E_pad]
-    pre-masked and not differentiated.  Callers gate on
+    """``agg[r] = Σ_e scale[e] · x[sender[e]]`` [R, F] (a batch [B, N, F]
+    -> [B, R, F]); ``scale`` [E_pad] pre-masked, shared by the batch and
+    not differentiated.  Callers gate on
     ``supports_gcn_aggregate``."""
     if not (torch.is_grad_enabled() and x.requires_grad):
-        msgs = x.index_select(0, graph.senders) * scale[:, None]
+        msgs = x.index_select(-2, graph.senders) * scale[:, None]
         return cuda_segment.segment_sum(msgs, graph.indptr,
                                         graph.num_receivers)
     return _GcnAggregate.apply(x, scale.detach(), graph.senders,

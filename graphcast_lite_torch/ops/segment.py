@@ -50,15 +50,16 @@ def masked_in_degree(graph: Graph,
 
 def aggregate_sum(messages: torch.Tensor, graph: Graph,
                   edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum messages [E_pad, F] into receivers -> [R, F]."""
+    """Sum messages [E_pad, F] into receivers -> [R, F]; a batch [B, E_pad,
+    F] -> [B, R, F] in one reduction (one kernel launch)."""
     mask = graph.edge_mask if edge_mask is None else edge_mask
     masked = messages * mask[:, None]
-    if graph.const_in_degree > 0 and masked.dim() == 2:
+    if graph.const_in_degree > 0:
         # Constant in-degree + sorted receivers: the segment reduction is
         # a reshape-sum (fp32 accumulation, as the JAX package does).
         k, r0 = graph.const_in_degree, graph.num_const_receivers
-        out = masked.reshape(r0, k, masked.shape[-1]).float().sum(dim=1) \
-            .to(masked.dtype)
+        out = masked.reshape(masked.shape[:-2] + (r0, k, masked.shape[-1])) \
+            .float().sum(dim=-2).to(masked.dtype)
         if r0 < graph.num_receivers:
             out = torch.nn.functional.pad(
                 out, (0, 0, 0, graph.num_receivers - r0)
@@ -87,13 +88,13 @@ def segment_softmax_coo(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Numerically stable softmax over each receiver's incoming edges.
 
-    ``logits`` [E_pad] or [E_pad, H]; ``extra_logit`` an optional [R] or
-    [R, H] per-receiver term that joins the softmax (GAT's self-loop
-    logit).  Returns (edge weights, zero on masked edges; self weights or
-    None), normalized so that the edges and the self term of a receiver
-    with any term sum to 1.  The max is detached, and receivers with no
-    live edge keep a finite -1e30 floor in the logits' dtype, as in the
-    JAX package."""
+    ``logits`` [E_pad], [E_pad, H] or a batch [B, E_pad, H];
+    ``extra_logit`` an optional [R], [R, H] or [B, R, H] per-receiver term
+    that joins the softmax (GAT's self-loop logit).  Returns (edge
+    weights, zero on masked edges; self weights or None), normalized so
+    that the edges and the self term of a receiver with any term sum to
+    1.  The max is detached, and receivers with no live edge keep a finite
+    -1e30 floor in the logits' dtype, as in the JAX package."""
     mask = graph.edge_mask if edge_mask is None else edge_mask
     squeeze = logits.dim() == 1
     if squeeze:
@@ -101,15 +102,16 @@ def segment_softmax_coo(
         if extra_logit is not None:
             extra_logit = extra_logit[:, None]
     mask_b = mask[:, None]
-    r, h = graph.num_receivers, logits.shape[1]
+    r = graph.num_receivers
+    lead, h = logits.shape[:-2], logits.shape[-1]
 
     neg = torch.tensor(-1e30, dtype=logits.dtype, device=logits.device)
     masked_logits = torch.where(mask_b > 0, logits, neg)
     with torch.no_grad():
-        seg_max = torch.full((r, h), float("-inf"), dtype=logits.dtype,
-                             device=logits.device)
+        seg_max = torch.full(lead + (r, h), float("-inf"),
+                             dtype=logits.dtype, device=logits.device)
         seg_max = seg_max.scatter_reduce(
-            0, graph.receivers.long()[:, None].expand(-1, h),
+            -2, graph.receivers.long()[:, None].expand(logits.shape),
             masked_logits, "amax", include_self=False)
         if extra_logit is not None:
             seg_max = torch.maximum(seg_max, extra_logit)

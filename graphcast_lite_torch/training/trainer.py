@@ -24,8 +24,10 @@ processor freeze, early stopping, the fp32 evaluation of one-step
 rollouts, ``best_model.pt``, a checkpoint every epoch (``training.
 checkpoint``), resume (from this package's checkpoint or the JAX
 package's), and the logs (``training_log.txt``, ``metrics.jsonl``,
-``results.json``).  A batch is a Python loop over its samples; the JAX
-package vmaps the model over it (the losses agree, the times do not).
+``results.json``).  A batch is one call of the model on its leading
+batch axis (``_batched``), as the JAX package ``vmap``s its single-sample
+model; ``GCLT_BATCH_VMAP=0`` runs the samples one call each instead, as
+the JAX package's ``lax.map`` does under the same switch.
 
 The CNN stacks (``models.grid_adapter.GridImageModel``) train through
 the same loop with ``graphs=None``, their own optimizer (``optimizer=``,
@@ -140,6 +142,23 @@ def _zero_processor_grads(model: nn.Module) -> None:
             p.grad.zero_()
 
 
+def _batched(apply: Callable) -> Callable:
+    """``apply(x [G, ...] or [B, G, ...], mask, thr, prune) -> (out,
+    mask')`` over a batch ``inp`` [B, G, ...]: one call on the batch, or
+    under ``GCLT_BATCH_VMAP=0`` one a sample, stacked (the JAX package's
+    switch between its ``vmap`` and its ``lax.map``).  The graphs and the
+    edge mask are shared; the new mask is the first sample's (pruning is a
+    batch-level decision, as in the JAX package's ``_batched_apply``)."""
+    def model_fn(inp, mask, thr, prune):
+        if os.environ.get("GCLT_BATCH_VMAP", "1") not in ("0", "false",
+                                                          "off"):
+            return apply(inp, mask, thr, prune)
+        outs = [apply(sample, mask, thr, prune) for sample in inp]
+        return torch.stack([o for o, _ in outs]), outs[0][1]
+
+    return model_fn
+
+
 def _as_tensor(a, device) -> Optional[torch.Tensor]:
     if a is None:
         return None
@@ -197,12 +216,7 @@ class TrainStep:
             def apply(*args):
                 return functional_call(model, params, args)
 
-        def model_fn(inp, mask, t, p):
-            # The single-sample model over the batch; the graphs and the
-            # edge mask are shared, the new mask is the first sample's.
-            outs = [apply(sample, graphs, mask, t, p) for sample in inp]
-            return torch.stack([o for o, _ in outs]), outs[0][1]
-
+        model_fn = _batched(lambda x, mask, t, p: apply(x, graphs, mask, t, p))
         loss, new_mask = rollout_loss(
             model_fn, window, targets, self.steps, self.spec, edge_mask,
             thr, prune, lat_weights=self.lat_weights,
@@ -528,10 +542,7 @@ class Trainer:
         window = x.reshape(b, g, spec.obs_window, spec.num_features)
         targets = y.reshape(b, g, -1, spec.num_features)
 
-        def model_fn(inp, mask, thr, prune):
-            # The single-sample model over the batch; the graphs are shared.
-            return torch.stack([model(s, graphs, mask)[0] for s in inp]), None
-
+        model_fn = _batched(lambda x, mask, t, p: model(x, graphs, mask))
         preds = rollout_predict(model_fn, window, 1, spec, state.edge_mask,
                                 0.0, forcing=targets)
         out, tgt = preds[..., 0, :], targets[..., 0, :]

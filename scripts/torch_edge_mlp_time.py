@@ -145,6 +145,11 @@ def _caller(path, t, r):
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.restype, fn.argtypes = restype, list(argtypes)
+    if getattr(lib, "gclt_edge_mlp_max_batch", None) is None:
+        # An earlier interface: no rows or batch before the stream.
+        lib.gclt_edge_mlp.argtypes = ([ctypes.c_void_p] * 7
+                                      + [ctypes.c_int] * 5
+                                      + [ctypes.c_void_p])
     dtype = t["h_pre"].dtype
     code = nvcc_build.DTYPE_CODES[dtype]
     hid, de = t["w2"].shape
@@ -164,12 +169,17 @@ def _caller(path, t, r):
     u = torch.empty((t["h_pre"].shape[0], de), dtype=dtype, device="cuda")
     agg = torch.empty((r, de), dtype=dtype, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    # Builds that take a batch (gclt_edge_mlp_max_batch) read the rows a
+    # sample and the batch before the stream: one sample here.
+    batch_args = ((t["h_pre"].shape[0], 1)
+                  if getattr(lib, "gclt_edge_mlp_max_batch", None) is not None
+                  else ())
 
     def call():
         err = lib.gclt_edge_mlp(
             t["h_pre"].data_ptr(), w2.data_ptr(), t["b2"].data_ptr(),
             t["mask"].data_ptr(), t["indptr"].data_ptr(), u.data_ptr(),
-            agg.data_ptr(), code, r, hid, de, 0, stream)
+            agg.data_ptr(), code, r, hid, de, 0, *batch_args, stream)
         if err != 0:
             raise RuntimeError(f"{path}: CUDA error {err}")
         return u, agg

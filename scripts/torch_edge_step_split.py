@@ -178,8 +178,15 @@ def _caller(path, t, r):
     current = getattr(lib, "gclt_edge_step_design", None) is not None
     if current:
         for name, (restype, argtypes) in edge_step.SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, list(argtypes)
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.restype, fn.argtypes = restype, list(argtypes)
+        if getattr(lib, "gclt_edge_step_max_batch", None) is None:
+            # The interface before the batch: no rows or batch before the
+            # stream.
+            lib.gclt_edge_step.argtypes = ([ctypes.c_void_p] * 16
+                                           + [ctypes.c_int] * 5
+                                           + [ctypes.c_void_p])
         kind = edge_step.DESIGNS[lib.gclt_edge_step_design(code, hid, de)]
         tile = lib.gclt_edge_step_tile_receivers(code, hid, de)
     else:
@@ -223,8 +230,15 @@ def _caller(path, t, r):
     # weight image or scratch would be reused by the next allocation.
     keep = (w1e, w2, work, partials, v_new, agg, stats)
 
+    # Builds that take a batch (gclt_edge_step_max_batch) read the rows a
+    # sample and the batch before the stream: one sample here.
+    batch_args = ((t["v"].shape[0], 1)
+                  if getattr(lib, "gclt_edge_step_max_batch", None) is not None
+                  else ())
+
     def call():
-        err = lib.gclt_edge_step(*ptrs, code, r, hid, de, 0, stream)
+        err = lib.gclt_edge_step(*ptrs, code, r, hid, de, 0, *batch_args,
+                                 stream)
         if err != 0:
             raise RuntimeError(f"{path}: CUDA error {err}")
         return keep[4:]

@@ -5,12 +5,14 @@ make_demo -> train -> predict through the CLIs' ``main(argv)`` with
 
 * make_demo: both packages write configs that load to the same config
   (with either package's loader) and byte-identical data files.
-* ``evaluate_model(rollouts_per_dispatch=K)`` for K in {2, 3} (accepted,
-  with no effect until the batched forward) gives the report and the saved
-  predictions of K = 1 exactly.
+* ``evaluate_model(rollouts_per_dispatch=K)`` for K in {2, 3} (the
+  amortized serve: K samples' trajectories in one batched rollout) gives
+  the report and the saved predictions of K = 1 within ``rtol=1e-6``, the
+  JAX package's own tolerance for it (``tests/test_inference.py``): the
+  batched products round differently in the last bits.
 * ``cli.train`` writes the checkpoint, best model and logs, ``--resume``
   continues at the next epoch, and ``cli.predict`` reports the same at
-  ``--rollouts-per-dispatch 4`` as at K = 1.
+  ``--rollouts-per-dispatch 4`` as at K = 1 within the same tolerance.
 * A JAX ``best_model.msgpack`` (the JAX package's own ``save_params``) is
   found by ``cli.predict`` when there is no ``best_model.pt``; its report
   agrees with the JAX package's ``cli.predict`` on the same file within
@@ -84,6 +86,35 @@ def five_samples(tmp_path_factory):
     return model, graphs, test_ds, meta
 
 
+# The amortized serve against K = 1: the JAX package's tolerance
+# (tests/test_inference.py::test_amortized_serve_matches_single).
+SERVE_RTOL = 1e-6
+
+
+def _numbers(obj):
+    """The numbers of a report's JSON, in order, and its other leaves."""
+    if isinstance(obj, dict):
+        pairs = [_numbers(obj[k]) for k in sorted(obj)]
+        return ([n for p in pairs for n in p[0]],
+                [sorted(obj)] + [o for p in pairs for o in p[1]])
+    if isinstance(obj, (list, tuple)):
+        pairs = [_numbers(v) for v in obj]
+        return [n for p in pairs for n in p[0]], [o for p in pairs
+                                                  for o in p[1]]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [float(obj)], []
+    return [], [obj]
+
+
+def assert_reports_close(got, want, rtol=SERVE_RTOL):
+    """Two reports with the same structure, counts and names, and every
+    number within ``rtol`` (zeros exactly)."""
+    (gn, go), (wn, wo) = _numbers(got), _numbers(want)
+    assert go == wo
+    assert got["num_samples"] == want["num_samples"]
+    np.testing.assert_allclose(gn, wn, rtol=rtol, atol=0.0)
+
+
 @pytest.mark.parametrize("k", [2, 3])
 def test_amortized_serve_equals_one_by_one(five_samples, tmp_path, k):
     model, graphs, test_ds, meta = five_samples
@@ -97,8 +128,10 @@ def test_amortized_serve_equals_one_by_one(five_samples, tmp_path, k):
                                       save_predictions=path, **kw))
         preds.append(np.load(path)["predictions"])
     assert reports[0].num_samples == 5
-    assert reports[1].to_json() == reports[0].to_json()
-    assert np.array_equal(preds[1], preds[0])
+    assert_reports_close(reports[1].to_json(), reports[0].to_json())
+    assert preds[1].shape == preds[0].shape
+    np.testing.assert_allclose(preds[1], preds[0], rtol=SERVE_RTOL,
+                               atol=SERVE_RTOL * np.abs(preds[0]).max())
 
 
 def _set_epochs(exp, n):
@@ -141,7 +174,7 @@ def test_demo_loop_cpu(tmp_path, capsys):
     assert out.count(f"[predict] loaded {exp / 'best_model.pt'}") == 2
     assert reports[0]["num_samples"] == 6 and reports[0]["ar_steps"] == 2
     assert np.isfinite(reports[0]["rmse"])
-    assert reports[1] == reports[0]
+    assert_reports_close(reports[1], reports[0])
 
 
 def test_predict_serves_a_jax_checkpoint(tmp_path, capsys):
