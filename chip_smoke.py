@@ -247,7 +247,22 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    sender-table CSRs) and ``edge_mlp`` (at the shard's processor shape)
    against their plain versions in fp32 and bf16, two launches bitwise
    equal, timed as in phase 7a.  Four ranks on one card measure
-   correctness and halo volume, not scaling.
+   correctness and halo volume, not scaling.  11d: the sharded step at a
+   local batch of 2, one forward call a batch (``jax.vmap`` in the JAX
+   package): on 11a's rank, fp32 (TF32 off) against the one-device
+   ``make_train_step`` at B = 2 on the plain step's route (loss and every
+   gradient as in 11a), bf16 steps against fp32 masters (the first loss
+   within 2^-5 of fp32; step ms timed in turns with B = 1 steps, peak
+   memory, idle share), one step under ``GCLT_MEGA_EDGE=1``, every step's
+   segment-sum launches by CSR, ``edge_mlp`` launches, halo exchanges and
+   collectives equal to a B = 1 step's; the forward's samples against one
+   call each (fp32, the fused tolerance; bitwise recorded); 11b's tiles
+   ranks then take one fp32 step at B = 2 from the same weights, held to
+   the one-rank B = 2 step (losses, rank 0's gradients), bitwise equal
+   parameters, the plan's rows an exchange per sample, and each rank's
+   exchanges and collectives a B = 1 step's (staged bytes printed); the
+   segment sum and ``edge_mlp`` at rank 0's shard shapes on batches of 2,
+   each sample bitwise its own launch, timed beside the single launches.
 
 12. The batched forward (B samples in one model call).  12a: ``edge_mlp``
    and ``edge_step`` on batches of 2 and 3 in every design (bf16 and fp32
@@ -279,7 +294,7 @@ Prints the card's name and power limit, ``{"serve": ...}``,
 the train steps, the fit, the demo's training, the regional head steps
 and phases 9, 10, 11 and 12; the segment sum's also by design in the
 serve and the train step; each kernel's batched figures under
-``batched``)
+``batched``, 11d's under ``sharded_batched``)
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
@@ -5278,6 +5293,14 @@ SHARDED_FIT_STEPS = 2      # 11c
 SHARDED_TIMEOUT_S = 600
 # 11a: the bf16 sharded step's loss against its fp32 twin, relative.
 SHARDED_BF16_RTOL = 2.0 ** -5
+# 11d: the local batch of the sharded step (one forward call a batch); its
+# bf16 steps on one rank are timed in turns with one-sample steps (B=1,
+# B=2, B=2, B=1, after a warm-up of each), then one is profiled.  The
+# forward's samples against one call each, fp32 with TF32 off: cuBLAS may
+# tile a product of B·N rows otherwise than one of N rows, so the samples
+# are held to the fused kernels' fp32 tolerance, and whether they are
+# bitwise is recorded.
+SHARDED_BATCH = 2
 
 
 def _free_port() -> int:
@@ -5607,7 +5630,9 @@ def phase_sharded_one_rank(ctx, smi):
 
 def _sharded_rank(rank, world, store, payload_path, out_dir):
     """One of 11b's ranks: gloo (host-staged) on the one card, the sharded
-    fp32 train step for ``SHARDED_RANK_STEPS`` steps."""
+    fp32 train step for ``SHARDED_RANK_STEPS`` steps; given
+    ``payload["batched"]``, then one step from the same weights on 11d's
+    batch (SHARDED_BATCH samples, one forward call)."""
     import datetime
     import hashlib
     import pickle
@@ -5645,21 +5670,22 @@ def _sharded_rank(rank, world, store, payload_path, out_dir):
                                           chan_mask=p["cm"])
         parts = _sharded_launches(arrs, cfg, AR_STEPS)
         expected = sum(n for _, n in parts.values())
-        steps = []
-        for i in range(SHARDED_RANK_STEPS):
+
+        def timed_step(step, x_sh, y_sh):
             torch.cuda.synchronize()
             dist.barrier()
             cuda_segment.launches = 0
             cuda_segment.launches_by_csr.clear()
             collectives.reset_transport()
             sm.reset_halo_rows()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            loss, _ = step(p["x_sh"], p["y_sh"], arrs)
+            loss, _ = step(x_sh, y_sh, arrs)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             flat = torch.cat([q.detach().reshape(-1)
                               for q in model.parameters()]).cpu()
-            steps.append({
+            return {
                 "loss": loss.item(), "wall_ms": wall_ms,
                 "params_sha256": hashlib.sha256(
                     flat.numpy().tobytes()).hexdigest(),
@@ -5671,7 +5697,11 @@ def _sharded_rank(rank, world, store, payload_path, out_dir):
                 "halo_rows": dict(sm.halo_rows),
                 "halo_exchanges": dict(sm.halo_exchanges),
                 "transport": dict(collectives.transport),
-                "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+        steps = []
+        for i in range(SHARDED_RANK_STEPS):
+            steps.append(timed_step(step, p["x_sh"], p["y_sh"]))
             if i == 0 and rank == 0:
                 grads = _grads(model)
         out = {"steps": steps, "mesh_index": (mesh.data_index,
@@ -5680,6 +5710,16 @@ def _sharded_rank(rank, world, store, payload_path, out_dir):
                          for k in ("enc", "proc", "dec")}}
         if rank == 0:
             out["grads"] = grads
+        if p.get("batched") is not None:
+            model.load_state_dict(p["state"])
+            opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+            step = sm.make_sharded_train_step(fwd, _sharded_spec(cfg), mesh,
+                                              model, opt, AR_STEPS,
+                                              chan_mask=p["cm"])
+            out["batched"] = timed_step(step, p["batched"]["x_sh"],
+                                        p["batched"]["y_sh"])
+            if rank == 0:
+                out["batched"]["grads"] = _grads(model)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5763,13 +5803,16 @@ def phase_sharded_kernels(gs, plan):
     return seg, mlp
 
 
-def phase_sharded_four_ranks(ctx, fp32_run, workdir):
+def phase_sharded_four_ranks(ctx, fp32_run, workdir, batched_run):
     """11b: SHARDED_RANKS ranks on the one card (gloo, host-staged: NCCL
     allows one rank a device), fp32 (TF32 off), SHARDED_RANK_STEPS steps
     each on the tiles and the latitude plans; every rank's loss and rank
     0's gradients against 11a's fp32 run, the ranks' parameters bitwise
     equal after each step, the rows received an exchange against the
-    plan's ``rows_exchanged_per_step``, the launches, the staging."""
+    plan's ``rows_exchanged_per_step``, the launches, the staging.  On the
+    tiles plan the ranks then take 11d's step at SHARDED_BATCH samples,
+    held alike to ``batched_run`` (11d's one-rank fp32 step) and to their
+    one-sample step's exchanges and collectives."""
     import types
 
     from graphcast_lite_torch import presets
@@ -5804,6 +5847,10 @@ def phase_sharded_four_ranks(ctx, fp32_run, workdir):
                                       cfg.forcing_channels),
                    "x_sh": plan.scatter_grid(x[None]),
                    "y_sh": plan.scatter_grid(y[None])}
+        if partition == "tiles":
+            payload["batched"] = {
+                "x_sh": plan.scatter_grid(batched_run["x"]),
+                "y_sh": plan.scatter_grid(batched_run["y"])}
         t0 = time.perf_counter()
         ranks = _spawn_ranks(_sharded_rank, SHARDED_RANKS,
                              os.path.join(workdir, partition), payload)
@@ -5862,6 +5909,8 @@ def phase_sharded_four_ranks(ctx, fp32_run, workdir):
             "peak_mem_bytes": [r["steps"][-1]["peak_mem_bytes"]
                                for r in ranks],
         }
+        if partition == "tiles":
+            out["batched"] = _check_batched_ranks(plan, ranks, batched_run)
         _log(f"  {partition}: plan {plan_ms:.1f} ms; modes "
              f"{ranks[0]['modes']}; losses "
              + ", ".join(f"{v:.7f}" for v in out[partition]["losses"])
@@ -5881,7 +5930,81 @@ def phase_sharded_four_ranks(ctx, fp32_run, workdir):
     _log("phase 11b: the segment sum and edge_mlp on rank 0's shard of the "
          "tiles plan")
     seg, mlp = phase_sharded_kernels(gs, kernel_plan)
-    out["kernels"] = {"segment_sum": seg, "edge_mlp": mlp}
+    bseg, bmlp = phase_sharded_batched_kernels(gs, kernel_plan)
+    out["kernels"] = {"segment_sum": seg, "edge_mlp": mlp,
+                      "batched": {"segment_sum": bseg, "edge_mlp": bmlp}}
+    return out
+
+
+def _check_batched_ranks(plan, ranks, batched_run) -> dict:
+    """11d's step at SHARDED_BATCH on 11b's tiles ranks: the ranks'
+    parameters bitwise equal, every rank's loss and rank 0's gradients
+    against 11d's one-rank fp32 step, the rows an exchange the plan's (per
+    sample), the launches, exchanges and collectives a one-sample step's."""
+    rows = [r["batched"] for r in ranks]
+    if len({s["params_sha256"] for s in rows}) != 1:
+        raise AssertionError("11d tiles: the ranks' parameters differ")
+    if len({s["loss"] for s in rows}) != 1:
+        raise AssertionError(f"11d tiles: losses {[s['loss'] for s in rows]}")
+    loss = rows[0]["loss"]
+    if abs(loss - batched_run["loss"]) > TRAIN_LOSS_RTOL * abs(
+            batched_run["loss"]):
+        raise AssertionError(f"11d tiles: loss {loss} against the one-rank "
+                             f"fp32 {batched_run['loss']}")
+    worst = _grads_within("11d tiles", rows[0]["grads"],
+                          batched_run["grads"])
+    for r in ranks:
+        s, one = r["batched"], r["steps"][0]
+        if s["segment_sum"] != s["segment_sum_expected"] \
+                or not s["by_csr_equal"]:
+            raise AssertionError(f"11d tiles: {s['segment_sum']} segment "
+                                 f"sums, expected {s['segment_sum_expected']}")
+        if (s["halo_exchanges"], s["transport"]["collectives"]) != (
+                one["halo_exchanges"], one["transport"]["collectives"]):
+            raise AssertionError(
+                f"11d tiles: exchanges {s['halo_exchanges']} and "
+                f"{s['transport']['collectives']} collectives at B="
+                f"{SHARDED_BATCH}, {one['halo_exchanges']} and "
+                f"{one['transport']['collectives']} at B=1")
+    exchanged = {}
+    for name, st in plan.comm_stats.items():
+        got = sum(s["halo_rows"][name] / s["halo_exchanges"][name]
+                  for s in rows)
+        want = (st["all_gather_baseline"] if st["chosen"] == "gather"
+                else st["banded"])
+        if got != want:
+            raise AssertionError(f"11d tiles {name}: {got} rows an exchange "
+                                 f"(a sample), the plan says {want}")
+        exchanged[name] = got
+    out = {
+        "batch": SHARDED_BATCH, "loss": loss,
+        "worst_grad_err_of_tol": worst[0], "worst_grad_leaf": worst[1],
+        "rows_per_exchange_per_sample": exchanged,
+        "halo_exchanges_per_step": rows[0]["halo_exchanges"],
+        "collectives_per_rank_step": rows[0]["transport"]["collectives"],
+        "collectives_per_rank_b1_step": ranks[0]["steps"][0]["transport"][
+            "collectives"],
+        "staged_bytes_per_step": sum(s["transport"]["staged_bytes"]
+                                     for s in rows),
+        "staged_bytes_per_b1_step": sum(r["steps"][0]["transport"][
+            "staged_bytes"] for r in ranks),
+        "staged_s_per_step": sum(s["transport"]["staged_s"] for s in rows),
+        "step_wall_ms": [s["wall_ms"] for s in rows],
+        "wall_s": max(s["wall_ms"] for s in rows) / 1e3,
+        "segment_sum_per_rank_step": rows[0]["segment_sum"],
+        "peak_mem_bytes": [s["peak_mem_bytes"] for s in rows],
+    }
+    _log(f"  tiles, 11d's B={SHARDED_BATCH} step: loss {loss:.7f} (one rank "
+         f"{batched_run['loss']:.7f}); gradients' largest error "
+         f"{worst[0]:.2e} of the tolerance ({worst[1]}); params bitwise "
+         f"equal on every rank; rows an exchange a sample (all ranks) "
+         f"{exchanged}; {out['collectives_per_rank_step']} collectives a "
+         f"rank-step (B=1 {out['collectives_per_rank_b1_step']}); staged "
+         f"{out['staged_bytes_per_step'] / 1e6:.1f} MB (B=1 "
+         f"{out['staged_bytes_per_b1_step'] / 1e6:.1f}) and "
+         f"{out['staged_s_per_step']:.3f} s a step over all ranks; step "
+         f"wall {out['step_wall_ms'][0]:.1f} ms on rank 0 (host clock); "
+         f"peak {max(out['peak_mem_bytes']) / 2**30:.3f} GiB a rank")
     return out
 
 
@@ -5957,6 +6080,295 @@ def phase_sharded_fit(ctx, mesh, workdir):
     return out
 
 
+def _reset_sharded_counts():
+    from graphcast_lite_torch.parallel import collectives
+    from graphcast_lite_torch.parallel import sharded_model as sm
+
+    _reset_launches()
+    sm.reset_halo_rows()
+    collectives.reset_transport()
+
+
+def _sharded_counts(parts) -> dict:
+    """The launches by kernel and by CSR (``_csr_launches(parts)``), the
+    halo exchanges by graph and the collectives since
+    ``_reset_sharded_counts``."""
+    from graphcast_lite_torch.parallel import collectives
+    from graphcast_lite_torch.parallel import sharded_model as sm
+
+    return dict(_launches(), by_csr=_csr_launches(parts),
+                halo_exchanges=dict(sm.halo_exchanges),
+                collectives=collectives.transport["collectives"])
+
+
+def _batch_arrays(ctx, b):
+    """(x [b, G, obs·C], y [b, G, AR·C]): the first ``b`` samples of phase
+    2's test split."""
+    samples = [ctx["test_ds"].get(i) for i in range(b)]
+    return (np.stack([s[0] for s in samples]),
+            np.stack([s[1] for s in samples]))
+
+
+def phase_sharded_batched(ctx, smi, mesh, one_rank):
+    """11d: the sharded train step at a local batch of SHARDED_BATCH
+    samples, one forward call a batch, on one rank over NCCL at the
+    flagship's full width: fp32 (TF32 off) against the one-device step at
+    the same batch on the plain step's route; bf16 steps against fp32
+    masters, timed and profiled; GCLT_MEGA_EDGE=1; in every step the
+    launches by CSR, the halo exchanges and the collectives of a one-sample
+    step; the forward's samples against one call each.  Returns (results,
+    the fp32 run 11b's ranks are held to)."""
+    import copy
+
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.parallel import sharded_model as sm
+    from graphcast_lite_torch.training.loss import channel_mask, \
+        lat_weights_from_axis
+
+    gs, meta = ctx["gs"], ctx["meta"]
+    cfg = presets.interaction_net_512x256()
+    n_feat = cfg.data.num_features_used
+    mp = cfg.pipeline.processor.gcn.num_message_passing_steps
+    b = SHARDED_BATCH
+    _log(f"phase 11d: the sharded train step at a local batch of {b} (one "
+         f"forward call a batch) on one rank over NCCL, flagship 512x256 "
+         f"AR-{AR_STEPS}: fp32 (TF32 off) against the one-device "
+         f"make_train_step at B={b} (GCLT_LAZY_EDGE=0), bf16 steps against "
+         f"fp32 masters timed in turns with B=1 steps, GCLT_MEGA_EDGE=1; "
+         f"launches, exchanges and collectives against a B=1 step's; {smi}")
+    plan = sm.build_sharding_plan(gs, 1)
+    arrs = sm.plan_device_arrays(
+        plan, gs, mesh, lat_weights=lat_weights_from_axis(
+            meta.num_latitudes, meta.num_longitudes), device="cuda")
+    cm = channel_mask(n_feat, cfg.static_channels, cfg.forcing_channels)
+    fwd = sm.ShardedWeatherForward(cfg.pipeline, cfg.data, 1)
+    spec = _sharded_spec(cfg)
+    x, y = _batch_arrays(ctx, b)
+    x_sh, y_sh = plan.scatter_grid(x), plan.scatter_grid(y)
+    x1_sh, y1_sh = x_sh[:1], y_sh[:1]
+    base = _seeded_flagship(cfg, gs)
+    parts = _sharded_launches(arrs, cfg, AR_STEPS)
+    mega_parts = _sharded_launches(arrs, cfg, AR_STEPS, mega=True)
+
+    def sharded(model, dtype):
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+        return sm.make_sharded_train_step(fwd, spec, mesh, model, opt,
+                                          AR_STEPS, chan_mask=cm,
+                                          compute_dtype=dtype)
+
+    def counted(run, parts, n_mlp=0, like=None):
+        """run() with its counts, held to the step's launches and, given
+        ``like`` (a B=1 step's counts), to its exchanges and collectives."""
+        _reset_sharded_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = _sharded_counts(parts)
+        expected = {"segment_sum": sum(n for _, n in parts.values()),
+                    "edge_mlp": n_mlp, "edge_step": 0,
+                    "by_csr": {label: n for label, (_, n) in parts.items()}}
+        if like is not None:
+            expected.update(halo_exchanges=like["halo_exchanges"],
+                            collectives=like["collectives"])
+        got = {k: counts[k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"11d: launches {got}, expected {expected}")
+        return out, counts
+
+    # A one-sample bf16 step: the counts every B=2 step is held to.
+    m1 = copy.deepcopy(base)
+    step1 = sharded(m1, torch.bfloat16)
+    _, counts1 = counted(lambda: step1(x1_sh, y1_sh, arrs), parts)
+    # fp32 (TF32 off): the B=2 sharded step against the one-device step.
+    m32 = copy.deepcopy(base)
+    torch.cuda.reset_peak_memory_stats()
+    (loss32, _), _ = counted(
+        lambda: sharded(m32, torch.float32)(x_sh, y_sh, arrs), parts,
+        like=counts1)
+    peak32 = torch.cuda.max_memory_allocated()
+    loss32 = loss32.item()
+    grads32 = _grads(m32)
+    del m32
+    torch.cuda.empty_cache()
+    with _route({"GCLT_LAZY_EDGE": "0"}):
+        ref_model, ref_step = _flagship_step(ctx, base, "float32")
+        loss_ref = ref_step(*(torch.from_numpy(a).cuda()
+                              for a in (x, y))).item()
+        routes = sorted({s.route for s in
+                         ref_model.processor.graph_layer.inet.steps})
+        grads_ref = _grads(ref_model)
+        del ref_model, ref_step
+    torch.cuda.empty_cache()
+    if not (np.isfinite(loss32)
+            and abs(loss32 - loss_ref) <= TRAIN_LOSS_RTOL * abs(loss_ref)):
+        raise AssertionError(f"11d fp32: sharded B={b} loss {loss32} against "
+                             f"the one-device {loss_ref}")
+    worst = _grads_within(f"11d fp32 sharded B={b}", grads32, grads_ref)
+    _log(f"  fp32 B={b}: sharded loss {loss32:.7f}, one-device ({routes}) "
+         f"{loss_ref:.7f}; {len(grads32)} gradients, largest error "
+         f"{worst[0]:.2e} of its tolerance ({worst[1]}); peak "
+         f"{peak32 / 2**30:.3f} GiB")
+
+    # bf16: a warm-up, then B=1 and B=2 steps timed in turns (CUDA
+    # events), then a profiled B=2 step; exact counts each.
+    m16 = copy.deepcopy(base)
+    step16 = sharded(m16, torch.bfloat16)
+    losses, ms, ms1 = [], [], []
+
+    def timed(step, xs, ys, times):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def run():
+            start.record()
+            out = step(xs, ys, arrs)
+            end.record()
+            return out
+
+        (loss, _), counts = counted(run, parts, like=counts1)
+        times.append(start.elapsed_time(end))
+        return loss, counts
+
+    warm = []
+    losses.append(timed(step16, x_sh, y_sh, warm)[0].item())
+    torch.cuda.reset_peak_memory_stats()
+    for batched in (False, True, True, False):
+        if batched:
+            loss, counts = timed(step16, x_sh, y_sh, ms)
+            losses.append(loss.item())
+        else:
+            timed(step1, x1_sh, y1_sh, ms1)
+    peak16 = torch.cuda.max_memory_allocated()
+    holder = []
+    busy_ms, wall_ms, _ = _profile(lambda: holder.append(counted(
+        lambda: step16(x_sh, y_sh, arrs), parts, like=counts1)))
+    losses.append(holder[0][0][0].item())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"11d bf16 losses {losses}")
+    bf16_rel = abs(losses[0] - loss32) / abs(loss32)
+    if bf16_rel > SHARDED_BF16_RTOL:
+        raise AssertionError(f"11d: bf16 loss {losses[0]} against fp32 "
+                             f"{loss32}: {bf16_rel:.3e} > 2^-5")
+    del m16, step16, m1, step1
+    with _route({"GCLT_MEGA_EDGE": "1"}):
+        mm = copy.deepcopy(base)
+        (loss_mega, _), counts_mega = counted(
+            lambda: sharded(mm, torch.bfloat16)(x_sh, y_sh, arrs),
+            mega_parts, n_mlp=2 * mp * AR_STEPS, like=counts1)
+        del mm
+    # The forward's samples against one call each (fp32, TF32 off).
+    run_fwd = sm.make_sharded_forward(fwd, mesh)
+    whole = run_fwd(base, x_sh, arrs)
+    singles = torch.cat([run_fwd(base, x_sh[i:i + 1], arrs)
+                         for i in range(b)])
+    fwd_err = _close(f"11d forward B={b} against one call a sample", whole,
+                     singles, FUSED_FP32_TOL)
+    bitwise = bool(torch.equal(whole, singles))
+    del base, whole, singles
+    torch.cuda.empty_cache()
+
+    step_ms, b1_ms = sum(ms) / len(ms), sum(ms1) / len(ms1)
+    out = {
+        "card": smi, "batch": b,
+        "fp32": {"loss": loss32, "loss_one_device": loss_ref,
+                 "one_device_routes": routes,
+                 "worst_grad_err_of_tol": worst[0],
+                 "worst_grad_leaf": worst[1], "peak_mem_bytes": peak32},
+        "bf16": {"losses": losses, "rel_to_fp32": bf16_rel,
+                 "step_ms": step_ms, "step_ms_runs": ms,
+                 "peak_mem_bytes": peak16, "device_busy_ms": busy_ms,
+                 "profiled_wall_ms": wall_ms,
+                 "device_idle_share": 1.0 - busy_ms / wall_ms},
+        "b1_bf16_step_ms": b1_ms, "b1_bf16_step_ms_runs": ms1,
+        "step_ms_over_b1": step_ms / b1_ms,
+        "b1_bf16_step_ms_11a": one_rank["bf16"]["step_ms"],
+        "launches_per_step": {k: v for k, v in counts.items()
+                              if k != "by_csr"},
+        "launches_per_b1_step": {k: v for k, v in counts1.items()
+                                 if k != "by_csr"},
+        "segment_sum_launches_by_csr": counts["by_csr"],
+        "mega": {"loss": loss_mega.item(),
+                 "launches_per_step": {k: v for k, v in counts_mega.items()
+                                       if k != "by_csr"}},
+        "forward_per_sample": {"max_abs_err": fwd_err, "bitwise": bitwise,
+                               "tol": FUSED_FP32_TOL},
+    }
+    _log(f"  bf16 B={b}: losses {', '.join(f'{v:.6f}' for v in losses)} "
+         f"(step 1 {bf16_rel:.2e} from fp32); step "
+         f"{', '.join(f'{t:.2f}' for t in ms)} ms (mean {step_ms:.2f}; CUDA "
+         f"events) against B=1 steps in turns "
+         f"{', '.join(f'{t:.2f}' for t in ms1)} ms (x{step_ms / b1_ms:.3f})"
+         f"; peak {peak16 / 2**30:.3f} GiB; profiled step: device busy "
+         f"{busy_ms:.2f} of {wall_ms:.2f} ms (idle share "
+         f"{out['bf16']['device_idle_share']:.3f}); a step: "
+         f"{counts['segment_sum']} segment sums, halo exchanges "
+         f"{counts['halo_exchanges']}, {counts['collectives']} collectives "
+         f"(B=1: {counts1['segment_sum']}, {counts1['halo_exchanges']}, "
+         f"{counts1['collectives']})")
+    _log(f"  GCLT_MEGA_EDGE=1 B={b}: {counts_mega['edge_mlp']} edge_mlp and "
+         f"{counts_mega['segment_sum']} segment sums a step, loss "
+         f"{loss_mega.item():.6f}")
+    _log(f"  forward B={b} against one call a sample (fp32): max|err| "
+         f"{fwd_err:.3e} (tolerance {FUSED_FP32_TOL}); bitwise {bitwise}")
+    return out, {"loss": loss32, "grads": grads32, "x": x, "y": y}
+
+
+def phase_sharded_batched_kernels(gs, plan):
+    """11d's kernels on rank 0's shard of ``plan`` at a batch of
+    SHARDED_BATCH (bf16): the segment sum on the processor's receiver CSR
+    and the extended sender tables' CSRs (processor, encoder), and
+    ``edge_mlp`` at the shard's processor shape, each against its plain
+    version, each sample bitwise its own launch, timed beside the single
+    launches."""
+    from graphcast_lite_torch.ops import edge_mlp
+    from graphcast_lite_torch.parallel import sharded_model as sm
+
+    b = SHARDED_BATCH
+    _log(f"phase 11d: the segment sum and edge_mlp on rank 0's shard of the "
+         f"tiles plan at B={b}, bf16")
+    enc = sm.graph_arrays(plan.enc, plan.enc_halos, 0, "enc", True, "cuda")
+    proc = sm.graph_arrays(plan.proc, plan.proc_halos, 0, "proc", False,
+                           "cuda")
+    gen = torch.Generator().manual_seed(31)
+    gcuda = torch.Generator(device="cuda").manual_seed(31)
+    seg = {}
+    for label, g, sender in (
+            ("processor receivers", proc.graph, False),
+            ("processor senders (extended table)", proc.graph, True),
+            ("encoder senders (extended table)", enc.graph, True)):
+        msgs = (torch.randn(b, g.padded_num_edges, 256, generator=gcuda,
+                            device="cuda")
+                * g.edge_mask.float()[:, None]).to(torch.bfloat16)
+        if sender:
+            msgs = msgs.index_select(-2, g.s_perm)
+        seg[label] = dict(_batched_segment(
+            f"shard 0 {label}", msgs, g.s_indptr if sender else g.indptr,
+            g.num_nodes if sender else g.num_receivers),
+            rows=g.padded_num_edges,
+            receivers=g.num_nodes if sender else g.num_receivers,
+            features=256)
+    g = proc.graph
+    r, e_pad, hid = g.num_receivers, g.padded_num_edges, 256
+    t, cases = _batched_case(gen, b, g.receivers.long().cpu(), r, hid, hid,
+                             torch.bfloat16)
+    mask = g.edge_mask.to(torch.bfloat16)
+    t["mask"] = mask
+    for c in cases:
+        c["mask"] = mask
+    label = f"shard 0 processor B={b} E_pad={e_pad} R={r} H=De={hid}"
+    err = _batched_mlp_check(label, t, cases, r, "hopper_bf16")
+    args = (t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"], r)
+    nbytes = (_nbytes(t["h_pre"], t["w2"], t["b2"], t["mask"], t["indptr"])
+              + b * (e_pad + r) * hid * 2)
+    mlp = dict(_time_batched(
+        f"edge_mlp {label}", lambda: edge_mlp.edge_mlp(*args),
+        lambda: [edge_mlp.edge_mlp(c["h_pre"], *args[1:]) for c in cases],
+        lambda: edge_mlp.edge_mlp_reference(*args),
+        _bound(nbytes, 2 * b * e_pad * hid * hid)),
+        batch=b, max_abs_err=err, design="hopper_bf16", library_ms=None,
+        library_call=None)
+    return seg, mlp
+
+
 def phase_sharded(ctx, smi):
     """Phase 11: multi-device training on the port (``parallel/``)."""
     import torch.distributed as dist
@@ -5965,12 +6377,21 @@ def phase_sharded(ctx, smi):
     one_rank, mesh, fp32_run = phase_sharded_one_rank(ctx, smi)
     with tempfile.TemporaryDirectory() as workdir:
         fit = phase_sharded_fit(ctx, mesh, workdir)
+        t1 = time.perf_counter()
+        batched, batched_run = phase_sharded_batched(ctx, smi, mesh,
+                                                     one_rank)
+        batched_s = time.perf_counter() - t1
         dist.destroy_process_group()
-        four = phase_sharded_four_ranks(ctx, fp32_run, workdir)
+        four = phase_sharded_four_ranks(ctx, fp32_run, workdir, batched_run)
+    batched["four_ranks"] = four.pop("batched")
+    batched["kernels"] = four["kernels"].pop("batched")
+    batched["one_rank_s"] = batched_s
     wall_s = time.perf_counter() - t0
-    _log(f"  phase 11 wall {wall_s:.1f} s on {smi}")
+    _log(f"  phase 11 wall {wall_s:.1f} s on {smi} (11d one rank "
+         f"{batched_s:.1f} s, its four-rank step "
+         f"{batched['four_ranks']['wall_s']:.1f} s)")
     return {"card": smi, "one_rank": one_rank, "four_ranks": four,
-            "fit": fit, "wall_s": wall_s}
+            "fit": fit, "batched": batched, "wall_s": wall_s}
 
 
 # ---------------------------------------------------------------------------
@@ -6161,7 +6582,7 @@ def phase_batched_kernels(gs):
     sample alone; the segment sum at the flagship encoder and processor
     shapes at B = 4, bitwise against single launches; each at the flagship
     shapes timed beside its B single launches."""
-    from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step
+    from graphcast_lite_torch.ops import edge_mlp, edge_step
 
     _log(f"phase 12a: the kernels on batches (B in {BATCH_SIZES}; fp32 "
          f"{FUSED_FP32_TOL}, bf16 {FUSED_BF16_TOL}; each sample bitwise "
@@ -6237,45 +6658,53 @@ def phase_batched_kernels(gs):
     for name, graph, f in (("encoder G2M", enc, 256),
                            ("multimesh", proc, 256),
                            ("multimesh F=19", proc, 19)):
-        e, rr = graph.padded_num_edges, graph.num_receivers
-        msgs = (torch.randn(b, e, f, generator=gcuda, device="cuda")
+        msgs = (torch.randn(b, graph.padded_num_edges, f, generator=gcuda,
+                            device="cuda")
                 * graph.edge_mask.float()[:, None]).to(torch.bfloat16)
-        indptr = graph.indptr
-        whole = cuda_segment.segment_sum(msgs, indptr, rr)
-        ref = cuda_segment.segment_sum_reference(msgs, indptr, rr)
-        mag = cuda_segment.segment_sum_reference(msgs.float().abs(), indptr,
-                                                 rr)
-        err = _close(f"segment_sum {name} B={b}", whole, ref, BF16_TOL,
-                     ORDER_RTOL * mag)
-        for i in range(b):
-            if not torch.equal(cuda_segment.segment_sum(msgs[i], indptr, rr),
-                               whole[i]):
-                raise AssertionError(f"segment_sum {name}: sample {i} of the "
-                                     "batched launch differs from its own")
-        _log(f"  segment_sum {name} B={b} E_pad={e} R={rr} F={f} bf16: "
-             f"max|err| {err:.3e} ok "
-             f"({cuda_segment.segment_design(msgs.dtype, f)}); each "
-             "sample bitwise its own launch")
-        counts = (indptr[1:] - indptr[:-1]).long()
-        recv_ids = torch.repeat_interleave(
-            torch.arange(rr, device="cuda"), counts, output_size=e)
-        lib_out = torch.zeros(b, rr, f, dtype=msgs.dtype, device="cuda")
-        nbytes = _nbytes(msgs, indptr) + b * rr * f * 2
-        row = _time_batched(
-            f"segment_sum {name} B={b}",
-            lambda: cuda_segment.segment_sum(msgs, indptr, rr),
-            lambda: [cuda_segment.segment_sum(msgs[i], indptr, rr)
-                     for i in range(b)],
-            lambda: cuda_segment.segment_sum_reference(msgs, indptr, rr),
-            _bound(nbytes, msgs.numel()))
-        row["library_call"] = "out.index_add_(-2, receiver_ids, msgs)"
-        row["library_ms"] = _time_ms(
-            lambda: lib_out.index_add_(-2, recv_ids, msgs))
-        _log(f"    {row['library_call']}: {row['library_ms'] * 1e3:.1f} us")
-        seg[name] = dict(row, batch=b, max_abs_err=err,
-                         design=cuda_segment.segment_design(msgs.dtype, f))
+        seg[name] = _batched_segment(name, msgs, graph.indptr,
+                                     graph.num_receivers)
     out["segment_sum"] = seg
     return out
+
+
+def _batched_segment(name, msgs, indptr, rr):
+    """The segment sum on a batch ``msgs`` [B, E, F] (bf16): against its
+    plain version, each sample bitwise its own launch, then timed beside
+    the B single launches, the plain version and ``index_add_``."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    b, e, f = msgs.shape
+    whole = cuda_segment.segment_sum(msgs, indptr, rr)
+    ref = cuda_segment.segment_sum_reference(msgs, indptr, rr)
+    mag = cuda_segment.segment_sum_reference(msgs.float().abs(), indptr, rr)
+    err = _close(f"segment_sum {name} B={b}", whole, ref, BF16_TOL,
+                 ORDER_RTOL * mag)
+    for i in range(b):
+        if not torch.equal(cuda_segment.segment_sum(msgs[i], indptr, rr),
+                           whole[i]):
+            raise AssertionError(f"segment_sum {name}: sample {i} of the "
+                                 "batched launch differs from its own")
+    design = cuda_segment.segment_design(msgs.dtype, f)
+    _log(f"  segment_sum {name} B={b} E_pad={e} R={rr} F={f} bf16: "
+         f"max|err| {err:.3e} ok ({design}); each sample bitwise its own "
+         "launch")
+    counts = (indptr[1:] - indptr[:-1]).long()
+    recv_ids = torch.repeat_interleave(
+        torch.arange(rr, device="cuda"), counts, output_size=e)
+    lib_out = torch.zeros(b, rr, f, dtype=msgs.dtype, device="cuda")
+    nbytes = _nbytes(msgs, indptr) + b * rr * f * msgs.element_size()
+    row = _time_batched(
+        f"segment_sum {name} B={b}",
+        lambda: cuda_segment.segment_sum(msgs, indptr, rr),
+        lambda: [cuda_segment.segment_sum(msgs[i], indptr, rr)
+                 for i in range(b)],
+        lambda: cuda_segment.segment_sum_reference(msgs, indptr, rr),
+        _bound(nbytes, msgs.numel()))
+    row["library_call"] = "out.index_add_(-2, receiver_ids, msgs)"
+    row["library_ms"] = _time_ms(
+        lambda: lib_out.index_add_(-2, recv_ids, msgs))
+    _log(f"    {row['library_call']}: {row['library_ms'] * 1e3:.1f} us")
+    return dict(row, batch=b, max_abs_err=err, design=design)
 
 
 def _batched_serve_data(workdir, cfg):
@@ -6865,6 +7294,16 @@ def main() -> int:
                    if part != "kernels"},
                at_shard_shapes=sharded["four_ranks"]["kernels"][
                    "segment_sum"])
+    # Phase 11d: the sharded step at a local batch, one launch a layer.
+    sb = sharded["batched"]
+    seg["sharded_batched"] = dict(
+        batch=sb["batch"],
+        launches_per_sharded_step=sb["launches_per_step"]["segment_sum"],
+        launches_per_sharded_b1_step=sb["launches_per_b1_step"][
+            "segment_sum"],
+        launches_per_four_rank_step=sb["four_ranks"][
+            "segment_sum_per_rank_step"],
+        at_shard_shapes=sb["kernels"]["segment_sum"])
     # Phase 12: each kernel on batches, and its launches in the batched
     # train step (12b) and the amortized serve (12c).
     bk, bt, bs = batched["kernels"], batched["train"], batched["serve"]
@@ -6901,6 +7340,11 @@ def main() -> int:
                 "launches_per_step"][name]
             extra["at_shard_shape"] = sharded["four_ranks"]["kernels"][
                 "edge_mlp"]
+            extra["sharded_batched"] = dict(
+                batch=sb["batch"],
+                launches_per_sharded_step_mega=sb["mega"][
+                    "launches_per_step"][name],
+                at_shard_shape=sb["kernels"]["edge_mlp"])
         extra["designs"] = {
             "bf16, H and De in {128, 256}": "hopper_bf16",
             "fp32, H and De in {128, 256}": "hopper_fp32",

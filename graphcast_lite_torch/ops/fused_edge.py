@@ -233,7 +233,7 @@ class _EdgeGatherMlpAgg(torch.autograd.Function):
                  + xr.index_select(-2, receivers) + ep + b1)
         u, agg_sum = _edge_tail(static, h_pre, w2, b2, mask, indptr)
         ctx.static = static
-        ctx.b_shapes = (b1.shape, b2.shape)
+        ctx.shapes = (ep.shape, b1.shape, b2.shape)
         ctx.save_for_backward(w2, mask, h_pre, receivers, indptr, s_perm,
                               s_indptr)
         return u, agg_sum
@@ -246,12 +246,15 @@ class _EdgeGatherMlpAgg(torch.autograd.Function):
         d_eu_tot = d_eu + mask[:, None] * d_agg.index_select(-2, receivers)
         d_w2 = (_act_fn(static.activation)(h_pre).mT @ d_eu_tot) \
             .sum_to_size(w2.shape)
-        d_b2 = d_eu_tot.sum_to_size(ctx.b_shapes[1])
+        ep_shape, b1_shape, b2_shape = ctx.shapes
+        d_b2 = d_eu_tot.sum_to_size(b2_shape)
         d_hp = _act_backward(static.activation, d_eu_tot @ w2.T, h_pre)
-        d_b1 = d_hp.sum_to_size(ctx.b_shapes[0])
+        d_b1 = d_hp.sum_to_size(b1_shape)
         d_xr, d_xs = _scatter_both(static, d_hp, indptr, s_perm, s_indptr)
-        return (None, d_xs, d_xr, d_hp, d_b1, d_w2, d_b2, None, None, None,
-                None, None, None)
+        # A batch: edge rows the samples share (the first step's edge
+        # state) get the sum of their gradients.
+        return (None, d_xs, d_xr, d_hp.sum_to_size(ep_shape), d_b1, d_w2,
+                d_b2, None, None, None, None, None, None)
 
 
 def edge_gather_mlp_agg(xs, xr, ep, b1, w2, b2, mask, senders, receivers,
@@ -266,8 +269,10 @@ def edge_gather_mlp_agg(xs, xr, ep, b1, w2, b2, mask, senders, receivers,
     ``xs`` [N_s, H] sender rows, ``xr`` [R, H] receiver rows, ``ep``
     [E_pad, H] edge rows; ``indptr`` [R + 1] the receivers' CSR (rows
     sorted by receiver), ``s_perm`` / ``s_indptr`` [N_s + 1] the senders'.
-    Returns (edge_update [E_pad, De], agg_sum [R, De]); the backward is
-    ``edge_pipeline``'s with the projections left to the caller.  Under
+    Returns (edge_update [E_pad, De], agg_sum [R, De]); a batch ``xs``
+    [B, N_s, H], ``xr`` [B, R, H] (``ep`` [B, E_pad, H] or shared) gives
+    [B, ...] of both in one pass.  The backward is ``edge_pipeline``'s
+    with the projections left to the caller.  Under
     ``GCLT_MEGA_EDGE=1`` the tail takes the edge-MLP kernel wherever it
     takes the widths (the reference also asks for a full band of its
     clipped receiver schedule, which raw CSR arrays do not have)."""

@@ -21,6 +21,13 @@ backward is the exact adjoint of its forward, taken over the same group:
   ranks give each rank the global gradient when every rank runs backward
   on its own local numerator.
 
+Rows are the second-to-last axis: a batch [B, n, F] of B samples' rows
+goes through ONE collective whatever B is (the gather gives [B, S·n, F],
+each sample's blocks in rank order, as ``jax.vmap`` of the collective
+does), and a [n, F] input is one sample.  The all-gather and its
+reduce-scatter move the row axis first for the transfer (one copy on the
+device) and back after.
+
 Ranks are group ranks; the point-to-point calls convert them to global
 ranks.  ``broadcast_`` and ``all_reduce_`` are the in-place, undifferentiated
 forms the train step uses for parameters, gradients and denominators.
@@ -28,8 +35,8 @@ forms the train step uses for parameters, gradients and denominators.
 The transport follows the group's backend, never a caught error: under
 ``nccl`` the tensors go on the card directly (``all_gather_into_tensor``,
 ``reduce_scatter_tensor``); under ``gloo`` a CUDA tensor is copied to a
-host buffer, the collective runs there and the result is copied back
-(gloo has no reduce-scatter: its adjoint is an all-reduce of the whole
+host buffer (a batch in one transfer), the collective runs there and the
+result is copied back (gloo has no reduce-scatter: its adjoint is an all-reduce of the whole
 cotangent, of which the rank keeps its block, the same sum).  That is how
 several ranks share one card, where NCCL allows one rank a device.
 ``transport`` counts the collectives and the bytes and host seconds of
@@ -123,32 +130,45 @@ def broadcast_(t: torch.Tensor, src_group_rank: int, group) -> torch.Tensor:
     return t
 
 
+def _rows_first(t: torch.Tensor) -> torch.Tensor:
+    """A batch [B, n, F] as [n, B, F] (contiguous), so that the collectives
+    over rows run on axis 0; a [n, F] tensor as it is."""
+    return t.movedim(-2, 0).contiguous() if t.dim() > 2 else t
+
+
+def _rows_back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return t.movedim(0, -2) if like.dim() > 2 else t
+
+
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
-    buf = _buffer(x, group)
+    xr = _rows_first(x)
+    buf = _buffer(xr, group)
     if _backend(group) == "nccl":
         out = buf.new_empty((n * buf.shape[0],) + tuple(buf.shape[1:]))
         dist.all_gather_into_tensor(out, buf, group=group)
-        return out
+        return _rows_back(out, x)
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
-    return _back(torch.cat(parts, dim=0), x, group)
+    return _rows_back(_back(torch.cat(parts, dim=0), xr, group), x)
 
 
 def _reduce_scatter(g: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
-    rows = g.shape[0] // n
-    buf = _buffer(g, group)
+    gr = _rows_first(g)
+    rows = gr.shape[0] // n
+    buf = _buffer(gr, group)
     if _backend(group) == "nccl":
         out = buf.new_empty((rows,) + tuple(buf.shape[1:]))
         dist.reduce_scatter_tensor(out, buf, group=group)
-        return out
+        return _rows_back(out, g)
     # gloo has no reduce-scatter: the whole sum (in a copy: the cotangent
     # is not ours to change), of which this rank keeps its block.
     buf = buf.clone() if buf.data_ptr() == g.data_ptr() else buf
     dist.all_reduce(buf, group=group)
     r = dist.get_rank(group)
-    return _back(buf[r * rows:(r + 1) * rows].contiguous(), g, group)
+    return _rows_back(_back(buf[r * rows:(r + 1) * rows].contiguous(), gr,
+                            group), g)
 
 
 def _ppermute(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
@@ -211,8 +231,9 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """[n, ...] on each of the group's S ranks -> [S·n, ...], rank i's rows
-    at block i (``jax.lax.all_gather(x, axis, tiled=True)``)."""
+    """[n, F] on each of the group's S ranks -> [S·n, F], rank i's rows at
+    block i (``jax.lax.all_gather(x, axis, tiled=True)``); a batch [B, n,
+    F] -> [B, S·n, F] in one collective."""
     return _AllGatherRows.apply(x, group)
 
 
@@ -220,11 +241,11 @@ def ppermute_rows(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
                   group) -> torch.Tensor:
     """``x`` of rank src at rank dst for each (src, dst) pair of group
     ranks; zeros at a rank that is no pair's destination
-    (``jax.lax.ppermute``)."""
+    (``jax.lax.ppermute``).  Any shape; a batch is one round."""
     return _PpermuteRows.apply(x, tuple(tuple(p) for p in pairs), group)
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks, on each
-    (``jax.lax.psum``)."""
+    (``jax.lax.psum``).  Any shape; a batch is one all-reduce."""
     return _AllReduceSum.apply(x, group)

@@ -16,8 +16,13 @@ shard:
   all-gather for the multimesh's coarse levels) or by the tiled plan (one
   slab a 2-D tile direction + the hub); the cheaper plan is chosen per
   graph from exact host-side row accounting (``ShardingPlan.comm_stats``);
-* the batch axis is data-parallel over the ``data`` axis (each rank loops
-  over its local samples, as the single-device ``TrainStep`` does);
+* the batch axis is data-parallel over the ``data`` axis, and a rank's
+  local batch [B_l, G_s, obs·F] goes through ONE forward call, as
+  ``jax.vmap`` maps the JAX forward: one halo exchange a layer, one
+  all-reduce a graph-mode LayerNorm statistic and one kernel launch a
+  layer carry every sample, and each sample is computed as a call on it
+  alone would compute it (the LayerNorm statistics are per sample, and
+  graphs, parameters and edge masks are shared);
 * the loss is a local numerator over a denominator summed over all ranks;
   each rank runs ``backward`` on its local numerator, and one all-reduce
   of the flattened fp32 gradients over all ranks gives exactly
@@ -640,15 +645,21 @@ def _graph_ln_psum(x, p, mask, group, eps=1e-5):
     """PyG graph-mode LayerNorm with masked statistics summed over the space
     group: the mean and then E[(v − μ)²], each one differentiable
     all-reduce (fp32 statistics cast back to the input's dtype, as
-    ``models.nn.PyGLayerNorm``)."""
+    ``models.nn.PyGLayerNorm``).  A batch [B, E, F] has statistics per
+    sample ([B, 2] then [B], one all-reduce each), as ``jax.vmap`` gives:
+    pooling them over the batch would normalise each sample by the
+    others."""
     w = mask.float()[:, None]
     xf = x.float()
-    sums = all_reduce_sum(torch.stack([(xf * w).sum(),
-                                       w.sum() * x.shape[-1]]), group)
-    cnt = torch.clamp(sums[1], min=1.0)
-    mean = sums[0] / cnt
-    var = all_reduce_sum((torch.square(xf - mean) * w).sum().reshape(1),
-                         group)[0] / cnt
+    lead = x.shape[:-2]
+    count = (w.sum() * x.shape[-1]).expand(lead)
+    sums = all_reduce_sum(torch.stack([(xf * w).sum(dim=(-2, -1)), count],
+                                      dim=-1), group)
+    cnt = torch.clamp(sums[..., 1], min=1.0)
+    mean = (sums[..., 0] / cnt)[..., None, None]
+    var = all_reduce_sum((torch.square(xf - mean) * w).sum(dim=(-2, -1))
+                         [..., None], group)[..., 0] / cnt
+    var = var[..., None, None]
     out = (x - mean.to(x.dtype)) / torch.sqrt(var.to(x.dtype) + eps)
     return out * p["weight"] + p["bias"]
 
@@ -672,9 +683,10 @@ def _use_sharded_kernels(ga: GraphArrays, features: int,
     """Kernel-faithful per-shard compute: the fused edge unit
     (``edge_gather_mlp_agg``) in the processor and ``gcn_aggregate`` in GCN
     layers, on the card at 16,384 per-shard edge rows or more and
-    128-multiple widths; ``GCLT_SHARDED_KERNELS=0/1`` overrides the first
-    two conditions.  Every aggregation and scatter goes through the
-    segment-sum kernel either way."""
+    128-multiple widths (one sample's: the batch size plays no part);
+    ``GCLT_SHARDED_KERNELS=0/1`` overrides the first two conditions.
+    Every aggregation and scatter goes through the segment-sum kernel
+    either way."""
     flag = os.environ.get("GCLT_SHARDED_KERNELS")
     if flag is not None:
         enabled = flag not in _OFF
@@ -690,12 +702,15 @@ def _halo_rows(rows: torch.Tensor, ga: GraphArrays, group) -> torch.Tensor:
     two point-to-point boundary slabs + the hub all-gather (ids are
     ext-table offsets; ``graphs.partition.BandedHalos``).  Tiled mode: one
     slab a 2-D tile direction + the hub (``graphs.partition.TiledHalos``).
+    A batch [B, N, F] is one exchange (each collective carries every
+    sample); ``halo_exchanges`` counts exchanges, ``halo_rows`` the rows
+    one sample received.
     """
     s_n = ga.num_shards
     halo_exchanges[ga.name] = halo_exchanges.get(ga.name, 0) + 1
     if ga.mode == "gather":
         halo_rows[ga.name] = halo_rows.get(ga.name, 0) \
-            + (s_n - 1) * rows.shape[0]
+            + (s_n - 1) * rows.shape[-2]
         return all_gather_rows(rows, group)
     parts = [rows]
     me = torch.distributed.get_rank(group)
@@ -704,12 +719,12 @@ def _halo_rows(rows: torch.Tensor, ga: GraphArrays, group) -> torch.Tensor:
         slab = gather_rows(rows, take[0], take[1:])
         parts.append(ppermute_rows(slab, pairs, group))
         if any(d == me for _, d in pairs):
-            received += slab.shape[0]
+            received += slab.shape[-2]
     hub = gather_rows(rows, ga.hub[0], ga.hub[1:])
     parts.append(all_gather_rows(hub, group))
-    received += (s_n - 1) * hub.shape[0]
+    received += (s_n - 1) * hub.shape[-2]
     halo_rows[ga.name] = halo_rows.get(ga.name, 0) + received
-    return torch.cat(parts, dim=0)
+    return torch.cat(parts, dim=-2)
 
 
 def _by_sender(table, g: Graph):
@@ -781,20 +796,23 @@ def _gat_attention(core_p, xp_r, a_dst_r, a_src_self, ext, ga: GraphArrays,
                    heads: int, edge_mask):
     """The receiver-local part of a GAT layer: logits from the exchanged
     sender terms, the masked softmax with the implicit self loop, the
-    aggregated messages.  Returns (out_r [N_s, C] with bias, w [E, H])."""
+    aggregated messages.  Returns (out_r [N_s, C] with bias, w [E, H]); a
+    batch [B, ...] of each in one softmax and one aggregation."""
     g = ga.graph
-    nr, hc = xp_r.shape[0], xp_r.shape[1] * xp_r.shape[2]
+    lead = xp_r.shape[:-3]
+    nr, hc = xp_r.shape[-3], xp_r.shape[-2] * xp_r.shape[-1]
     c = hc // heads
-    logits = _by_sender(ext[:, hc:], g) + _by_receiver(a_dst_r, g)
+    logits = _by_sender(ext[..., hc:], g) + _by_receiver(a_dst_r, g)
     logits = F.leaky_relu(logits, 0.2)
     self_logits = F.leaky_relu(a_src_self + a_dst_r, 0.2)
     w, self_w = seg_ops.segment_softmax_coo(logits, g, edge_mask,
                                             self_logits)
     e = g.padded_num_edges
-    msgs = (_by_sender(ext[:, :hc], g).reshape(e, heads, c)
-            * w[..., None]).reshape(e, hc)
-    out = seg_ops.aggregate_sum(msgs, g, edge_mask).reshape(nr, heads, c)
-    out = (out + xp_r * self_w[..., None]).mean(dim=1)
+    msgs = (_by_sender(ext[..., :hc], g).reshape(lead + (e, heads, c))
+            * w[..., None]).reshape(lead + (e, hc))
+    out = seg_ops.aggregate_sum(msgs, g, edge_mask).reshape(
+        lead + (nr, heads, c))
+    out = (out + xp_r * self_w[..., None]).mean(dim=-2)
     if "bias" in core_p:
         out = out + core_p["bias"]
     return out, w
@@ -805,14 +823,14 @@ def _gat_core(core_p, x, ga: GraphArrays, group, heads: int, edge_mask):
     Receivers own their incoming edges, so the masked softmax (with the
     implicit self loop) is receiver-LOCAL; only the sender projections and
     their attention terms cross ranks (one packed exchange).  Returns
-    (out [N_s, C], alpha [E])."""
+    (out [N_s, C], alpha [E]), or ([B, N_s, C], [B, E]) for a batch."""
     kernel = core_p["kernel"]
-    n, hc = x.shape[0], kernel.shape[1]
-    xp = (x @ kernel).reshape(n, heads, hc // heads)
+    lead, n, hc = x.shape[:-2], x.shape[-2], kernel.shape[1]
+    xp = (x @ kernel).reshape(lead + (n, heads, hc // heads))
     a_src = (xp * core_p["att_src"]).sum(-1)            # [N_s, H]
     a_dst = (xp * core_p["att_dst"]).sum(-1)
-    ext = _halo_rows(torch.cat([xp.reshape(n, hc), a_src], dim=-1), ga,
-                     group)
+    ext = _halo_rows(torch.cat([xp.reshape(lead + (n, hc)), a_src], dim=-1),
+                     ga, group)
     out, w = _gat_attention(core_p, xp, a_dst, a_src, ext, ga, heads,
                             edge_mask)
     return out, w.mean(dim=-1) * edge_mask
@@ -827,19 +845,19 @@ def _gat_core_bipartite(core_p, x_send, x_recv, ga: GraphArrays, group,
     over heads) + bias, the single-device model's value for those rows.
     Returns (out_send, out_recv)."""
     kernel = core_p["kernel"]
-    ns, hc = x_send.shape[0], kernel.shape[1]
-    nr = x_recv.shape[0]
+    lead, hc = x_send.shape[:-2], kernel.shape[1]
+    ns, nr = x_send.shape[-2], x_recv.shape[-2]
     c = hc // heads
-    xp_s = (x_send @ kernel).reshape(ns, heads, c)
-    xp_r = (x_recv @ kernel).reshape(nr, heads, c)
+    xp_s = (x_send @ kernel).reshape(lead + (ns, heads, c))
+    xp_r = (x_recv @ kernel).reshape(lead + (nr, heads, c))
     a_src_s = (xp_s * core_p["att_src"]).sum(-1)
     a_src_r = (xp_r * core_p["att_src"]).sum(-1)  # receiver self-loop term
     a_dst_r = (xp_r * core_p["att_dst"]).sum(-1)
-    ext = _halo_rows(torch.cat([xp_s.reshape(ns, hc), a_src_s], dim=-1),
-                     ga, group)
+    ext = _halo_rows(torch.cat([xp_s.reshape(lead + (ns, hc)), a_src_s],
+                               dim=-1), ga, group)
     out_r, _ = _gat_attention(core_p, xp_r, a_dst_r, a_src_r, ext, ga,
                               heads, edge_mask)
-    out_s = xp_s.mean(dim=1)                   # self-only softmax -> w=1
+    out_s = xp_s.mean(dim=-2)                  # self-only softmax -> w=1
     if "bias" in core_p:
         out_s = out_s + core_p["bias"]
     return out_s, out_r
@@ -882,12 +900,15 @@ def _gat_stack(gl_p, cfg, x, ga: GraphArrays, group):
 def _sparse_gat(gl_p, cfg, x, ga: GraphArrays, group, edge_mask,
                 attention_threshold, prune: bool):
     """SparseGATConv (models/gnn.py): GAT + threshold pruning of the
-    per-shard edge mask (compared in fp32, as the single-device layer)."""
+    per-shard edge mask (compared in fp32, as the single-device layer).
+    A batch prunes on sample 0's attention (``_GATCore`` on a batch; the
+    JAX package keeps ``masks[0]`` of its vmapped forward)."""
     heads = cfg.gat_props.num_heads if cfg.gat_props else 1
     out, alpha = _gat_core(gl_p["conv_0"]["core"], x, ga, group, heads,
                            edge_mask)
     if prune:
-        keep = alpha.float() >= attention_threshold
+        keep = alpha.reshape(-1, alpha.shape[-1])[0].float() \
+            >= attention_threshold
         new_mask = edge_mask * keep.to(edge_mask.dtype)
     else:
         new_mask = edge_mask
@@ -908,7 +929,9 @@ def _interaction_processor(inet_p, x, ga: GraphArrays, group,
     sharded mesh.  The edge MLP's first matmul is split by input block so
     that only node PROJECTIONS cross ranks; the edge LayerNorm is
     ``_graph_ln_psum``; the degree is hoisted out of the step loop (the
-    mask never changes during it)."""
+    mask never changes during it).  ``x`` [N_s, D] or a batch [B, N_s, D]:
+    the edge state starts shared (the edge encoder reads the graph alone)
+    and is per sample from the first step's update on."""
     p = inet_p
     g = ga.graph
     enc_p = p["edge_encoder_lin"]
@@ -987,10 +1010,12 @@ def _param_dict(params) -> Dict[str, torch.Tensor]:
 class ShardedWeatherForward:
     """Per-rank forward of the full WeatherModel (static config holder).
 
-    ``__call__(params, x_grid [G_s, obs·F], arrs)`` returns the grid delta
-    [G_s, C_out] of this rank's shard.  ``params`` is the model's
-    ``{name: tensor}`` parameters (``dict(model.named_parameters())``, cast
-    for mixed precision) or the ``WeatherModel`` itself.
+    ``__call__(params, x_grid [B, G_s, obs·F], arrs)`` returns the grid
+    delta [B, G_s, C_out] of this rank's shard for the whole local batch
+    in one call (``jax.vmap`` of the JAX forward); a [G_s, obs·F] input is
+    one sample.  ``params`` is the model's ``{name: tensor}`` parameters
+    (``dict(model.named_parameters())``, cast for mixed precision) or the
+    ``WeatherModel`` itself.
     """
 
     def __init__(self, pipeline: PipelineConfig, data: DataConfig,
@@ -1039,18 +1064,23 @@ class ShardedWeatherForward:
     def __call__(self, params, x_grid: torch.Tensor, arrs: PlanArrays,
                  proc_edge_mask=None, attention_threshold=0.0,
                  prune: bool = False):
-        """Returns (grid delta [G_s, C_out], new processing edge mask) —
-        the mask is the input mask unchanged except under SparseGAT pruning
-        (per-shard [E] layout)."""
+        """Returns (grid delta [B, G_s, C_out] or [G_s, C_out], new
+        processing edge mask) — the mask is the input mask unchanged
+        except under SparseGAT pruning (per-shard [E] layout, one for the
+        batch: sample 0's)."""
         p = _Tree(_param_dict(params))
         pl = self.pipeline
         group = arrs.group
         dt = x_grid.dtype
+        lead = x_grid.shape[:-2]
 
-        grid_in = torch.cat([x_grid, arrs.grid_static.to(dt)], dim=-1)
-        mesh_dyn = x_grid.new_zeros((arrs.mesh_static.shape[0],
-                                     x_grid.shape[-1]))
-        mesh_in = torch.cat([mesh_dyn, arrs.mesh_static.to(dt)], dim=-1)
+        def per_sample(static):
+            return static.to(dt).expand(lead + tuple(static.shape))
+
+        grid_in = torch.cat([x_grid, per_sample(arrs.grid_static)], dim=-1)
+        mesh_dyn = x_grid.new_zeros(lead + (arrs.mesh_static.shape[0],
+                                            x_grid.shape[-1]))
+        mesh_in = torch.cat([mesh_dyn, per_sample(arrs.mesh_static)], dim=-1)
 
         # Encoder: (MLP) + graph stack over G2M (senders grid, receivers
         # mesh).
@@ -1146,7 +1176,7 @@ def make_sharded_forward(fwd: ShardedWeatherForward,
     """Single-step sharded forward:
     ``f(params, x_sh [B, S, G_s, obs·F], arrs, edge_mask=None) ->
     delta [B_l, 1, G_s, C]``, this rank's block of the ``P("data",
-    "space")`` layout.
+    "space")`` layout, its B_l local samples in one forward call.
 
     ``edge_mask`` is this rank's per-shard [E_s] processing-edge mask (a
     ``TrainState``'s pruned SparseGAT mask), applied when given."""
@@ -1156,8 +1186,7 @@ def make_sharded_forward(fwd: ShardedWeatherForward,
         dev = arrs.grid_static.device
         xl = _local(x, mesh, dev, torch.float32)
         with torch.no_grad():
-            out = torch.stack([fwd(params, xi, arrs, edge_mask)[0]
-                               for xi in xl])
+            out = fwd(params, xl, arrs, edge_mask)[0]
         return out[:, None]
 
     return call
@@ -1198,13 +1227,12 @@ class ShardedTrainStep:
         mask = edge_mask.to(cdt) if edge_mask is not None else None
 
         def one_step(window, mask, do_prune):
+            # The local batch in one call; pruning is a batch-level
+            # decision, on sample 0's attention.
             with training_trace():
-                inp = window.reshape(b_l, g_s, obs * nf)
-                outs = [fwd(params, xi, arrs, mask, thr, do_prune)
-                        for xi in inp]
-            # Pruning is a batch-level decision: keep sample 0's mask.
-            delta = torch.stack([o for o, _ in outs])
-            new_mask = outs[0][1]
+                delta, new_mask = fwd(params,
+                                      window.reshape(b_l, g_s, obs * nf),
+                                      arrs, mask, thr, do_prune)
             if spec.use_residual:
                 return window[:, :, -1, :] + delta, new_mask
             return delta, new_mask
@@ -1338,9 +1366,8 @@ def make_sharded_eval_step(
         with torch.no_grad():
             window = x.reshape(b_l, g_s, obs, nf)
             targets = y.reshape(b_l, g_s, -1, nf)
-            inp = window.reshape(b_l, g_s, obs * nf)
-            delta = torch.stack([fwd(model, xi, arrs, edge_mask)[0]
-                                 for xi in inp])
+            delta = fwd(model, window.reshape(b_l, g_s, obs * nf), arrs,
+                        edge_mask)[0]
             out = window[:, :, -1, :] + delta if spec.use_residual \
                 else delta
             tgt = targets[:, :, 0, :]

@@ -39,7 +39,9 @@ def sharded_interaction_processor(
     use_layer_norm: bool = True,
     halos: Optional[GraphArrays] = None,
 ) -> torch.Tensor:
-    """Run ``processor``'s N steps on this rank's [N_s, D] node latents.
+    """Run ``processor``'s N steps on this rank's [N_s, D] node latents, or
+    on a batch [B, N_s, D] in one call (one exchange a step for the batch,
+    the edge LayerNorm's statistics per sample).
 
     ``sgraph_arrays``: this rank's shard of the processing graph in
     gather mode (``sharded_model.graph_arrays(sg, None, shard)``): one
@@ -48,7 +50,8 @@ def sharded_interaction_processor(
     shard)``), which is then used in its place: only the boundary slabs
     and the hub rows cross ranks.
 
-    Returns the processed latents of the rank's nodes [N_s, D]."""
+    Returns the processed latents of the rank's nodes [N_s, D] (or [B,
+    N_s, D])."""
     return _interaction_processor(
         _Tree(dict(processor.named_parameters())), x_local,
         halos if halos is not None else sgraph_arrays, mesh.space_group,

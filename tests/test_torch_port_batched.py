@@ -213,13 +213,15 @@ def test_fused_unit_batched_backward():
 AR2 = 2
 
 
-def _jax_batched_step(jmodel, params, jgraphs, x, y, lw, cm):
+def _jax_batched_step(jmodel, params, jgraphs, x, y, lw, cm, steps=AR2,
+                      direct_steps=1):
     """(loss, gradients as a port state dict) of the JAX package's
-    ``rollout_loss`` over ``jax.vmap`` of its model (fp32, AR 2)."""
+    ``rollout_loss`` over ``jax.vmap`` of its model (fp32, AR 2; a direct
+    model of ``direct_steps`` steps emits them all in one call)."""
     from graphcast_lite_tpu.training.rollout import RolloutSpec, rollout_loss
     from torch_port_common import OBS, SPEC
 
-    spec = RolloutSpec(**SPEC)
+    spec = RolloutSpec(**SPEC, direct_steps=direct_steps)
     b, g = x.shape[:2]
     window = jnp.asarray(x).reshape(b, g, OBS, N_FEAT)
     targets = jnp.asarray(y).reshape(b, g, -1, N_FEAT)
@@ -229,7 +231,7 @@ def _jax_batched_step(jmodel, params, jgraphs, x, y, lw, cm):
             return jax.vmap(lambda s: jmodel.apply(p, s, jgraphs)[0])(inp), \
                 None
 
-        loss, _ = rollout_loss(fn, window, targets, AR2, spec, None, 0.0,
+        loss, _ = rollout_loss(fn, window, targets, steps, spec, None, 0.0,
                                False, jnp.asarray(lw), jnp.asarray(cm))
         return loss
 
@@ -304,6 +306,44 @@ def test_batch_vmap_off_equals_batched(monkeypatch):
     for name, gr in grads.items():
         tol = 1e-5 * gr.abs().max().item() + GRAD_ATOL
         assert (grads0[name] - gr).abs().max().item() <= tol, name
+
+
+DIRECT = 3   # the direct model's steps, all emitted by one call
+
+
+def test_direct_model_b2_step_against_jax_vmap(monkeypatch):
+    """A direct multi-step model (``direct_steps = 3``: the decoder emits
+    the three steps' channels at once) trained at B = 2: one model call
+    for the batch, its loss and gradients against the JAX package's
+    vmapped step."""
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+    from graphcast_lite_torch.training.trainer import make_train_step
+    from torch_port_common import SPEC, small_configs
+
+    _set_env(monkeypatch, {"GCLT_LAZY_EDGE": "1"})
+    jmodel, params, jgraphs, tmodel, tgraphs = model_pair(
+        direct_steps=DIRECT)
+    x, _, lw, cm = _two_samples(tgraphs.num_grid_nodes)
+    g = x.shape[1]
+    y = np.random.RandomState(23).randn(2, g, DIRECT * N_FEAT) \
+        .astype(np.float32)
+    jloss, jgrads = _jax_batched_step(jmodel, params, jgraphs, x, y, lw, cm,
+                                      steps=DIRECT, direct_steps=DIRECT)
+    _, cfg = small_configs()
+    cfg.learning_rate = LR
+    calls = []
+    tmodel.register_forward_hook(
+        lambda mod, args, out: calls.append(tuple(args[0].shape)))
+    step = make_train_step(tmodel, tgraphs,
+                           RolloutSpec(**SPEC, direct_steps=DIRECT), cfg,
+                           steps=DIRECT, device="cpu", lat_weights=lw,
+                           chan_mask=cm)
+    loss = float(step(x, y))
+    # The batch in one call (and again in the checkpoint's recompute).
+    assert set(calls) == {(2, g, 2 * N_FEAT)} and 1 <= len(calls) <= 2
+    assert abs(loss - jloss) <= LOSS_RTOL * abs(jloss), (loss, jloss)
+    assert_grads_close({n: p.grad for n, p in tmodel.named_parameters()},
+                       jgrads)
 
 
 # ---- the amortized serve -----------------------------------------------

@@ -15,6 +15,7 @@ conftest's CPU devices) and the weights travel as the port's state dict.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -268,6 +269,170 @@ def sharded_cases(rank, world, payload):
                     os.environ[k] = v
         out[case["name"]]["mesh_index"] = (mesh.data_index,
                                            mesh.space_index)
+    return out
+
+
+# ---- the batch axis through the sharded path ------------------------------
+
+
+@contextlib.contextmanager
+def _counted():
+    """The plain segment-sum and ``edge_mlp`` calls, the halo exchanges and
+    the collectives made in the block: ``counts`` is filled on exit."""
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp
+
+    counts = {"segment_sum": 0, "edge_mlp": 0}
+    saved = (cuda_segment.segment_sum, edge_mlp.edge_mlp)
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    cuda_segment.segment_sum = counting("segment_sum", saved[0])
+    edge_mlp.edge_mlp = counting("edge_mlp", saved[1])
+    sm.reset_halo_rows()
+    coll.reset_transport()
+    try:
+        yield counts
+    finally:
+        cuda_segment.segment_sum, edge_mlp.edge_mlp = saved
+        counts.update(halo_exchanges=dict(sm.halo_exchanges),
+                      halo_rows=dict(sm.halo_rows),
+                      collectives=coll.transport["collectives"])
+
+
+def _batched_forward(case, model, mesh, plan, arrs, fwd):
+    """A batch of B samples in one forward call against one call a sample;
+    the counts of the batched call and of a one-sample call; sample 0 of
+    a batch whose other samples changed."""
+    x = case["x"]                               # [B, G, obs·F]
+    run = sm.make_sharded_forward(fwd, mesh)
+
+    def grid(out):
+        return np.stack([_gather_grid(plan, mesh, o[0]) for o in out])
+
+    with _counted() as batched:
+        out = run(model, plan.scatter_grid(x), arrs)
+    singles = []
+    for i in range(x.shape[0]):
+        with _counted() as one:
+            singles.append(run(model, plan.scatter_grid(x[i:i + 1]), arrs))
+    changed = run(model, plan.scatter_grid(case["x_changed"]), arrs)
+    return {"out": grid(out),
+            "singles": np.concatenate([grid(o) for o in singles]),
+            "changed": grid(changed), "counts": batched, "counts_one": one}
+
+
+def _batched_train(case, model, mesh, plan, arrs, fwd):
+    """The train step on the batch and on each sample alone (SGD at lr 0,
+    so that every step starts from the same weights): losses, gradients,
+    the SparseGAT mask, the counts of the batched and of a one-sample
+    step."""
+    spec = RolloutSpec(**case["spec"])
+    step = sm.make_sharded_train_step(
+        fwd, spec, mesh, model, torch.optim.SGD(model.parameters(), lr=0.0),
+        case["steps"], chan_mask=case.get("chan_mask"),
+        prune=case.get("prune", False))
+
+    def one(x, y):
+        mask = (arrs.proc.graph.edge_mask.clone() if fwd.sparse_gat
+                else None)
+        with _counted() as counts:
+            loss, new_mask = step(plan.scatter_grid(x), plan.scatter_grid(y),
+                                  arrs, mask, case.get("thr", 0.0))
+        res = {"loss": float(loss), "counts": counts,
+               "grads": {n: _np(p.grad) for n, p in
+                         model.named_parameters()}}
+        if new_mask is not None:
+            res["mask"] = _gather_mask(mesh, new_mask)
+        return res
+
+    x, y = case["x"], case["y"]
+    out = {"batched": one(x, y)}
+    if case.get("singles", True):
+        out["singles"] = [one(x[i:i + 1], y[i:i + 1])
+                          for i in range(x.shape[0])]
+    return out
+
+
+def _batched_eval(case, model, mesh, plan, arrs, fwd):
+    """The eval step on a padded batch and on each real sample alone."""
+    spec = RolloutSpec(**case["spec"])
+    ev = sm.make_sharded_eval_step(fwd, spec, mesh, model,
+                                   chan_mask=case.get("chan_mask"),
+                                   exclude_channels=case.get("exclude", ()))
+    x, y, smask = case["x"], case["y"], case["sample_mask"]
+    with _counted() as counts:
+        batched = ev(plan.scatter_grid(x), plan.scatter_grid(y), smask,
+                     arrs)
+    singles = [ev(plan.scatter_grid(x[i:i + 1]), plan.scatter_grid(
+        y[i:i + 1]), np.ones(1, np.float32), arrs)
+        for i in range(x.shape[0]) if smask[i] > 0]
+    return {"batched": batched, "singles": singles, "counts": counts}
+
+
+def _batched_collectives(rank, payload):
+    """Each differentiable collective on a [B, n, F] batch against the
+    same collective a sample, forward and backward, and the collectives
+    the batch took."""
+    world_g = dist.group.WORLD
+    b, n, f = payload["batch"], payload["rows"], payload["cols"]
+    g = torch.Generator().manual_seed(700 + rank)
+    x = torch.randn(b, n, f, generator=g, dtype=torch.float64)
+    out = {}
+    for name, fn, rows_out in (
+            ("all_gather", lambda v: coll.all_gather_rows(v, world_g),
+             dist.get_world_size() * n),
+            ("ppermute", lambda v: coll.ppermute_rows(
+                v, payload["pairs"], world_g), n),
+            ("all_reduce_sum", lambda v: coll.all_reduce_sum(v, world_g),
+             n)):
+        y = torch.randn(b, rows_out, f, generator=g, dtype=torch.float64)
+        coll.reset_transport()
+        batched = _adjoint(fn, x, y)
+        collectives = coll.transport["collectives"]
+        singles = [_adjoint(fn, x[i], y[i]) for i in range(b)]
+        out[name] = {"out": batched[0], "grad": batched[1],
+                     "out_singles": np.stack([s[0] for s in singles]),
+                     "grad_singles": np.stack([s[1] for s in singles]),
+                     "collectives": collectives}
+    return out
+
+
+def batched_sharded_cases(rank, world, payload):
+    """Every case of ``payload["cases"]`` (kinds ``forward``, ``train``,
+    ``eval``) on its (data, space) grid, and the collectives on a batch."""
+    gs = _graph_set(payload["grid"])
+    out = {"collectives": _batched_collectives(rank,
+                                               payload["collectives"])}
+    for case in payload["cases"]:
+        data, space = case["mesh"]
+        mesh = make_mesh(data_parallel=data)
+        model = _model(case["cfg"], gs, case["state"])
+        plan = sm.build_sharding_plan(gs, space,
+                                      halo_mode=case.get("halo", "auto"),
+                                      partition=case.get("partition",
+                                                         "auto"))
+        arrs = sm.plan_device_arrays(plan, gs, mesh,
+                                     lat_weights=case.get("lat_weights"),
+                                     device="cpu")
+        fwd = sm.ShardedWeatherForward(case["cfg"].pipeline,
+                                       case["cfg"].data, space)
+        run = {"forward": _batched_forward, "train": _batched_train,
+               "eval": _batched_eval}[case["kind"]]
+        env = case.get("env", {})
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            out[case["name"]] = run(case, model, mesh, plan, arrs, fwd)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
     return out
 
 
