@@ -286,15 +286,43 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    CNN stacks' batch-8 train step, batched against the loop: losses, ms,
    idle share, device kernels.
 
+13. Data-parallel training (``parallel.sharding.
+   make_data_parallel_train_step``: each rank runs the one-device step on
+   its block of the batch, one all-reduce averages the fp32 gradients,
+   every rank steps), the counterpart of the JAX package's GSPMD fallback
+   for the families the sharded path refuses.  13a, one rank over NCCL,
+   mesh (1, 1): the product graph at its BASELINE width (fp32, B = 2)
+   bitwise ``make_train_step``'s (loss and parameters), its segment-sum
+   launches by CSR equal to the one-device step's; the V1 U-Net's batch-8
+   AR-4 step with the spectral and Sobel losses and ``ClippedAdamW``
+   (cuDNN deterministic), whose backward is not deterministic (bilinear
+   upsampling's adjoint sums with atomics): the wrapper's step and
+   further one-device steps from the same weights each held to a first
+   one-device step, losses bitwise, gradients and parameters as 13b holds
+   them (the distances printed); the
+   flagship bf16 B = 2 step through the wrapper timed in turns against
+   the one-device step (first losses within 2^-5), and the all-reduce of
+   its 6.15M gradients alone.  13b, four spawned ranks sharing the card
+   over gloo, mesh (4, 1), fp32, one sample a rank (each rank's model
+   calls see one sample): the product graph and
+   SparseGAT (pruning on the batch's first sample, data rank 0's mask
+   broadcast) against the one-device step on the batch of 4: losses
+   within 1e-6 relative, rank 0's gradients per leaf, its parameters
+   within 1e-6 x max|p| where both gradients exceed 1e-6, the mask equal
+   beyond ``ALPHA_MARGIN`` of the threshold; the ranks bitwise equal; one
+   all-reduce and, pruning, one mask broadcast a step, and the bytes
+   staged through the host exactly the flat gradients' and the mask's.
+
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
 ``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}``,
-``{"offline": ...}``, ``{"sharded": ...}``, ``{"batched": ...}`` and
-``{"kernels": [...]}`` lines (the kernels' launches counted in the serve,
-the train steps, the fit, the demo's training, the regional head steps
-and phases 9, 10, 11 and 12; the segment sum's also by design in the
-serve and the train step; each kernel's batched figures under
-``batched``, 11d's under ``sharded_batched``)
+``{"offline": ...}``, ``{"sharded": ...}``, ``{"batched": ...}``,
+``{"data_parallel": ...}`` and ``{"kernels": [...]}`` lines (the
+kernels' launches counted in the serve, the train steps, the fit, the
+demo's training, the regional head steps and phases 9 to 13; the segment
+sum's also by design in the serve and the train step; each kernel's
+batched figures under ``batched``, 11d's under ``sharded_batched``, 13's
+under ``launches_per_data_parallel_step``)
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so does a machine without a
@@ -7152,6 +7180,602 @@ def phase_batched(ctx, workdir, smi):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: data-parallel training (``parallel.sharding.
+# make_data_parallel_train_step``), the port's counterpart of the JAX
+# package's GSPMD fallback for the families the sharded path refuses.
+
+# 13a: the product graph's and the flagship's batch on one rank; the
+# flagship's steps a mode, timed in turns after a warm-up of each.
+DP_BATCH = 2
+DP_FLAGSHIP_TIMED = 2
+# The bf16 flagship step through the wrapper: its first loss against the
+# one-device step's, relative (the bf16 limit of PERF.md section 2).
+DP_BF16_RTOL = 2.0 ** -5
+# 13b: ranks sharing the card over gloo, one sample each.  Against the
+# one-device step on the whole batch (fp32, TF32 off): the loss relative,
+# each gradient leaf within DP_GRAD_RTOL of its largest + 1e-6, and the
+# parameters within DP_RTOL x max|p| wherever both gradients exceed
+# DP_ADAM_RESOLVED (100 x Adam's eps: below it Adam's first update
+# lr * g / (|g| + eps) turns the gradients' rounding into up to lr, as in
+# any two fp32 evaluations of one step; a GAT's att_dst gradient is zero
+# in exact arithmetic).
+DP_RANKS = 4
+DP_RTOL = 1e-6
+DP_GRAD_RTOL = 1e-4
+DP_ADAM_RESOLVED = 1e-6
+# 13a's V1 U-Net: its backward is not deterministic on the card (bilinear
+# upsampling's adjoint sums with atomics).  The wrapper's step and
+# DP_UNET_RUNS - 1 further one-device steps from the same weights are each
+# held to a first one-device step as 13b holds its ranks (``_held_to``,
+# the bounds above, with Adam's gradients after ClippedAdamW's clip).
+DP_UNET_RUNS = 3
+
+
+def _csr_names(graphs) -> dict:
+    """{indptr data_ptr: name} of the model graphs' receiver and sender
+    CSRs (the keys ``cuda_segment.launches_by_csr`` counts under)."""
+    out = {}
+    for name in ("encoding", "processing", "decoding", "product"):
+        g = getattr(graphs, name, None)
+        if g is None:
+            continue
+        out[g.indptr.data_ptr()] = f"{name} receivers"
+        if getattr(g, "s_indptr", None) is not None:
+            out[g.s_indptr.data_ptr()] = f"{name} senders"
+    return out
+
+
+def _named_launches(names) -> dict:
+    """The segment-sum launches since the last reset by CSR name and F."""
+    from graphcast_lite_torch.ops import cuda_segment
+
+    out = {}
+    for (ptr, _, _, f), n in sorted(cuda_segment.launches_by_csr.items(),
+                                    key=lambda kv: kv[0][3]):
+        key = f"{names.get(ptr, 'other')} F={f}"
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _baseline_case(name, gs, b, seed):
+    """(cfg, spec, model with seeded weights on the CPU, x [b, G, obs·C],
+    y [b, G, C], latitude weights) of a 64x32 BASELINE configuration at its
+    published width (4b's set-up, a batch of ``b``)."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.training.loss import lat_weights_from_axis
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+
+    fn, kw = BASELINE_CONFIGS[name]
+    cfg = getattr(presets, fn)(**kw)
+    c, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    g, m = gs.num_grid_nodes, gs.num_mesh_nodes
+    model = WeatherModel(cfg.pipeline, cfg.data, g, m,
+                         generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, g, obs * c).astype(np.float32)
+    y = rng.randn(b, g, c).astype(np.float32)
+    spec = RolloutSpec(obs_window=obs, num_features=c, remat=True)
+    return cfg, spec, model, x, y, lat_weights_from_axis(32, 64)
+
+
+def _bitwise_pair(label, ref_model, dp_model, ref_loss, dp_loss):
+    """The data-parallel step's loss and parameters bit for bit the
+    one-device step's."""
+    if not torch.equal(ref_loss, dp_loss):
+        raise AssertionError(f"13a {label}: loss {dp_loss.item()} against "
+                             f"the one-device {ref_loss.item()}")
+    for (n, p), q in zip(ref_model.named_parameters(),
+                         dp_model.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"13a {label}: parameter {n} differs from "
+                                 "the one-device step's")
+
+
+def _held_to(label, grads, params, ref_grads, ref_params, clip=1.0):
+    """One step's gradients and parameters against a reference step's from
+    the same weights: each gradient leaf within DP_GRAD_RTOL x its largest
+    + 1e-6, the parameters within DP_RTOL x max|p| wherever both
+    gradients, as Adam sees them (after a global-norm clip by ``clip``),
+    exceed DP_ADAM_RESOLVED.  Returns (worst gradient error of its
+    tolerance, worst parameter error of its tolerance, coordinates held,
+    coordinates)."""
+    ptol = DP_RTOL * max(q.abs().max().item() for q in ref_params.values())
+    worst_grad, worst_param, held, total = 0.0, 0.0, 0, 0
+    for n, g in grads.items():
+        rg = ref_grads[n]
+        e = (g - rg).abs().max().item()
+        tol = DP_GRAD_RTOL * rg.abs().max().item() + 1e-6
+        if e > tol:
+            raise AssertionError(f"{label} {n}: gradient {e:.3e} off the "
+                                 f"reference step's (> {tol:.3e})")
+        worst_grad = max(worst_grad, e / tol)
+        resolved = torch.minimum(g.abs(), rg.abs()) * clip > \
+            DP_ADAM_RESOLVED
+        held += int(resolved.sum())
+        total += resolved.numel()
+        d = (params[n] - ref_params[n]).abs()[resolved]
+        if d.numel():
+            worst_param = max(worst_param, d.max().item() / ptol)
+    if worst_param > 1.0:
+        raise AssertionError(f"{label}: parameters {worst_param:.3f} of "
+                             f"{DP_RTOL} x max|p| off the reference step's")
+    return worst_grad, worst_param, held, total
+
+
+def _dp_product_one_rank(gs, graphs, mesh):
+    """13a: the product graph at its BASELINE width, fp32, B = DP_BATCH,
+    through the data-parallel step against make_train_step: loss and
+    parameters bitwise, the segment-sum launches a step by CSR."""
+    import copy
+
+    from graphcast_lite_torch.parallel import collectives
+    from graphcast_lite_torch.parallel.sharding import \
+        make_data_parallel_train_step
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    cfg, spec, base, x, y, lw = _baseline_case("product_graph", gs,
+                                               DP_BATCH, 1)
+    gr = graphs.to("cuda")
+    ref_model, dp_model = copy.deepcopy(base), copy.deepcopy(base)
+    ref = make_train_step(ref_model, gr, spec, cfg, steps=1, device="cuda",
+                          lat_weights=lw)
+    dp = make_data_parallel_train_step(make_train_step(
+        dp_model, gr, spec, cfg, steps=1, device="cuda", lat_weights=lw),
+        mesh)
+    names = _csr_names(ref.graphs)
+    xs, ys = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    _reset_launches()
+    ref_loss = ref(xs, ys)
+    ref_counts, ref_by = _launches(), _named_launches(names)
+    _reset_launches()
+    collectives.reset_transport()
+    dp_loss = dp(xs, ys)
+    torch.cuda.synchronize()
+    counts, by = _launches(), _named_launches(names)
+    _bitwise_pair("product graph", ref_model, dp_model, ref_loss, dp_loss)
+    if counts != ref_counts or by != ref_by:
+        raise AssertionError(f"13a product graph: launches {counts} {by}, "
+                             f"one-device {ref_counts} {ref_by}")
+    if dp.all_reduces != 1 or collectives.transport["collectives"] != 1:
+        raise AssertionError(f"13a product graph: {dp.all_reduces} "
+                             "all-reduces, "
+                             f"{collectives.transport['collectives']} "
+                             "collectives a step")
+    n = sum(p.numel() for p in dp_model.parameters())
+    _log(f"  product graph (hidden 64, obs 5, 64x32), fp32, B={DP_BATCH}: "
+         f"loss {dp_loss.item():.7f} and {n} parameters bitwise the "
+         f"one-device step's; segment_sum {counts['segment_sum']} a step "
+         f"({by}), one all-reduce of {n + 1} fp32")
+    return {"loss": dp_loss.item(), "parameters": n, "bitwise": True,
+            "launches_per_step": counts, "segment_sum_by_csr": by,
+            "all_reduces_per_step": dp.all_reduces}
+
+
+def _rel_l2_dict(got, ref) -> float:
+    """||got - ref|| / ||ref|| over every tensor of two {name: tensor}."""
+    num = sum(float(((got[n].double() - r.double()) ** 2).sum())
+              for n, r in ref.items())
+    den = sum(float((r.double() ** 2).sum()) for r in ref.values())
+    return (num / den) ** 0.5
+
+
+def _dp_unet_one_rank(mesh):
+    """13a: the V1 U-Net's batch-8 AR-4 step at full width (fp32) with the
+    spectral and Sobel losses and ClippedAdamW (cuDNN deterministic),
+    DP_UNET_RUNS times through make_train_step and once through the
+    data-parallel step, from the same weights: each held to the first
+    one-device step (``_held_to``; its losses bitwise), the distances
+    recorded."""
+    import copy
+
+    from graphcast_lite_torch.parallel.sharding import \
+        make_data_parallel_train_step
+    from graphcast_lite_torch.training.loss import image_extra_loss
+
+    base, cfg, spec, _ = _cnn_setup("v1")
+    extra = image_extra_loss(*CNN_GRID, spec.num_features,
+                             CNN_CONFIG["spectral_weight"],
+                             CNN_CONFIG["gradient_weight"])
+    gen = torch.Generator().manual_seed(17)
+    b, g = CNN_CONFIG["batch_size"], CNN_GRID[0] * CNN_GRID[1]
+    x = torch.randn(b, g, spec.obs_window * spec.num_features,
+                    generator=gen).cuda()
+    y = torch.randn(b, g, cfg.max_ar_steps * spec.num_features,
+                    generator=gen).cuda()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for i in range(DP_UNET_RUNS + 1):
+            step = run = _cnn_step(copy.deepcopy(base), cfg, spec, extra,
+                                   "cuda")
+            if i == DP_UNET_RUNS:
+                run = make_data_parallel_train_step(step, mesh)
+            loss = run(x, y)
+            torch.cuda.synchronize()
+            max_norm = step.optimizer.param_groups[0]["max_norm"]
+            runs.append({"loss": loss,
+                         "grads": {n: q.grad.detach().clone() for n, q in
+                                   step.model.named_parameters()},
+                         "params": {n: q.detach().clone() for n, q in
+                                    step.model.named_parameters()}})
+            del step, run
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    ref = runs[0]
+    norm = sum(float((v.double() ** 2).sum())
+               for v in ref["grads"].values()) ** 0.5
+    clip = min(1.0, max_norm / norm)
+    rows = []
+    for i, r in enumerate(runs[1:], 1):
+        label = ("the wrapper" if i == DP_UNET_RUNS
+                 else f"one-device run {i + 1}")
+        if not torch.equal(r["loss"], ref["loss"]):
+            raise AssertionError(f"13a V1 U-Net: {label}'s loss "
+                                 f"{r['loss'].item()} against "
+                                 f"{ref['loss'].item()}")
+        worst_grad, worst_param, held, total = _held_to(
+            f"13a V1 U-Net, {label}", r["grads"], r["params"],
+            ref["grads"], ref["params"], clip)
+        rows.append({"run": label, "worst_grad_err_of_tol": worst_grad,
+                     "worst_param_err_of_tol": worst_param,
+                     "parameters_held": held, "parameters": total,
+                     "grads_rel_l2": _rel_l2_dict(r["grads"], ref["grads"]),
+                     "params_rel_l2": _rel_l2_dict(r["params"],
+                                                   ref["params"])})
+    out = {"loss": ref["loss"].item(), "batch": b, "grad_norm": norm,
+           "clip": clip, "one_device_runs": DP_UNET_RUNS,
+           "against_first_run": rows}
+    _log(f"  V1 U-Net batch {b}, AR {cfg.max_ar_steps}, spectral + Sobel, "
+         f"ClippedAdamW (gradient norm {norm:.4g}, clip {clip:.4g}): loss "
+         f"{out['loss']:.7f} bitwise in {DP_UNET_RUNS + 1} runs; against "
+         "the first one-device step (worst gradient / parameter of its "
+         "tolerance, held / coordinates, relative L2 of the gradients / "
+         "parameters): " + "; ".join(
+             f"{r['run']} {r['worst_grad_err_of_tol']:.3g} / "
+             f"{r['worst_param_err_of_tol']:.3g}, {r['parameters_held']} / "
+             f"{r['parameters']}, {r['grads_rel_l2']:.3e} / "
+             f"{r['params_rel_l2']:.3e}" for r in rows))
+    return out
+
+
+def _dp_flagship_one_rank(ctx, mesh):
+    """13a: the flagship bf16 AR-4 step at B = DP_BATCH (default route)
+    through the data-parallel step against the one-device step, timed in
+    turns (one-device, wrapper, wrapper, one-device, after a warm-up of
+    each), and the all-reduce of its flattened gradients alone."""
+    from graphcast_lite_torch.parallel import collectives
+    from graphcast_lite_torch.parallel.sharding import \
+        make_data_parallel_train_step
+
+    x, y = (torch.from_numpy(a).cuda() for a in _batch_arrays(ctx,
+                                                              DP_BATCH))
+    ref_model, ref = _flagship_step(ctx, ctx["model"], "bfloat16")
+    dp_model, step = _flagship_step(ctx, ctx["model"], "bfloat16")
+    dp = make_data_parallel_train_step(step, mesh)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = fn(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        return loss.item(), start.elapsed_time(end)
+
+    first_ref, _ = timed(ref)
+    first_dp, _ = timed(dp)
+    rel = abs(first_dp - first_ref) / abs(first_ref)
+    if not (np.isfinite(first_dp) and rel <= DP_BF16_RTOL):
+        raise AssertionError(f"13a flagship: wrapper loss {first_dp} "
+                             f"against the one-device {first_ref}")
+    runs = {"one_device": [], "data_parallel": []}
+    for name in ("one_device", "data_parallel", "data_parallel",
+                 "one_device") * (DP_FLAGSHIP_TIMED // 2):
+        runs[name].append(timed(ref if name == "one_device" else dp)[1])
+    n = sum(p.numel() for p in dp_model.parameters())
+    flat = torch.zeros(n + 1, device="cuda")
+    ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.all_reduce_(flat, mesh.data_group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    mean = {k: sum(v) / len(v) for k, v in runs.items()}
+    out = {"first_loss": first_dp, "first_loss_one_device": first_ref,
+           "first_loss_rel_diff": rel, "step_ms": mean,
+           "step_ms_runs": runs,
+           "wrapper_ms": mean["data_parallel"] - mean["one_device"],
+           "all_reduce_ms_host_clock": sorted(ms)[len(ms) // 2],
+           "all_reduce_bytes": 4 * (n + 1), "parameters": n}
+    _log(f"  flagship bf16 B={DP_BATCH}: first loss {first_dp:.7f} against "
+         f"{first_ref:.7f} ({rel:.3e}); step one-device "
+         + ", ".join(f"{t:.2f}" for t in runs["one_device"])
+         + " ms, through the wrapper "
+         + ", ".join(f"{t:.2f}" for t in runs["data_parallel"])
+         + f" ms (in turns), difference {out['wrapper_ms']:.2f} ms; the "
+         f"all-reduce of {n + 1} fp32 ({out['all_reduce_bytes'] / 1e6:.1f} "
+         f"MB) alone {out['all_reduce_ms_host_clock']:.3f} ms (median of "
+         "10, host clock)")
+    del ref_model, dp_model, ref, dp, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_parallel_one_rank(ctx, gs64, graphs64, smi):
+    """13a: one rank over NCCL, mesh (1, 1)."""
+    import torch.distributed as dist
+
+    from graphcast_lite_torch.parallel.sharding import make_mesh
+
+    _log("phase 13a: the data-parallel step (parallel.sharding."
+         "make_data_parallel_train_step) on one rank over NCCL, mesh (1, 1): "
+         "the product graph bitwise the one-device step, the V1 U-Net held "
+         f"to it, the flagship bf16 B={DP_BATCH} step timed against it; "
+         f"{smi}")
+    torch.cuda.set_device(0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data_parallel=1)
+        return {"product_graph": _dp_product_one_rank(gs64, graphs64, mesh),
+                "unet_v1": _dp_unet_one_rank(mesh),
+                "flagship": _dp_flagship_one_rank(ctx, mesh)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_cases(world, p) -> dict:
+    """13b on one rank (the gloo process group up): one data-parallel step
+    of each case of ``_dp_payload`` on this rank's block of the batch over
+    a (world, 1) mesh, with the batch sizes its model calls saw."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.parallel import collectives
+    from graphcast_lite_torch.parallel.sharding import \
+        make_data_parallel_train_step, make_mesh
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    mesh = make_mesh(data_parallel=world)
+    graphs = p["graphs"].to("cuda")
+    out = {"mesh_index": (mesh.data_index, mesh.space_index)}
+    for name, case in p["cases"].items():
+        cfg = case["cfg"]
+        model = WeatherModel(cfg.pipeline, cfg.data, p["g"], p["m"])
+        model.load_state_dict(case["state"])
+        step = make_data_parallel_train_step(make_train_step(
+            model, graphs, case["spec"], cfg, steps=1, device="cuda",
+            lat_weights=p["lw"]), mesh)
+        mask = (graphs.processing.edge_mask.clone() if case["prune"]
+                else None)
+        seen = set()
+        hook = model.register_forward_pre_hook(
+            lambda mod, args: seen.add(args[0].shape[0]))
+        torch.cuda.synchronize()
+        dist.barrier()
+        _reset_launches()
+        collectives.reset_transport()
+        t0 = time.perf_counter()
+        loss, new_mask = step.run(case["x"], case["y"], mask, SPARSE_THR,
+                                  case["prune"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        hook.remove()
+        flat = torch.cat([q.detach().reshape(-1)
+                          for q in model.parameters()]).cpu()
+        row = {"loss": loss.item(), "wall_ms": wall_ms,
+               "params_sha256": hashlib.sha256(
+                   flat.numpy().tobytes()).hexdigest(),
+               "mask_sha256": None if new_mask is None else
+               hashlib.sha256(new_mask.float().cpu().numpy()
+                              .tobytes()).hexdigest(),
+               "all_reduces": step.all_reduces,
+               "mask_broadcasts": step.mask_broadcasts,
+               "batch_seen": sorted(seen),
+               "transport": dict(collectives.transport),
+               "segment_sum": _launches()["segment_sum"],
+               "param_bytes": 4 * flat.numel()}
+        if mesh.data_index == 0:
+            row["params"] = {n: q.detach().cpu()
+                             for n, q in model.named_parameters()}
+            row["grads"] = {n: q.grad.cpu()
+                            for n, q in model.named_parameters()}
+            row["mask"] = None if new_mask is None else \
+                new_mask.float().cpu()
+        out[name] = row
+        del model, step
+    return out
+
+
+def _dp_rank(rank, world, store, payload_path, out_dir):
+    """One of 13b's ranks: gloo (host-staged) on the one card."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with open(payload_path, "rb") as f:
+        p = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = _dp_rank_cases(world, p)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _dp_payload(gs64, graphs64) -> dict:
+    """13b's cases for its ranks: the product graph and SparseGAT at their
+    BASELINE widths, a batch of DP_RANKS (one sample a rank)."""
+    cases = {}
+    for i, name in enumerate(("product_graph", "sparse_gat")):
+        cfg, spec, model, x, y, lw = _baseline_case(name, gs64, DP_RANKS,
+                                                    2 + i)
+        cases[name] = {"cfg": cfg, "spec": spec, "x": x, "y": y,
+                       "state": model.state_dict(),
+                       "prune": name == "sparse_gat"}
+    return {"cases": cases, "graphs": graphs64, "g": gs64.num_grid_nodes,
+            "m": gs64.num_mesh_nodes, "lw": lw}
+
+
+def _dp_reference(case, graphs, g, m, lw):
+    """The one-device step on the whole batch (fp32, the card): loss,
+    parameters, gradients, the pruned mask and the alphas it pruned on."""
+    from graphcast_lite_torch.models.weather import WeatherModel
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    cfg = case["cfg"]
+    model = WeatherModel(cfg.pipeline, cfg.data, g, m)
+    model.load_state_dict(case["state"])
+    gr = graphs.to("cuda")
+    step = make_train_step(model.cuda(), gr, case["spec"], cfg, steps=1,
+                           device="cuda", lat_weights=lw)
+    alphas = []
+    if case["prune"]:
+        model.processor.graph_layer.conv_0.core.register_forward_hook(
+            lambda mod, a, o: alphas.append(o[1].detach().float().cpu()))
+    mask = gr.processing.edge_mask.clone() if case["prune"] else None
+    loss, new_mask = step.run(case["x"], case["y"], mask, SPARSE_THR,
+                              case["prune"])
+    return {"loss": loss.item(),
+            "params": {n: q.detach().cpu()
+                       for n, q in model.named_parameters()},
+            "grads": {n: q.grad.cpu() for n, q in model.named_parameters()},
+            "mask": None if new_mask is None else new_mask.float().cpu(),
+            "alphas": alphas}
+
+
+def _dp_check_ranks(name, ranks, ref, mask_bytes) -> dict:
+    """13b's checks of one case: every rank's loss and rank 0's gradients
+    and parameters against the one-device step, the ranks' parameters and
+    masks bitwise equal, one all-reduce a step, the staged bytes."""
+    r0 = ranks[0][name]
+    rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    if rel > DP_RTOL or any(r[name]["loss"] != r0["loss"] for r in ranks):
+        raise AssertionError(f"13b {name}: losses "
+                             f"{[r[name]['loss'] for r in ranks]} against "
+                             f"the one-device {ref['loss']}")
+    for key in ("params_sha256", "mask_sha256"):
+        if len({r[name][key] for r in ranks}) != 1:
+            raise AssertionError(f"13b {name}: ranks' {key} differ")
+    worst_grad, worst_param, held, total = _held_to(
+        f"13b {name}", r0["grads"], r0["params"], ref["grads"],
+        ref["params"])
+    for r in ranks:
+        if r[name]["batch_seen"] != [1]:
+            raise AssertionError(f"13b {name}: a rank's model calls saw "
+                                 f"batches {r[name]['batch_seen']}, not its "
+                                 "one sample")
+    row = {"loss": r0["loss"], "loss_one_device": ref["loss"],
+           "loss_rel_diff": rel, "worst_grad_err_of_tol": worst_grad,
+           "worst_param_err_of_tol": worst_param,
+           "parameters_held": held, "parameters": total,
+           "all_reduces_per_step": r0["all_reduces"],
+           "mask_broadcasts_per_step": r0["mask_broadcasts"],
+           "collectives_per_step": r0["transport"]["collectives"],
+           "staged_bytes_per_rank": r0["transport"]["staged_bytes"],
+           "staged_bytes_all_ranks": sum(r[name]["transport"][
+               "staged_bytes"] for r in ranks),
+           "staged_s_per_rank": [r[name]["transport"]["staged_s"]
+                                 for r in ranks],
+           "param_bytes": r0["param_bytes"],
+           "segment_sum_per_rank_step": r0["segment_sum"],
+           "rank_step_wall_ms": [r[name]["wall_ms"] for r in ranks]}
+    # Each all-reduce stages the flat gradients and the loss (fp32) to the
+    # host and back; each mask broadcast the [E_pad] fp32 mask.
+    want = (2 * (r0["param_bytes"] + 4) * r0["all_reduces"]
+            + 2 * mask_bytes * r0["mask_broadcasts"])
+    for r in ranks:
+        t = r[name]
+        if (t["all_reduces"] != 1
+                or t["mask_broadcasts"] != int(ref["mask"] is not None)
+                or t["transport"]["collectives"] != 1 + t["mask_broadcasts"]
+                or t["transport"]["staged_bytes"] != want):
+            raise AssertionError(f"13b {name}: {t['all_reduces']} "
+                                 f"all-reduces, {t['transport']} "
+                                 f"(staged bytes expected {want})")
+    if ref["mask"] is not None:
+        live, near = _far_mask_check(f"13b {name}", r0["mask"], ref["mask"],
+                                     ref["alphas"], SPARSE_THR)
+        row.update(live_edges=live, near_threshold=near,
+                   mask_equal=bool(torch.equal(r0["mask"], ref["mask"])))
+    return row
+
+
+def phase_data_parallel_ranks(p, ranks):
+    """13b: DP_RANKS spawned ranks sharing the card over gloo, mesh (4, 1)
+    (``_dp_rank_cases``): the product graph and SparseGAT (pruning) at
+    their BASELINE widths, one sample a rank, against the one-device step
+    on the whole batch."""
+    _log(f"phase 13b: {DP_RANKS} spawned ranks sharing the card over gloo, "
+         f"mesh ({DP_RANKS}, 1), fp32 (TF32 off), one sample a rank: the "
+         "product graph and SparseGAT (pruning at its "
+         f"threshold) against the one-device step on the batch of "
+         f"{DP_RANKS} (loss {DP_RTOL} relative, gradients {DP_GRAD_RTOL} x "
+         f"max|g| + 1e-6, parameters {DP_RTOL} x max|p| where both |g| > "
+         f"{DP_ADAM_RESOLVED}); ranks bitwise equal, one all-reduce a step")
+    if sorted(r["mesh_index"] for r in ranks) != [(d, 0) for d in
+                                                  range(DP_RANKS)]:
+        raise AssertionError(f"13b: mesh indices "
+                             f"{[r['mesh_index'] for r in ranks]}")
+    ranks = sorted(ranks, key=lambda r: r["mesh_index"])
+    mask_bytes = 4 * p["graphs"].processing.padded_num_edges
+    out = {"ranks": DP_RANKS}
+    for name, case in p["cases"].items():
+        ref = _dp_reference(case, p["graphs"], p["g"], p["m"], p["lw"])
+        row = _dp_check_ranks(name, ranks, ref, mask_bytes)
+        out[name] = row
+        _log(f"  {name}: loss {row['loss']:.7f} against the one-device "
+             f"{row['loss_one_device']:.7f} ({row['loss_rel_diff']:.2e}); "
+             f"worst gradient {row['worst_grad_err_of_tol']:.3f} of its "
+             f"tolerance, parameters {row['worst_param_err_of_tol']:.3f} "
+             f"({row['parameters_held']} of {row['parameters']} held); "
+             f"ranks bitwise equal; {row['all_reduces_per_step']} "
+             f"all-reduce and {row['mask_broadcasts_per_step']} mask "
+             f"broadcasts a step; staged {row['staged_bytes_per_rank']} "
+             f"bytes a rank ({row['staged_bytes_all_ranks']} in all, "
+             f"parameters {row['param_bytes']} bytes)"
+             + (f"; live edges {row['live_edges']}, "
+                f"{row['near_threshold']} within {ALPHA_MARGIN} of the "
+                f"threshold, masks equal: {row['mask_equal']}"
+                if "live_edges" in row else ""))
+    return out
+
+
+def phase_data_parallel(ctx, gs64, graphs64, smi):
+    """Phase 13: data-parallel training (13a one rank over NCCL; 13b four
+    spawned ranks over gloo)."""
+    t0 = time.perf_counter()
+    dp_payload = _dp_payload(gs64, graphs64)
+    with tempfile.TemporaryDirectory() as workdir:
+        dp_ranks = _spawn_ranks(_dp_rank, DP_RANKS, workdir, dp_payload)
+    out = {"card": smi,
+           "one_rank": phase_data_parallel_one_rank(ctx, gs64, graphs64,
+                                                    smi),
+           "four_ranks": phase_data_parallel_ranks(dp_payload, dp_ranks)}
+    out["phase_s"] = time.perf_counter() - t0
+    _log(f"  phase 13: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7221,6 +7845,7 @@ def main() -> int:
     sharded = phase_sharded(ctx, smi)
     with tempfile.TemporaryDirectory() as workdir:
         batched = phase_batched(ctx, workdir, smi)
+    data_parallel = phase_data_parallel(ctx, gs64, graphs64, smi)
     one_rank = sharded["one_rank"]
     ladder = assimilation["ladder"]
     fused_steps = {name: row["launches_per_step"]
@@ -7318,6 +7943,14 @@ def main() -> int:
         launches_in_amortized_serve={
             key: bs[key]["launches"]["segment_sum"]
             for key in (f"k{SERVE_K}", "k1", "edge_step", "mega")})
+    # Phase 13a: the product graph's data-parallel step on one rank.
+    dp_product = data_parallel["one_rank"]["product_graph"]
+    seg["launches_per_data_parallel_step"] = dict(
+        model="product_graph_64x32", batch=DP_BATCH,
+        total=dp_product["launches_per_step"]["segment_sum"],
+        by_csr=dp_product["segment_sum_by_csr"],
+        per_four_rank_step=data_parallel["four_ranks"]["product_graph"][
+            "segment_sum_per_rank_step"])
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -7375,6 +8008,7 @@ def main() -> int:
     _log(json.dumps({"offline": offline}))
     _log(json.dumps({"sharded": sharded}))
     _log(json.dumps({"batched": batched}))
+    _log(json.dumps({"data_parallel": data_parallel}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

@@ -45,9 +45,12 @@ shard-local CSRs, as everywhere in the port.
 
 Supported layer types (``ShardedWeatherForward._validate``, the gate):
 encoder/decoder ConvGCN or GATConv stacks; processor InteractionNet,
-ConvGCN, GAT or SparseGAT (per-shard edge-mask pruning).  Product-graph
-models are refused (the JAX package trains those under GSPMD, which has no
-PyTorch counterpart: ``parallel.sharding``).
+ConvGCN, GAT or SparseGAT (per-shard edge-mask pruning).  The other
+families (product graph, SimpleConv / SparseGAT / InteractionNet encoders
+and decoders, graph-mode LayerNorm, direct multi-step models, the CNN
+stacks) are refused, as the JAX package refuses them and trains them under
+GSPMD with a data-sharded batch; the port's counterpart of that is the
+data-parallel step, ``parallel.sharding.make_data_parallel_train_step``.
 """
 
 from __future__ import annotations
@@ -1029,7 +1032,8 @@ class ShardedWeatherForward:
         pl = self.pipeline
         if pl.product_graph is not None:
             raise NotImplementedError(
-                "product-graph models use the GSPMD path"
+                "product-graph models train data-parallel: "
+                "parallel.sharding.make_data_parallel_train_step"
             )
         for name in ("encoder", "decoder"):
             mc = getattr(pl, name)
@@ -1038,22 +1042,28 @@ class ShardedWeatherForward:
             ):
                 raise NotImplementedError(
                     f"sharded {name} supports ConvGCN/GATConv only "
-                    f"(got {mc.gcn.layer_type}); use the GSPMD path"
+                    f"(got {mc.gcn.layer_type}); train data-parallel "
+                    "with parallel.sharding.make_data_parallel_train_step"
                 )
             if mc.gcn.use_layer_norm and (mc.gcn.layer_norm_mode
                                           or "node") != "node":
-                raise NotImplementedError("graph-mode trailing LN unsupported")
+                raise NotImplementedError(
+                    "graph-mode trailing LN unsupported; train data-parallel "
+                    "with parallel.sharding.make_data_parallel_train_step")
             if mc.mlp is not None and mc.mlp.use_layer_norm and (
                 mc.mlp.layer_norm_mode or "node"
             ) != "node":
-                raise NotImplementedError("graph-mode MLP LN unsupported")
+                raise NotImplementedError(
+                    "graph-mode MLP LN unsupported; train data-parallel "
+                    "with parallel.sharding.make_data_parallel_train_step")
         if pl.processor.gcn.layer_type not in (
             GraphLayerType.InteractionNet, GraphLayerType.ConvGCN,
             GraphLayerType.GATConv, GraphLayerType.SparseGATConv,
         ):
             raise NotImplementedError(
                 "sharded processor supports InteractionNet/ConvGCN/GAT/"
-                "SparseGAT only"
+                "SparseGAT only; train data-parallel with "
+                "parallel.sharding.make_data_parallel_train_step"
             )
 
     @property
@@ -1326,7 +1336,8 @@ def make_sharded_train_step(
     if spec.direct_steps > 1:
         raise NotImplementedError(
             "direct multi-step (P·C decode) models are not wired into the "
-            "explicit sharded rollout yet — train them on one device"
+            "explicit sharded rollout; train them data-parallel with "
+            "parallel.sharding.make_data_parallel_train_step"
         )
     _check_mesh(fwd, mesh, "sharded train step")
     return ShardedTrainStep(fwd, spec, mesh, model, optimizer, steps,

@@ -17,28 +17,40 @@ process a rank, started by ``torchrun`` or ``torch.multiprocessing``):
   (``shard_batch``);
 * parameters are replicated: ``replicated`` broadcasts them from rank 0.
 
-The JAX package also trains a single-device step under GSPMD, which shards
-it automatically from its input shardings (``jax.jit`` with in/out
-shardings).  PyTorch has no counterpart of that propagation, so the port
-has only the explicit path (``parallel.sharded_model``), which refuses
-product-graph models as the JAX one does (``ShardedWeatherForward.
-_validate``).
+The explicit sharded path (``parallel.sharded_model``) refuses some model
+families, as the JAX one does: product-graph models, encoders and
+decoders other than ConvGCN / GAT, graph-mode LayerNorm, direct multi-step
+models and the CNN stacks (``ShardedWeatherForward._validate``).  The JAX
+package trains those with its single-device step under GSPMD: the batch
+sharded ``P("data")``, the parameters replicated, and XLA inserting the
+gradient all-reduce over the data axis.  The port's counterpart is the
+data-parallel step (``make_data_parallel_train_step``, and
+``make_data_parallel_eval_step`` for evaluation): each rank runs the
+one-device ``TrainStep`` on its block of the batch, the fp32 gradients are
+averaged over the data group in one all-reduce, and every rank takes the
+same optimizer step.  It needs a mesh whose space axis is 1; GSPMD's
+propagation along the node axis (``P("data", "space")``) has no PyTorch
+counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from .collectives import broadcast_
+from ..build import resolve_device
+from ..training.trainer import _as_tensor, eval_metrics, eval_sums
+from .collectives import all_reduce_, broadcast_
 
 __all__ = ["ProcessMesh", "choose_mesh_shape", "make_mesh", "shard_batch",
-           "replicated"]
+           "replicated", "DataParallelTrainStep",
+           "make_data_parallel_train_step", "DataParallelEvalStep",
+           "make_data_parallel_eval_step"]
 
 
 def choose_mesh_shape(n_devices: int, data_parallel: Optional[int] = None):
@@ -136,3 +148,159 @@ def replicated(module: nn.Module, mesh: ProcessMesh) -> nn.Module:
         for t in list(module.parameters()) + list(module.buffers()):
             broadcast_(t, 0, mesh.world_group)
     return module
+
+
+# ---- data-parallel training (the GSPMD fallback's counterpart) -------------
+
+
+def _data_only(mesh: ProcessMesh, what: str) -> None:
+    if mesh.space != 1:
+        raise NotImplementedError(
+            f"{what}: the mesh's space axis is {mesh.space}; the "
+            "data-parallel step splits the batch only (make_mesh("
+            "data_parallel=world)).  Splitting the node axis of these "
+            "families (GSPMD's P('data', 'space')) is not ported "
+            "(ROADMAP.md, 'Node-axis GSPMD')")
+
+
+def _block(x, mesh: ProcessMesh):
+    """This rank's rows of the batch axis of ``x`` (numpy or tensor) for
+    evaluation: ``shard_batch``'s, or as even a split where B does not
+    divide (a partial last batch)."""
+    b = x.shape[0]
+    return x[mesh.data_index * b // mesh.data:
+             (mesh.data_index + 1) * b // mesh.data]
+
+
+class DataParallelTrainStep:
+    """One data-parallel step of a ``training.trainer.TrainStep`` (built by
+    ``make_data_parallel_train_step``): the one-device step's loss and
+    backward on this rank's block of the batch, the fp32 gradients (and
+    the loss) averaged over ``mesh.data_group`` in one all-reduce of a
+    flat buffer, then the optimizer's step on every rank.  ``all_reduces``
+    counts the step's gradient all-reduces, ``mask_broadcasts`` SparseGAT's
+    pruned masks sent from data rank 0."""
+
+    def __init__(self, step, mesh: ProcessMesh):
+        self.step, self.mesh = step, mesh
+        self.all_reduces = self.mask_broadcasts = 0
+
+    def __call__(self, x, y) -> torch.Tensor:
+        """One step on the global batch (x [B, G, obs·C], y [B, G, P·C],
+        the same on every rank); returns the global batch's fp32 loss."""
+        return self.run(x, y)[0]
+
+    def _sync_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """Data rank 0's pruned mask on every rank: the batch prunes on its
+        first sample, which data rank 0 holds."""
+        self.mask_broadcasts += 1
+        return broadcast_(mask.detach().float().contiguous(), 0,
+                          self.mesh.data_group).to(mask.dtype)
+
+    def run(self, x, y, edge_mask=None, attention_threshold=0.0,
+            prune: bool = False):
+        """``TrainStep.run`` on the global batch: (global fp32 loss, new
+        edge mask or None), equal on every rank."""
+        mesh, step = self.mesh, self.step
+        if x.shape[0] % mesh.data:
+            raise ValueError(
+                f"data-parallel training needs batch ({x.shape[0]}) "
+                f"divisible by the data-parallel axis ({mesh.data}); use "
+                "drop_remainder batching or a compatible batch_size")
+        sync = self._sync_mask if mesh.data > 1 else None
+        loss, new_mask = step.backward(shard_batch(x, mesh),
+                                       shard_batch(y, mesh), edge_mask,
+                                       attention_threshold, prune, sync)
+        params = list(step.model.parameters())
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [loss.reshape(1)])
+        all_reduce_(flat, mesh.data_group)
+        self.all_reduces += 1
+        flat /= mesh.data
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.grad = flat[offset:offset + n].view_as(p)
+            offset += n
+        step.optimizer.step()
+        return flat[-1].clone(), new_mask
+
+
+def make_data_parallel_train_step(step, mesh: ProcessMesh) \
+        -> DataParallelTrainStep:
+    """``step`` (a ``training.trainer.TrainStep`` from ``make_train_step``,
+    of any model it takes: ``WeatherModel`` of every family or
+    ``GridImageModel``, with any optimizer) trained data-parallel over the
+    ranks of ``mesh`` (a ``(data, 1)`` mesh: ``make_mesh(
+    data_parallel=world)``), the port's counterpart of the JAX package's
+    single-device step run under GSPMD on a ``P("data")`` batch.
+
+    Each rank runs ``step``'s loss and backward on its block of the batch
+    (rows ``[d·B/data, (d+1)·B/data)``); the fp32 master gradients, after
+    ``step``'s zero-fill and processor freeze, are averaged over the data
+    group in one all-reduce (the blocks are equal and the loss's weights
+    the same for every sample, so the mean of the blocks' gradients is the
+    whole batch's); then ``step.optimizer`` steps on every rank, so a
+    global-norm clip (``ClippedAdamW``) sees the global gradient and the
+    ranks stay bitwise equal.  SparseGAT prunes on the batch's first
+    sample: each pruned mask is broadcast from data rank 0 as the rollout
+    makes it.  Building the step broadcasts the model's parameters and
+    buffers from rank 0 (``replicated``); the optimizer's state must start
+    equal on every rank (fresh, or one checkpoint)."""
+    _data_only(mesh, "make_data_parallel_train_step")
+    replicated(step.model, mesh)
+    return DataParallelTrainStep(step, mesh)
+
+
+class DataParallelEvalStep:
+    """The one-device ``Trainer``'s evaluation (``_eval_batch``: the fp32
+    one-step rollout's weighted loss, ACC and raw RMSE) of a batch split
+    over the data group (built by ``make_data_parallel_eval_step``): each
+    rank's ``eval_sums`` of its block, added up in one all-reduce."""
+
+    def __init__(self, model, graphs, spec, mesh: ProcessMesh, device,
+                 masks: Sequence[Optional[torch.Tensor]],
+                 exclude_channels: Tuple[int, ...]):
+        self.model, self.graphs, self.spec = model, graphs, spec
+        self.mesh, self.device, self.masks = mesh, device, tuple(masks)
+        self.exclude = tuple(exclude_channels)
+
+    def __call__(self, x, y, edge_mask=None):
+        """(loss, ACC, raw RMSE) of the global batch (x [B, G, obs·C], y
+        [B, G, P·C], the same on every rank), on every rank.  A batch that
+        does not divide by the data axis splits as evenly as it can."""
+        with torch.no_grad():
+            sums = eval_sums(self.model, self.graphs, self.spec,
+                             _block(x, self.mesh), _block(y, self.mesh),
+                             edge_mask, self.masks, self.exclude,
+                             self.device)
+        return eval_metrics(all_reduce_(sums, self.mesh.data_group))
+
+
+def make_data_parallel_eval_step(
+    model: nn.Module,
+    graphs,
+    spec,
+    mesh: ProcessMesh,
+    lat_weights=None,
+    chan_mask=None,
+    spatial_mask=None,
+    exclude_channels: Sequence[int] = (),
+    device=None,
+) -> DataParallelEvalStep:
+    """``eval(x, y, edge_mask=None) -> (loss, acc, raw_rmse)``: the
+    one-device ``Trainer``'s fp32 evaluation of a batch (the JAX package's
+    ``Trainer._make_eval_step`` run on a ``P("data")`` batch), each rank
+    evaluating its block of ``model`` (fp32, the same on every rank) on
+    ``graphs`` (None for a ``GridImageModel``), the loss's and metrics'
+    sums reduced over the data group in one all-reduce.  ``lat_weights``,
+    ``chan_mask`` and ``spatial_mask`` weight the loss as ``Trainer``'s do;
+    ``exclude_channels`` leave the ACC.  On the card unless ``device``
+    says otherwise."""
+    _data_only(mesh, "make_data_parallel_eval_step")
+    dev = resolve_device(device)
+    return DataParallelEvalStep(
+        model.to(dev), None if graphs is None else graphs.to(dev), spec,
+        mesh, dev, tuple(_as_tensor(a, dev) for a in (
+            lat_weights, chan_mask, spatial_mask)),
+        tuple(sorted(set(exclude_channels))))

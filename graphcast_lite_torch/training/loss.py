@@ -21,6 +21,7 @@ __all__ = [
     "channel_mask",
     "combine_spatial_masks",
     "weighted_mse",
+    "weighted_sums",
     "anomaly_correlation",
     "spectral_loss",
     "gradient_loss",
@@ -79,6 +80,26 @@ def combine_spatial_masks(*masks: Optional[np.ndarray]) -> Optional[np.ndarray]:
     return out
 
 
+def weighted_sums(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    lat_weights: Optional[torch.Tensor] = None,
+    chan_mask: Optional[torch.Tensor] = None,
+    spatial_mask: Optional[torch.Tensor] = None,
+):
+    """(Σ w·(p−t)², Σ w): ``weighted_mse``'s numerator and denominator, so
+    that a batch split over ranks can sum them before dividing."""
+    diff = torch.square(pred - target)
+    weights = torch.ones_like(diff)
+    if chan_mask is not None:
+        weights = weights * chan_mask
+    if spatial_mask is not None:
+        weights = weights * spatial_mask[..., :, None]
+    if lat_weights is not None:
+        weights = weights * lat_weights[..., :, None]
+    return (diff * weights).sum(), weights.sum()
+
+
 def weighted_mse(
     pred: torch.Tensor,
     target: torch.Tensor,
@@ -92,15 +113,9 @@ def weighted_mse(
     As in the JAX package, the weights start as ones in the prediction's
     dtype, so without masks the sums are in that dtype (bf16 under mixed
     precision); an fp32 mask promotes them to fp32."""
-    diff = torch.square(pred - target)
-    weights = torch.ones_like(diff)
-    if chan_mask is not None:
-        weights = weights * chan_mask
-    if spatial_mask is not None:
-        weights = weights * spatial_mask[..., :, None]
-    if lat_weights is not None:
-        weights = weights * lat_weights[..., :, None]
-    return (diff * weights).sum() / torch.clamp(weights.sum(), min=1e-12)
+    num, den = weighted_sums(pred, target, lat_weights, chan_mask,
+                             spatial_mask)
+    return num / torch.clamp(den, min=1e-12)
 
 
 def spectral_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

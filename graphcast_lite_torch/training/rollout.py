@@ -164,13 +164,18 @@ def rollout_loss(
     chan_mask: Optional[torch.Tensor] = None,
     spatial_mask: Optional[torch.Tensor] = None,
     extra_loss_fn: Optional[Callable] = None,
+    mask_sync: Optional[Callable] = None,
 ):
     """Mean weighted-MSE over `steps` AR steps (BPTT through all of them).
 
     model_fn(inp [..., G, obs·C], edge_mask, thr, prune) -> (delta, mask').
     extra_loss_fn(out [..., G, C], target) -> scalar, added per step.
-    Returns (loss, new_edge_mask).  Runs inside ``training_trace()``, so the
-    model takes its differentiable routes."""
+    mask_sync(mask') -> mask' replaces each pruning model call's new mask,
+    outside the checkpointed step, so its backward's recompute never
+    calls it.  Returns (loss, new_edge_mask).  Runs inside
+    ``training_trace()``, so the model takes its differentiable routes."""
+    if not (prune and mask_sync is not None):
+        mask_sync = None
     if spec.direct_steps > 1:
         steps = min(steps, spec.direct_steps)
         with training_trace():
@@ -178,6 +183,8 @@ def rollout_loss(
                 model_fn, window, steps, spec, edge_mask,
                 attention_threshold, prune, targets,
             )
+            if mask_sync is not None and edge_mask is not None:
+                edge_mask = mask_sync(edge_mask)
             total = 0.0
             for step in range(steps):
                 o, t = out[..., step, :], targets[..., step, :]
@@ -204,6 +211,8 @@ def rollout_loss(
                     model_fn, window, edge_mask, attention_threshold, prune,
                     spec,
                 )
+            if mask_sync is not None and edge_mask is not None:
+                edge_mask = mask_sync(edge_mask)
             target = targets[..., step, :]
             total = total + weighted_mse(
                 out, target, lat_weights, chan_mask, spatial_mask

@@ -54,7 +54,11 @@ Adam step).  Rank 0 alone writes the logs, the checkpoints and the best
 model; the other ranks wait at a barrier.  SparseGAT's mask is then the
 rank's per-shard [E_s] mask; the checkpoint holds every shard's ([S,
 E_s], gathered over the space group).  There is no CLI flag for it, as
-in the JAX package.
+in the JAX package.  The families the sharded path refuses (product
+graph, SimpleConv, graph-mode LayerNorm, direct multi-step models, the
+CNN stacks with their ``extra_loss_fn``) it refuses here too; they train
+across ranks through ``parallel.sharding.make_data_parallel_train_step``
+around a ``TrainStep``, as the JAX package trains them under GSPMD.
 """
 
 from __future__ import annotations
@@ -87,13 +91,13 @@ from .loss import (
     combine_spatial_masks,
     lat_weights_from_axis,
     lat_weights_from_nodes,
-    weighted_mse,
+    weighted_sums,
 )
 from .rollout import RolloutSpec, rollout_loss, rollout_predict
 
 __all__ = ["TrainState", "TrainStep", "Trainer",
-           "attention_threshold_schedule", "build_optimizer",
-           "make_train_step"]
+           "attention_threshold_schedule", "build_optimizer", "eval_metrics",
+           "eval_sums", "make_train_step"]
 
 
 def attention_threshold_schedule(
@@ -165,6 +169,43 @@ def _as_tensor(a, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+def eval_sums(model: nn.Module, graphs: Optional[ModelGraphs],
+              spec: RolloutSpec, x, y, edge_mask, masks, exclude_channels,
+              device) -> torch.Tensor:
+    """The sums behind ``Trainer._eval_batch``'s metrics of a batch (x [B,
+    G, obs·C], y [B, G, P·C]; B may be 0): the one-step rollout in fp32,
+    then, in float64, [Σ w·(p−t)², Σ w, Σ over samples of the ACC, Σ
+    (p−t)², samples, elements], so that ranks holding parts of a batch can
+    add them up before ``eval_metrics`` divides.  ``masks`` are the
+    (latitude, channel, spatial) weights as tensors on ``device``."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    b, g = x.shape[0], x.shape[1]
+    if b == 0:
+        return torch.zeros(6, dtype=torch.float64, device=device)
+    window = x.reshape(b, g, spec.obs_window, spec.num_features)
+    targets = y.reshape(b, g, -1, spec.num_features)
+
+    model_fn = _batched(lambda x, mask, t, p: model(x, graphs, mask))
+    preds = rollout_predict(model_fn, window, 1, spec, edge_mask, 0.0,
+                            forcing=targets)
+    out, tgt = preds[..., 0, :], targets[..., 0, :]
+    num, den = weighted_sums(out, tgt, *masks)
+    acc = anomaly_correlation(out, tgt, exclude_channels)
+    sq = torch.square(out - tgt)
+    sums = torch.stack([num, den, acc, sq.sum()]).double()
+    sums[2] *= b
+    return torch.cat([sums, torch.tensor([b, sq.numel()],
+                                         dtype=torch.float64, device=device)])
+
+
+def eval_metrics(sums: torch.Tensor) -> Tuple[float, float, float]:
+    """(loss, ACC, raw RMSE) from ``eval_sums``'s sums."""
+    s = sums.tolist()
+    return (s[0] / max(s[1], 1e-12), s[2] / max(s[4], 1.0),
+            (s[3] / max(s[5], 1.0)) ** 0.5)
+
+
 class TrainStep:
     """One BPTT + optimizer step of ``model`` (built by
     ``make_train_step``); ``graphs`` is None for a model that needs none
@@ -200,9 +241,11 @@ class TrainStep:
         return window, y.reshape(b, g, p, spec.num_features)
 
     def _loss(self, window, targets, edge_mask=None, thr=0.0,
-              prune: bool = False):
+              prune: bool = False, mask_sync: Optional[Callable] = None):
         """(fp32 loss of one batch, differentiable in the masters; the new
-        edge mask in fp32, or None)."""
+        edge mask in fp32, or None).  ``mask_sync`` as ``rollout_loss``'s
+        (the data-parallel step broadcasts data rank 0's mask, whose block
+        holds the batch's first sample)."""
         model, graphs = self.model, self.graphs
         if self.compute_dtype == torch.float32:
             def apply(*args):
@@ -221,7 +264,7 @@ class TrainStep:
             model_fn, window, targets, self.steps, self.spec, edge_mask,
             thr, prune, lat_weights=self.lat_weights,
             chan_mask=self.chan_mask, spatial_mask=self.spatial_mask,
-            extra_loss_fn=self.extra_loss_fn,
+            extra_loss_fn=self.extra_loss_fn, mask_sync=mask_sync,
         )
         if new_mask is not None:
             new_mask = new_mask.detach().float()
@@ -243,17 +286,27 @@ class TrainStep:
         """``__call__`` with the SparseGAT edge mask carried in and out:
         (loss, new mask or None); ``prune`` prunes at
         ``attention_threshold``."""
+        loss, new_mask = self.backward(x, y, edge_mask, attention_threshold,
+                                       prune)
+        self.optimizer.step()
+        return loss, new_mask
+
+    def backward(self, x, y, edge_mask=None, attention_threshold=0.0,
+                 prune: bool = False, mask_sync: Optional[Callable] = None):
+        """``run`` up to the optimizer's step: the fp32 gradients on the
+        masters' ``.grad`` (zeros where the loss does not reach, the
+        processor's zeroed when it is frozen); returns (loss, new mask or
+        None).  ``mask_sync`` as ``_loss``'s."""
         window, targets = self._batch(x, y)
         self.optimizer.zero_grad(set_to_none=True)
         loss, new_mask = self._loss(window, targets, edge_mask,
-                                    attention_threshold, prune)
+                                    attention_threshold, prune, mask_sync)
         loss.backward()
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.freeze_processor:
             _zero_processor_grads(self.model)
-        self.optimizer.step()
         return loss.detach(), new_mask
 
 
@@ -346,7 +399,9 @@ class Trainer:
                 raise ValueError("mesh= requires graph_set= (host GraphSet)")
             if extra_loss_fn is not None:
                 raise NotImplementedError(
-                    "extra_loss_fn is not supported on the sharded path"
+                    "extra_loss_fn is not supported on the sharded path; "
+                    "train such a model data-parallel with "
+                    "parallel.sharding.make_data_parallel_train_step"
                 )
         self.using_sparse_gat = (
             config.pipeline is not None
@@ -535,21 +590,9 @@ class Trainer:
     def _eval_batch(self, state: TrainState, x, y):
         """(loss, ACC, raw RMSE) of the one-step rollout of a batch, in fp32
         on the uncast graphs (as the JAX package evaluates)."""
-        spec, model, graphs = self.spec, state.model, self.graphs
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
-        b, g = x.shape[0], x.shape[1]
-        window = x.reshape(b, g, spec.obs_window, spec.num_features)
-        targets = y.reshape(b, g, -1, spec.num_features)
-
-        model_fn = _batched(lambda x, mask, t, p: model(x, graphs, mask))
-        preds = rollout_predict(model_fn, window, 1, spec, state.edge_mask,
-                                0.0, forcing=targets)
-        out, tgt = preds[..., 0, :], targets[..., 0, :]
-        loss = weighted_mse(out, tgt, *self._eval_masks)
-        acc = anomaly_correlation(out, tgt, self._exclude)
-        raw_rmse = torch.sqrt(torch.mean(torch.square(out - tgt)))
-        return float(loss), float(acc), float(raw_rmse)
+        return eval_metrics(eval_sums(
+            state.model, self.graphs, self.spec, x, y, state.edge_mask,
+            self._eval_masks, self._exclude, self.device))
 
     def evaluate(self, state: TrainState, loader: BatchIterator):
         """(mean loss, mean ACC, RMS of the batches' raw RMSE)."""

@@ -484,3 +484,107 @@ def trainer_case(rank, payload):
         out["mask"] = _gather_mask(mesh, tr.final_state.edge_mask)
     out["reloaded"] = reloaded
     return out
+
+
+# ---- the data-parallel step (the GSPMD fallback's counterpart) -------------
+
+
+def _dp_model(case):
+    """The case's port model from its state dict (fp32, CPU)."""
+    from graphcast_lite_torch.models import unet
+    from graphcast_lite_torch.models.grid_adapter import GridImageModel
+
+    if case["unet"] is not None:
+        u = case["unet"]
+        model = GridImageModel(getattr(unet, u["cls"])(*u["args"]),
+                               u["n_lat"], u["n_lon"])
+    else:
+        model = WeatherModel(case["cfg"].pipeline, case["cfg"].data,
+                             case["n_grid"], case["n_mesh"])
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                           for k, v in case["state"].items()})
+    return model
+
+
+def _dp_step(case, model):
+    """``make_train_step`` of the case on ``model``: Adam at the config's
+    rate, or the CNN trainers' ``ClippedAdamW`` and image losses."""
+    from graphcast_lite_torch.training.loss import image_extra_loss
+    from graphcast_lite_torch.training.optim import ClippedAdamW
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    opt = extra = None
+    if case["unet"] is not None:
+        u = case["unet"]
+        opt = ClippedAdamW(model.parameters(), case["cfg"].learning_rate,
+                           u["decay_steps"], u["max_norm"])
+        extra = image_extra_loss(u["n_lat"], u["n_lon"], u["c"],
+                                 *u["extra"])
+    return make_train_step(model, case["graphs"], case["spec"], case["cfg"],
+                           steps=case["steps"], device="cpu",
+                           lat_weights=case["lw"], chan_mask=case["cm"],
+                           spatial_mask=case["sm"], optimizer=opt,
+                           extra_loss_fn=extra)
+
+
+def _named_params(model):
+    """{name: parameter} in the module's order."""
+    return {n: p.detach().numpy().copy()
+            for n, p in model.named_parameters()}
+
+
+def _dp_run(step, case):
+    mask = case["mask0"]
+    mask = None if mask is None else torch.from_numpy(mask)
+    loss, new_mask = step.run(case["x"], case["y"], mask, case["thr"],
+                              case["prune"])
+    return (float(loss),
+            None if new_mask is None else new_mask.numpy().copy())
+
+
+def data_parallel_cases(rank, world, payload):
+    """Each case of ``payload["cases"]`` through the data-parallel step over
+    all ranks (a (world, 1) mesh), with the batch sizes its model calls
+    saw, and its eval step; case i also at world 1 on rank i % world (a
+    group of that rank alone) against ``make_train_step``."""
+    from graphcast_lite_torch.parallel.sharding import ProcessMesh, \
+        make_data_parallel_eval_step, make_data_parallel_train_step
+
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    mesh = make_mesh(data_parallel=world)
+    assert mesh.shape == (world, 1)
+    one = ProcessMesh(shape=(1, 1), rank=0, data_index=0, space_index=0,
+                      space_group=solo, data_group=solo, world_group=solo)
+    out = {}
+    for i, case in enumerate(payload["cases"]):
+        res = {}
+        model = _dp_model(case)
+        ev = make_data_parallel_eval_step(
+            model, case["graphs"], case["spec"], mesh, case["lw"],
+            case["cm"], case["sm"], case["exclude"], device="cpu")
+        mask0 = case["mask0"]
+        res["eval"] = ev(case["x"], case["y"], None if mask0 is None
+                         else torch.from_numpy(mask0))
+        dp = make_data_parallel_train_step(_dp_step(case, model), mesh)
+        seen = set()
+        hook = model.register_forward_pre_hook(
+            lambda m, args: seen.add(args[0].shape[0]))
+        coll.reset_transport()
+        res["loss"], res["mask"] = _dp_run(dp, case)
+        hook.remove()
+        res["batch_seen"] = sorted(seen)
+        res["params"] = _named_params(model)
+        res["grads"] = {n: p.grad.numpy().copy()
+                        for n, p in model.named_parameters()}
+        res["all_reduces"] = dp.all_reduces
+        res["mask_broadcasts"] = dp.mask_broadcasts
+        res["transport"] = dict(coll.transport)
+        if i % world == rank:
+            a, b = _dp_model(case), _dp_model(case)
+            solo_dp = make_data_parallel_train_step(_dp_step(case, a), one)
+            ref = _dp_step(case, b)
+            res["world1"] = {
+                "dp": _dp_run(solo_dp, case) + (_named_params(a),),
+                "one": _dp_run(ref, case) + (_named_params(b),)}
+        out[case["name"]] = res
+    return out
