@@ -42,7 +42,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    narrow rows also in PR 1's design, and two launches bitwise equal.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
-   in bf16 through the port's ``evaluate_model`` for 3 requests on a seeded
+   in bf16 through the port's ``evaluate_model`` for 2 requests on a seeded
    synthetic 512x256 dataset with seeded random weights, on the default
    reg-block route, checks that every rollout launched the segment sum
    exactly 8 times (2 encoder GCNConv aggregations x 4 AR steps), and holds
@@ -75,7 +75,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    3b the segment sum at phase 1c's shapes in fp32.
 4. Runs the 64x32 flagship architecture in fp32 (TF32 off) on the card and
    on the CPU (the plain versions) with the same weights and inputs through
-   AR-2, on the reg-block route and on each COO route, and compares them.
+   AR-1, on the reg-block route and on each COO route, and compares them.
    4b: the four WB2 64x32 BASELINE configurations at their published
    widths (GCN, GAT at 4 heads, SparseGAT at its 0.1356 threshold, the
    obs-5 product graph), seeded weights, fp32: one request (exact
@@ -90,10 +90,11 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    AR-2 train step (``make_train_step``) on the card against the CPU:
    loss, every gradient and the exact segment-sum launches, then the
    card's Adam update against its closed form.  5c: the flagship in bf16
-   mixed precision, 5 train steps on one seeded batch through
+   mixed precision, 4 train steps on one seeded batch through
    ``make_train_step`` on the default route: exact launches every step
-   (80 segment sums, by CSR and by design: 76 balanced, 4 narrow; no
-   fused kernel), the loss falls, step and
+   (80 segment sums, by CSR and by design: 76 balanced, 4 narrow; 88
+   and 84 with ``GCLT_ENCDEC_REMAT=1``; no fused kernel), the loss
+   falls, step and
    forward-loss times, peak memory and one profiled step.
 6. The trainer and the user surface.  6a: the flagship in bf16 mixed
    precision through ``Trainer.fit`` on a seeded 11-frame synthetic
@@ -102,7 +103,8 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    sample before and after each epoch, a checkpoint every epoch.  Checks
    the AR level of every epoch and step, every step's segment-sum launches
    by CSR and shape (``_train_launches`` at the step's AR level: 20 a
-   level), 2 a validation sample in each evaluation, no fused kernel,
+   level, 22 with the encoder's remat), 2 a validation sample in each
+   evaluation, no fused kernel,
    finite losses, the files the fit writes and no sample loaded past the
    epoch's last step; then a new ``Trainer`` on a
    new model resumes the checkpoint for epoch 5, with its params and Adam
@@ -176,7 +178,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    GNN forwards launch the segment sum; the OI solve is
    ``torch.linalg.solve``).  9a: the flagship through ``cli.predict``'s
    ``main`` (seeded weights, default route, bf16 and fp32 with TF32 off)
-   on phase 6a's seeded 11-frame 512x256 set, 2 AR-4 requests each: raw,
+   on phase 6a's seeded 11-frame 512x256 set, one AR-4 request each: raw,
    ``--da nudging`` (13,107 stations) and ``--da oi --obs-roi-only
    --region 20 60 60 140`` (6,498 ROI points, one ~650 x 650 fp32 solve a
    step on the card): exactly 8 segment sums a rollout, the nudged AR-step-1
@@ -207,7 +209,7 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    ``model_state_dict`` in a ``.pth``) through ``utils.torch_convert``
    into ``best_model.pt`` (bitwise the weights), served by
    ``cli.predict --checkpoint ... --save-preds ... --device cuda`` in
-   fp32 for 2 AR-4 requests on 10a's set: exactly 8 segment sums a
+   fp32 for one AR-4 request on 10a's set: exactly 8 segment sums a
    rollout, predictions bitwise the seeded weights' rollouts.  10c:
    ``cli.compare_wrf.main`` on 10b's predictions, 10a's scalers and
    coords and a seeded WRF JSON export; its domain means against NumPy.
@@ -313,11 +315,26 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    all-reduce and, pruning, one mask broadcast a step, and the bytes
    staged through the host exactly the flat gradients' and the mask's.
 
+14. The train step's memory policies (``models/remat.py``).  14a: the
+   flagship bf16 AR-4 step at B = 1 on the reg-block default and the COO
+   fused + mega routes under (``GCLT_SCAN_REMAT``, ``GCLT_ENCDEC_REMAT``)
+   = (none, 0), (none, 1), (dots, 1), (full, 1) and a second (none, 0)
+   copy, each from the same weights: the first step's loss and every
+   gradient against (none, 0) (bitwise, else the largest relative
+   difference and its leaf), peak allocated, exact segment-sum and
+   ``edge_mlp`` launches (the encoder's remat adds one aggregation an
+   encoder conv an AR step, dots and full one processor forward an AR
+   step), and three timed steps of each, taken in turns.  14b: the step
+   at B = 8 under full: its loss against the mean of the eight B = 1
+   losses, its peak (under 80 GB) and ms beside ``estimate_sharded_hbm``
+   at S = 1 scaled to the batch.
+
 Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
 ``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}``,
 ``{"offline": ...}``, ``{"sharded": ...}``, ``{"batched": ...}``,
-``{"data_parallel": ...}`` and ``{"kernels": [...]}`` lines (the
+``{"data_parallel": ...}``, ``{"remat": ...}`` and ``{"kernels": [...]}``
+lines (the
 kernels' launches counted in the serve, the train steps, the fit, the
 demo's training, the regional head steps and phases 9 to 13; the segment
 sum's also by design in the serve and the train step; each kernel's
@@ -398,14 +415,17 @@ EDGE_MLP_EARLIER_MS = (0.7095, 0.7006)
 # as deep, so the bound allows about eight times that.
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3
-# Train steps of the flagship on one batch: a warm-up, three timed, one
-# profiled.
-TRAIN_STEPS = 5
-REQUESTS = 3
+# Train steps of the flagship on one batch: a warm-up, two timed, one
+# profiled; and phase 2's requests (both cut by one to make room for
+# phase 14 in the script's time limit).
+TRAIN_STEPS = 4
+REQUESTS = 2
 AR_STEPS = 4
 # The AR steps of the card-vs-CPU runs of phase 4, 5b and 7d: the CPU
 # half, at full depth, was most of those phases.
 CPU_AR_STEPS = 2
+# Phase 4's request alone runs one AR step (the time limit).
+CPU_SERVE_AR_STEPS = 1
 # Phase 6a: epochs of Trainer.fit (AR 1, 2, 3, 4 at epochs_per_stage 1),
 # steps an epoch, and the frames of its dataset: 6 windows of obs 2 +
 # AR 4, 4 of them train samples, 1 validation and 1 test sample.
@@ -429,7 +449,7 @@ COO_ROUTES = {
 }
 _SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE",
              "GCLT_LAZY_EDGE", "GCLT_FUSED_EDGE", "GCLT_GCN_AGG",
-             "GCLT_FUSED_SAVE_HPRE")
+             "GCLT_FUSED_SAVE_HPRE", "GCLT_SCAN_REMAT", "GCLT_ENCDEC_REMAT")
 # The plain (non-lazy) InteractionNet step at the flagship: its routes, the
 # switches that pick them, their exact launches per AR-4 rollout and the
 # route its steps record.
@@ -487,7 +507,7 @@ FUSED_ROUTES = {
                 True, False, False),
     "gcn_agg": ({"GCLT_GCN_AGG": "1"}, "reg_block", False, False, True),
 }
-FUSED_TRAIN_STEPS = 4
+FUSED_TRAIN_STEPS = 3
 # The fp32 steps (TF32 off) held to each other in phase 7b: a switch's
 # step and the same step without it, on the same weights and batch (loss
 # within TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_RTOL of its
@@ -1782,7 +1802,7 @@ def phase_numerics():
         rollout_predict
 
     _log("phase 4: 64x32 flagship architecture, fp32, card vs CPU, "
-         f"AR-{CPU_AR_STEPS} "
+         f"AR-{CPU_SERVE_AR_STEPS} "
          f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, {E2E_TOL})")
     cfg = presets.interaction_net_64x32()
@@ -1806,8 +1826,8 @@ def phase_numerics():
             return m(inp, gr)[0], None
 
         with torch.inference_mode():
-            out = rollout_predict(model_fn, window.to(device), CPU_AR_STEPS,
-                                  spec)
+            out = rollout_predict(model_fn, window.to(device),
+                                  CPU_SERVE_AR_STEPS, spec)
         return out.cpu()
 
     routes = {"reg-block": ({}, {"segment_sum": 8, "edge_mlp": 0,
@@ -1815,14 +1835,14 @@ def phase_numerics():
     routes.update(COO_ROUTES)
     for name, (env, per_ar4) in routes.items():
         # The routes' launches, stated per AR-4 rollout, every AR step alike.
-        expected = {k: n * CPU_AR_STEPS // AR_STEPS
+        expected = {k: n * CPU_SERVE_AR_STEPS // AR_STEPS
                     for k, n in per_ar4.items()}
         with _route(env):
             _reset_launches()
             card = run("cuda")
             counts = _launches()
             cpu = run("cpu")
-        if card.shape != (g, CPU_AR_STEPS, c) \
+        if card.shape != (g, CPU_SERVE_AR_STEPS, c) \
                 or not torch.isfinite(card).all():
             raise AssertionError(f"{name}: card output {tuple(card.shape)} "
                                  "not finite")
@@ -1892,9 +1912,15 @@ def _train_launches(model, graphs, ar_steps=AR_STEPS) -> dict:
     constant in-degree aggregation is a reshape-sum); each reg-block
     processor step scatters over its senders' CSR; each GCNConv of the
     encoder and the decoder takes its gather adjoint over its graph's
-    senders' CSR."""
+    senders' CSR.  With ``GCLT_ENCDEC_REMAT`` on, the encoder's own
+    recompute aggregates a third time (``models.remat``); the reg-block
+    processor steps aggregate by a reshape-sum, so ``GCLT_SCAN_REMAT``
+    adds no launch."""
+    from graphcast_lite_torch.models.remat import encdec_remat
+
     enc, dec = graphs.encoding, graphs.decoding
     rb = graphs.processing.reg_blocks
+    enc_calls = 3 if encdec_remat() else 2
     if dec.const_in_degree <= 0:
         raise AssertionError("decoder graph without constant in-degree")
     out = {}
@@ -1910,7 +1936,7 @@ def _train_launches(model, graphs, ar_steps=AR_STEPS) -> dict:
 
     for f in widths(model.encoder.graph_layer):
         add("encoder aggregation (forward + recompute)", enc.indptr,
-            enc.num_receivers, enc.padded_num_edges, f, 2)
+            enc.num_receivers, enc.padded_num_edges, f, enc_calls)
     for s in model.processor.graph_layer.inet.steps:
         add("reg-edge sender scatter", rb.s_indptr, rb.num_nodes,
             rb.rows_padded, s.hidden_dim, 1)
@@ -3255,7 +3281,16 @@ def _coo_train_launches(model, graphs, coo: bool, mega: bool,
     gather's adjoint) in the backward; ``gcn`` (``GCLT_GCN_AGG=1``) adds
     the decoder's 128-multiple GCNConv aggregations over its receiver CSR
     (forward and recompute; their backward scatter replaces the gather
-    adjoint)."""
+    adjoint).  Under the memory policies (``models.remat``) the encoder
+    aggregates once more with ``GCLT_ENCDEC_REMAT`` on, and each processor
+    step's forward runs once more under ``GCLT_SCAN_REMAT`` dots or full
+    (one more aggregation, or one more ``edge_mlp`` under ``mega``); the
+    decoder runs twice either way (the AR step's recompute stops at its
+    checkpoint's inputs)."""
+    from graphcast_lite_torch.models.remat import encdec_remat, scan_remat
+
+    enc_calls = 3 if encdec_remat() else 2
+    step_calls = 2 if scan_remat() == "none" else 3
     if not coo:
         parts = _train_launches(model, graphs, ar_steps)
         mlp = 0
@@ -3274,19 +3309,20 @@ def _coo_train_launches(model, graphs, coo: bool, mega: bool,
 
         for f in widths(model.encoder.graph_layer):
             add("encoder aggregation (forward + recompute)", enc.indptr,
-                enc.num_receivers, enc.padded_num_edges, f, 2)
+                enc.num_receivers, enc.padded_num_edges, f, enc_calls)
             add("encoder GCN gather adjoint", enc.s_indptr, enc.num_nodes,
                 enc.padded_num_edges, f, 1)
         steps = model.processor.graph_layer.inet.steps
         for s in steps:
             add("processor receiver CSR", proc.indptr, proc.num_receivers,
-                proc.padded_num_edges, s.hidden_dim, 1 if mega else 3)
+                proc.padded_num_edges, s.hidden_dim,
+                1 if mega else step_calls + 1)
             add("processor sender CSR", proc.s_indptr, proc.num_nodes,
                 proc.padded_num_edges, s.hidden_dim, 1)
         for f in widths(model.decoder.graph_layer):
             add("decoder GCN gather adjoint", dec.s_indptr, dec.num_nodes,
                 dec.padded_num_edges, f, 1)
-        mlp = 2 * len(steps) * ar_steps if mega else 0
+        mlp = step_calls * len(steps) * ar_steps if mega else 0
     if gcn:
         dec = graphs.decoding
         for i in range(model.decoder.graph_layer.num_convs):
@@ -4239,7 +4275,7 @@ def phase_cnn_cascade(workdir):
 # 9a: the DA requests of each dtype (2 samples each: one window each of
 # the 11-frame set's first two), nudging's stations, and the README's
 # ROI for OI (6,498 points of the 512x256 grid).
-DA_REQUESTS = 2
+DA_REQUESTS = 1
 DA_SPARSITY = 0.1
 DA_ROI_POINTS = 6498
 # 9b: the ladder's MOS calibration samples and evaluated samples, AR 4.
@@ -4796,7 +4832,7 @@ def phase_operational(workdir, ctx):
 OFFLINE_FRAMES = 11
 OFFLINE_CHUNK = 6
 CUT_EXIT = 75
-OFFLINE_REQUESTS = 2
+OFFLINE_REQUESTS = 1
 PARTITION_SHARDS = 4
 # (offset, scale) of each channel's seeded field in physical units before
 # the builder's float16 range scaling; None marks the land-sea mask.
@@ -7776,6 +7812,211 @@ def phase_data_parallel(ctx, gs64, graphs64, smi):
     return out
 
 
+# Phase 14: the train step's memory policies (models/remat.py).  14a: the
+# flagship bf16 B = 1 step on two routes under four (GCLT_SCAN_REMAT,
+# GCLT_ENCDEC_REMAT) settings, REMAT_RUNS timed steps of each, in turns;
+# 14b: the step at B = REMAT_BATCH under full.
+REMAT_SETTINGS = (("none", "0"), ("none", "1"), ("dots", "1"),
+                  ("full", "1"))
+REMAT_ROUTES = {
+    "reg_block": ({}, "reg_block", False, False),
+    "fused_mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"}, "fused",
+                   True, True),
+}
+REMAT_RUNS = 3
+REMAT_BATCH = 8
+# 14b's samples: the request plus seeded noise of this scale times the
+# sample's index.
+REMAT_NOISE = 0.1
+CARD_BYTES = 80e9
+
+
+def _first_step(step, model, x, y):
+    """(loss, fp32 gradients on the host, segment-sum / edge_mlp
+    launches, peak allocated bytes, rise over the bytes allocated before,
+    ms by CUDA events) of one train step."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = step(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launches()
+    return (loss.item(), _grads(model), launches, peak, peak - before,
+            start.elapsed_time(end))
+
+
+def _grad_agreement(grads, ref):
+    """(bitwise, largest relative difference, its leaf) of ``grads``
+    against ``ref``, each leaf relative to its largest reference value."""
+    worst = (0.0, "")
+    bitwise = True
+    for name, r in ref.items():
+        g = grads[name]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite gradient {name}")
+        if not torch.equal(g, r):
+            bitwise = False
+            scale = r.abs().max().item() or 1.0
+            worst = max(worst, ((g - r).abs().max().item() / scale, name))
+    return bitwise, worst[0], worst[1]
+
+
+def phase_remat(ctx, smi):
+    """14a: the flagship bf16 train step (B = 1, AR 4, fp32 masters) on the
+    reg-block default route and the COO fused + mega route under each
+    REMAT_SETTINGS: the first step's loss and gradients against (none, 0)
+    on the same weights (bitwise, else the largest relative difference),
+    a second (none, 0) copy as the run-to-run control, peak allocated,
+    the median of REMAT_RUNS steps taken in turns, and the exact
+    segment-sum and ``edge_mlp`` launches a step (``_coo_train_launches``
+    under the setting)."""
+    _log(f"phase 14a: flagship 512x256 AR-4 bf16 train step, B=1, under "
+         f"(GCLT_SCAN_REMAT, GCLT_ENCDEC_REMAT) in {REMAT_SETTINGS}, "
+         f"{REMAT_RUNS} timed steps each in turns; {smi}")
+    x, y = (torch.from_numpy(a[None]).cuda() for a in ctx["request"])
+    out = {"card": smi}
+    for name, (env, route, coo, mega) in REMAT_ROUTES.items():
+        rows, steps = {}, {}
+        for scan, encdec in REMAT_SETTINGS + (("none", "0"),):
+            key = f"{scan}/{encdec}"
+            if key in rows:
+                key += " control"
+            with _route(dict(env, GCLT_SCAN_REMAT=scan,
+                             GCLT_ENCDEC_REMAT=encdec)):
+                model, step = _flagship_step(ctx, ctx["model"], "bfloat16")
+                parts, mlp = _coo_train_launches(model, step.graphs, coo,
+                                                 mega)
+                loss, grads, launches, peak, rise, _ = _first_step(
+                    step, model, x, y)
+                routes = {s.route for s in
+                          model.processor.graph_layer.inet.steps}
+                want = {"segment_sum": sum(n for _, n in parts.values()),
+                        "edge_mlp": mlp, "edge_step": 0}
+                if routes != {route} or launches != want:
+                    raise AssertionError(
+                        f"14a {name} {key}: routes {routes}, launches "
+                        f"{launches}, expected {want}")
+                rows[key] = {"loss": loss, "peak_mem_bytes": peak,
+                             "step_rise_bytes": rise,
+                             "launches_per_step": launches, "ms": []}
+                steps[key] = (scan, encdec, model, step, grads)
+        ref_loss, ref_grads = rows["none/0"]["loss"], steps["none/0"][4]
+        for key, (_, _, _, _, grads) in steps.items():
+            bitwise, rel, leaf = _grad_agreement(grads, ref_grads)
+            rows[key].update(
+                loss_bitwise=rows[key]["loss"] == ref_loss,
+                loss_rel_diff=abs(rows[key]["loss"] - ref_loss)
+                / abs(ref_loss),
+                grads_bitwise=bitwise, grad_max_rel_diff=rel,
+                grad_worst_leaf=leaf)
+        for _ in range(REMAT_RUNS):
+            for key, (scan, encdec, _, step, _) in steps.items():
+                with _route(dict(env, GCLT_SCAN_REMAT=scan,
+                                 GCLT_ENCDEC_REMAT=encdec)):
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step(x, y)
+                    end.record()
+                    torch.cuda.synchronize()
+                rows[key]["ms"].append(start.elapsed_time(end))
+        for key, row in rows.items():
+            row["median_ms"] = float(np.median(row["ms"]))
+            row["spread_ms"] = max(row["ms"]) - min(row["ms"])
+            diff = {k: row["launches_per_step"][k]
+                    - rows["none/0"]["launches_per_step"][k]
+                    for k in ("segment_sum", "edge_mlp")}
+            row["launches_minus_none_0"] = diff
+            agree = "bitwise" if row["loss_bitwise"] \
+                else f"rel {row['loss_rel_diff']:.3e}"
+            _log(f"  {name} {key}: loss {row['loss']:.7f} ({agree}), "
+                 "gradients "
+                 + ("bitwise" if row["grads_bitwise"] else
+                    f"largest rel diff {row['grad_max_rel_diff']:.3e} "
+                    f"({row['grad_worst_leaf']})")
+                 + f" vs (none, 0); peak {row['peak_mem_bytes'] / 2**30:.3f}"
+                 f" GiB (+{row['step_rise_bytes'] / 2**30:.3f} GiB over "
+                 "the resident bytes); steps "
+                 + ", ".join(f"{t:.2f}" for t in row["ms"])
+                 + f" ms (median {row['median_ms']:.2f}); launches "
+                 f"{row['launches_per_step']} ({diff} against (none, 0))")
+        out[name] = rows
+        del steps
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat_batch(ctx, smi):
+    """14b: the flagship bf16 train step at B = REMAT_BATCH under
+    GCLT_SCAN_REMAT=full and the default encoder/decoder policy: the
+    warm-up step's loss against the mean of the samples' B = 1 forward
+    losses on the same weights (within BATCH_LOSS_RTOL), then the next
+    step's peak allocated, ms and launches, beside
+    ``estimate_sharded_hbm`` at S = 1 scaled to the batch with and without
+    the processor remat."""
+    from graphcast_lite_torch.models.remat import encdec_remat
+    from graphcast_lite_torch.parallel import sharded_model as sm
+
+    b = REMAT_BATCH
+    _log(f"phase 14b: flagship 512x256 AR-4 bf16 train step at B={b} under "
+         f"GCLT_SCAN_REMAT=full, GCLT_ENCDEC_REMAT default "
+         f"({int(encdec_remat())}); {smi}")
+    x1, y1 = ctx["request"]
+    gen = np.random.RandomState(14)
+    x = np.stack([x1 + REMAT_NOISE * i * gen.randn(*x1.shape)
+                  for i in range(b)]).astype(np.float32)
+    y = np.stack([y1] * b).astype(np.float32)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    with _route({"GCLT_SCAN_REMAT": "full"}):
+        model, step = _flagship_step(ctx, ctx["model"], "bfloat16")
+        singles = [step.forward_loss(x[i:i + 1], y[i:i + 1]).item()
+                   for i in range(b)]
+        loss0 = step(x, y).item()
+        mean = float(np.mean(singles))
+        rel = abs(loss0 - mean) / abs(mean)
+        if not (np.isfinite(loss0) and rel <= BATCH_LOSS_RTOL):
+            raise AssertionError(f"14b: B={b} loss {loss0} against the "
+                                 f"singles' mean {mean} ({rel:.3e})")
+        loss1, _, launches, peak, rise, ms = _first_step(step, model, x, y)
+    if not peak < CARD_BYTES:
+        raise AssertionError(f"14b: peak {peak} bytes")
+    plan = sm.build_sharding_plan(ctx["gs"], 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    est = {}
+    for label, r in (("scan_remat", True), ("no_remat", False)):
+        e = sm.estimate_sharded_hbm(
+            plan, num_params=n_params, obs_window=ctx["spec"].obs_window,
+            num_features=ctx["spec"].num_features, scan_remat=r)
+        est[label] = dict(e, total_gb_at_batch=e["params_gb"]
+                          + e["edges_gb"] + b * (e["bptt_gb"]
+                                                 + e["encdec_gb"]
+                                                 + e["state_gb"]))
+    out = {"card": smi, "batch": b, "loss": loss0, "singles": singles,
+           "singles_mean": mean, "loss_rel_diff": rel,
+           "loss_after_update": loss1, "peak_mem_bytes": peak,
+           "step_rise_bytes": rise, "step_ms": ms,
+           "launches_per_step": launches, "estimate_sharded_hbm": est,
+           "encdec_remat": encdec_remat()}
+    _log(f"  B={b}: loss {loss0:.7f} against the singles' mean "
+         f"{mean:.7f} ({rel:.3e}, within {BATCH_LOSS_RTOL:.3e}); step "
+         f"{ms:.2f} ms; peak {peak / 2**30:.3f} GiB ({peak / 1e9:.3f} GB, "
+         f"+{rise / 2**30:.3f} GiB over the resident bytes); launches "
+         f"{launches}; estimate_sharded_hbm at S=1 scaled to B={b}: "
+         f"{est['scan_remat']['total_gb_at_batch']:.3f} GB with the "
+         f"processor remat, {est['no_remat']['total_gb_at_batch']:.3f} GB "
+         "without")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7846,6 +8087,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         batched = phase_batched(ctx, workdir, smi)
     data_parallel = phase_data_parallel(ctx, gs64, graphs64, smi)
+    remat = {"b1": phase_remat(ctx, smi),
+             "batch": phase_remat_batch(ctx, smi)}
     one_rank = sharded["one_rank"]
     ladder = assimilation["ladder"]
     fused_steps = {name: row["launches_per_step"]
@@ -7951,6 +8194,11 @@ def main() -> int:
         by_csr=dp_product["segment_sum_by_csr"],
         per_four_rank_step=data_parallel["four_ranks"]["product_graph"][
             "segment_sum_per_rank_step"])
+    # Phase 14: launches a train step under each memory policy.
+    seg["launches_per_train_step_phase14"] = {
+        route: {key: row["launches_per_step"]["segment_sum"]
+                for key, row in rows.items()}
+        for route, rows in remat["b1"].items() if route != "card"}
     kernels = [("segment_sum", "segment_sum.cu", "pallas_segment.py:372",
                 seg)]
     for name, src, tpu, k in (
@@ -7966,6 +8214,9 @@ def main() -> int:
                 "launches_per_rollout"][name]
             extra["launches_per_train_step_phase7"] = {
                 n: c[name] for n, c in fused_steps.items()}
+            extra["launches_per_train_step_phase14"] = {
+                key: row["launches_per_step"][name]
+                for key, row in remat["b1"]["fused_mega"].items()}
             extra["launches_per_regional_head_step"] = {
                 n: c[name] for n, c in head_steps.items()}
             extra["at_regional_shape"] = mlp_regional
@@ -8009,6 +8260,7 @@ def main() -> int:
     _log(json.dumps({"sharded": sharded}))
     _log(json.dumps({"batched": batched}))
     _log(json.dumps({"data_parallel": data_parallel}))
+    _log(json.dumps({"remat": remat}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",

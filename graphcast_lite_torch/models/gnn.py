@@ -80,6 +80,7 @@ from ..ops.gather import gather_rows
 from ..ops.reg_edge import RegStatic, reg_edge_tail
 from .nn import PReLU, PyGLayerNorm, TorchLinear, glorot_uniform_pyg, \
     resolve_activation
+from .remat import checkpointed, scan_remat
 
 __all__ = ["GCNConv", "GATConv", "SparseGATConv", "SimpleConv",
            "InteractionNetLayer", "InteractionNetProcessor"]
@@ -560,7 +561,13 @@ class InteractionNetProcessor(nn.Module):
     Children: ``edge_encoder_lin`` (and ``edge_encoder_act`` for PReLU) and
     ``steps`` (one ``InteractionNetLayer`` per step; the JAX package stacks
     their parameters on axis 0 under ``nn.scan``).  The steps run lazily
-    where ``_use_lazy_processor`` says so, else plainly."""
+    where ``_use_lazy_processor`` says so, else plainly.  With grad enabled
+    each step runs under ``GCLT_SCAN_REMAT``'s policy (``models.remat``:
+    ``none`` keeps all its intermediates, ``dots`` its carries and its
+    unbatched products' outputs, ``full`` its carries alone).
+    ``GCLT_FUSED_SAVE_HPRE=0`` drops the fused edge unit's ``h_pre``
+    under ``none`` and ``dots``; under ``full`` the step's checkpoint drops
+    it anyway."""
 
     def __init__(self, node_dim: int, raw_edge_dim: int,
                  edge_latent_dim: int, hidden_dim: int, num_steps: int,
@@ -594,14 +601,21 @@ class InteractionNetProcessor(nn.Module):
             raw = graph.reg_blocks.edge_attr
         e = self.edge_encoder_lin(raw)
         e = self.edge_encoder_act(e) if self._act is None else self._act(e)
+        mode = scan_remat() if torch.is_grad_enabled() else "none"
+
+        def run(step, fn, *args):
+            if mode == "none":
+                return fn(*args)
+            return checkpointed(step, fn, *args, dots=mode == "dots")
+
         if not lazy:
             for step in self.steps:
-                x, e = step(x, e, graph, edge_mask)
+                x, e = run(step, step, x, e, graph, edge_mask)
             return x
         a = torch.ones(self.edge_latent_dim, dtype=torch.float32,
                        device=x.device)
         c = torch.zeros(self.edge_latent_dim, dtype=torch.float32,
                         device=x.device)
         for step in self.steps:
-            x, e, a, c = step.lazy(x, e, a, c, graph, edge_mask)
+            x, e, a, c = run(step, step.lazy, x, e, a, c, graph, edge_mask)
         return x

@@ -17,6 +17,10 @@ through the call and returned updated (only SparseGAT changes it).  With a
 product graph, a small GNN over the (T x N)-node temporal product graph
 runs first on the time-major window and keeps its last time slice.
 
+A grad-enabled call runs under the train step's memory policies
+(``models.remat``): ``GCLT_ENCDEC_REMAT`` checkpoints the encoder and the
+decoder, ``GCLT_SCAN_REMAT`` each processor step.
+
 Module and parameter names follow the JAX package's flax tree
 (``encoder`` / ``processor`` / ``decoder``, each with ``mlp`` and
 ``graph_layer``), so its parameters load through
@@ -40,6 +44,7 @@ from ..graphs.structure import Graph, build_graph
 from .gnn import GATConv, GCNConv, InteractionNetProcessor, SimpleConv, \
     SparseGATConv
 from .nn import MLPTower, PReLU, PyGLayerNorm, resolve_activation
+from .remat import checkpointed, encdec_remat
 
 __all__ = ["ModelGraphs", "WeatherModel", "graph_layer_output_dim",
            "model_output_dim"]
@@ -277,7 +282,17 @@ class WeatherModel(nn.Module):
         mesh_in = torch.cat([mesh_dyn, mesh_static], dim=-1)
         x = torch.cat([grid_in, mesh_in], dim=-2)       # [..., (N+M), C]
 
-        x, _ = self.encoder(x, graphs.encoding)
+        # With grad enabled and GCLT_ENCDEC_REMAT on, the encoder and the
+        # decoder keep only their inputs for the backward and recompute
+        # the rest (``models.remat``); the product pre-encoder and the
+        # processor (``GCLT_SCAN_REMAT``) are not wrapped by it.
+        remat = torch.is_grad_enabled() and encdec_remat()
+
+        def block(module, *args):
+            return checkpointed(module, module, *args) if remat \
+                else module(*args)
+
+        x, _ = block(self.encoder, x, graphs.encoding)
         grid_latent = x[..., :n_grid, :]
         mesh_latent = x[..., n_grid:, :]
 
@@ -287,7 +302,7 @@ class WeatherModel(nn.Module):
         )
 
         combined = torch.cat([grid_latent, mesh_processed], dim=-2)
-        decoded, _ = self.decoder(combined, graphs.decoding)
+        decoded, _ = block(self.decoder, combined, graphs.decoding)
         out = decoded[..., :n_grid, :]
         if with_latents:
             return out, new_mask, grid_latent, mesh_processed

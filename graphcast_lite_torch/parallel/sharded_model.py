@@ -921,9 +921,13 @@ def _sparse_gat(gl_p, cfg, x, ga: GraphArrays, group, edge_mask,
 
 
 def _scan_remat() -> bool:
-    """``GCLT_SHARDED_SCAN_REMAT=full``: recompute each message-passing
-    step in the backward."""
-    return os.environ.get("GCLT_SHARDED_SCAN_REMAT", "none").lower() == "full"
+    """``GCLT_SHARDED_SCAN_REMAT=full``, or where that is unset
+    ``GCLT_SCAN_REMAT=full`` (the JAX package's precedence): recompute each
+    message-passing step in the backward.  ``dots`` and every other value
+    leave it off, as in the JAX package's sharded scan."""
+    mode = os.environ.get("GCLT_SHARDED_SCAN_REMAT",
+                          os.environ.get("GCLT_SCAN_REMAT", "none"))
+    return mode.lower() == "full"
 
 
 def _interaction_processor(inet_p, x, ga: GraphArrays, group,

@@ -34,7 +34,9 @@ import torch
 from torch import nn
 
 from ..utils.flax_msgpack import load_msgpack
-from ..utils.params import from_flax_params, from_optax_adam_state
+from ..utils.params import from_flax_params, from_optax_adam_state, \
+    from_optax_clipped_adamw_state
+from .optim import ClippedAdamW
 
 __all__ = [
     "save_checkpoint",
@@ -127,7 +129,8 @@ def load_flax_checkpoint(ckpt_dir: str, model: nn.Module,
     edge mask) into ``model``, ``optimizer`` (built by
     ``training.trainer.build_optimizer``: one parameter group, or two when
     the processor has its own learning rate, matching ``optax.adam`` and
-    the JAX package's ``multi_transform``) and ``edge_mask`` (a SparseGAT
+    the JAX package's ``multi_transform``; or a ``ClippedAdamW``, matching
+    the CNN trainers' clipped AdamW chain) and ``edge_mask`` (a SparseGAT
     run's; the JAX package saves an empty mapping for none); returns the
     meta."""
     blob = load_msgpack(os.path.join(ckpt_dir, FLAX_STATE_FILE))
@@ -139,8 +142,12 @@ def load_flax_checkpoint(ckpt_dir: str, model: nn.Module,
     groups = optimizer.param_groups
     if len(groups) not in (1, 2):
         raise ValueError(f"optimizer with {len(groups)} parameter groups")
-    factor = 1.0 if len(groups) == 1 else groups[1]["lr"] / groups[0]["lr"]
-    converted = from_optax_adam_state(blob["opt_state"], model, factor)
+    if isinstance(optimizer, ClippedAdamW):
+        converted = from_optax_clipped_adamw_state(blob["opt_state"], model)
+    else:
+        factor = 1.0 if len(groups) == 1 \
+            else groups[1]["lr"] / groups[0]["lr"]
+        converted = from_optax_adam_state(blob["opt_state"], model, factor)
     state = optimizer.state_dict()
     if [g["params"] for g in state["param_groups"]] \
             != [g["params"] for g in converted["param_groups"]]:

@@ -18,7 +18,7 @@ import re
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["parse_training_log", "MetricsLogger"]
+__all__ = ["parse_training_log", "MetricsLogger", "compare_experiments"]
 
 _ROW = re.compile(
     r"^\s*(\d+)\s+(\d+)\s+([\d.]+|--)\s+([\d.]+)\s+([\d.-]+)\s+([\d.]+|--)"
@@ -45,6 +45,23 @@ def parse_training_log(path: str) -> List[Dict]:
                 "patience": None if g[6] == "--" else int(g[6]),
             })
     return rows
+
+
+def compare_experiments(paths: Dict[str, str]) -> str:
+    """Markdown table of best val losses across experiments' logs."""
+    lines = ["| experiment | best val_loss | best val_ACC | epochs |",
+             "|---|---|---|---|"]
+    for name, path in paths.items():
+        rows = parse_training_log(path)
+        if not rows:
+            lines.append(f"| {name} | — | — | 0 |")
+            continue
+        best = min(rows, key=lambda r: r["val_loss"])
+        lines.append(
+            f"| {name} | {best['val_loss']:.5f} | "
+            f"{max(r['val_acc'] for r in rows):.4f} | {len(rows)} |"
+        )
+    return "\n".join(lines)
 
 
 class MetricsLogger:

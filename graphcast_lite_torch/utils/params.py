@@ -31,7 +31,9 @@ and ``bias``, ``weights_re`` and ``weights_im`` keep their names.
 ``from_optax_adam_state(tree, model, processor_lr_factor)`` maps the JAX
 package's Adam state (as ``flax.serialization.to_state_dict`` lays it out)
 onto the state dict of ``training.trainer.build_optimizer``'s optimizer,
-through the same path rules.
+through the same path rules; ``from_optax_clipped_adamw_state(tree,
+model)`` maps the CNN trainers' ``optax.chain(clip_by_global_norm,
+adamw(schedule))`` state onto ``training.optim.ClippedAdamW``'s.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_flax_params", "from_flax_image_params",
-           "from_optax_adam_state"]
+           "from_optax_adam_state", "from_optax_clipped_adamw_state"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) \
@@ -146,6 +148,41 @@ def from_optax_adam_state(tree: Mapping, model: torch.nn.Module,
         rest, proc = (_adam_leaves(tree["inner_states"][k]["inner_state"])
                       for k in ("rest", "processor"))
         sources = {n: (proc if n in processor else rest) for n, _ in named}
+    return _optimizer_state(named, groups, sources)
+
+
+def from_optax_clipped_adamw_state(tree: Mapping, model: torch.nn.Module
+                                   ) -> Dict[str, Any]:
+    """The CNN trainers' optimizer state (``optax.chain(clip_by_global_norm,
+    adamw(schedule))``: ``{"0": {}, "1": {"0": {count, mu, nu}, "1": {},
+    "2": {count}}}``) -> a state dict for ``training.optim.ClippedAdamW``
+    over ``model``'s parameters in one group: per parameter ``step``
+    (Adam's ``count``, which is also the schedule's position),
+    ``exp_avg`` and ``exp_avg_sq``.  Raises if the schedule's count is
+    not Adam's."""
+    inner = tree.get("1")
+    if not (set(tree.keys()) == {"0", "1"} and tree["0"] == {}
+            and isinstance(inner, Mapping)
+            and set(inner.keys()) == {"0", "1", "2"} and inner["1"] == {}
+            and isinstance(inner["2"], Mapping)
+            and set(inner["2"].keys()) == {"count"}):
+        raise ValueError("expected the optax.chain(clip_by_global_norm, "
+                         "adamw(schedule)) layout {'0': {}, '1': {'0': "
+                         "{count, mu, nu}, '1': {}, '2': {count}}}")
+    adam = _adam_leaves({"0": inner["0"], "1": {}})
+    schedule = float(np.asarray(inner["2"]["count"]))
+    if schedule != adam[0]:
+        raise ValueError(f"the schedule's count {schedule:g} is not "
+                         f"Adam's {adam[0]:g}")
+    named = list(model.named_parameters())
+    names = [n for n, _ in named]
+    return _optimizer_state(named, [names], dict.fromkeys(names, adam))
+
+
+def _optimizer_state(named, groups: List[List[str]], sources
+                     ) -> Dict[str, Any]:
+    """The optimizer state dict of ``groups`` (lists of parameter names),
+    each parameter's (count, mu, nu) taken from ``sources[name]``."""
     shapes = {n: p.shape for n, p in named}
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     index = 0

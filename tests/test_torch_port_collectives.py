@@ -15,6 +15,8 @@ import pytest
 import torch
 
 import torch_port_dist as tpd
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROWS, COLS = 3, 4
 PAIRS = {"one_way": [(0, 1)], "swap": [(0, 1), (1, 0)]}

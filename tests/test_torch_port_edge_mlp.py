@@ -20,6 +20,8 @@ from graphcast_lite_tpu.ops.pallas_segment import build_schedule
 from graphcast_lite_torch.graphs.structure import indptr_from_receivers
 from graphcast_lite_torch.ops import edge_mlp
 from torch_port_common import ATOL, RTOL, bf16_close
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 AGG_TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -45,6 +45,8 @@ if REPO not in sys.path:
 
 from chip_smoke import FUSED_FP32_TOL, ORDER_RTOL  # noqa: E402
 from torch_port_common import tf32x3_product  # noqa: E402
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WIDTHS = [(128, 128), (256, 256), (128, 256), (256, 128)]
 

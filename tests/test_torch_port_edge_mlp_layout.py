@@ -15,6 +15,8 @@ import torch
 from graphcast_lite_torch.mesh.icosphere import build_hierarchy, \
     edges_from_faces, merge_mesh_levels
 from graphcast_lite_torch.ops import edge_mlp
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WIDTHS = (128, 256, 384, 512)
 

@@ -23,6 +23,8 @@ from graphcast_lite_tpu.ops.pallas_edge_step import (
 from graphcast_lite_torch.graphs.structure import indptr_from_receivers
 from graphcast_lite_torch.ops import edge_step
 from torch_port_common import ATOL, RTOL
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def make_case(seed, e, r, h, de, recv_range=None, e_pad=None):

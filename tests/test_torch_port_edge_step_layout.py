@@ -19,6 +19,8 @@ from graphcast_lite_torch.mesh.icosphere import build_hierarchy, \
 from graphcast_lite_torch.ops import edge_mlp, edge_step
 from graphcast_lite_torch.ops.edge_step import launch_geometry, \
     wgmma_b_image
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def unpack(image: np.ndarray, k: int, n: int) -> np.ndarray:

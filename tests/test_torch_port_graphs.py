@@ -9,6 +9,8 @@ import pytest
 from graphcast_lite_tpu.graphs.build import build_graph_set as jax_build
 from graphcast_lite_torch.graphs.build import build_graph_set as port_build
 from torch_port_common import assert_graph_equal
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LAT = np.linspace(-87.1875, 87.1875, 32).astype(np.float32)
 LON = np.arange(0, 360, 5.625).astype(np.float32)

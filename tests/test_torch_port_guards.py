@@ -15,6 +15,8 @@ from graphcast_lite_torch.data.dataset import load_chunked_datasets
 from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
 from graphcast_lite_torch.inference.predict import evaluate_model
 from torch_port_common import N_FEAT, small_configs
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

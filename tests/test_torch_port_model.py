@@ -24,6 +24,8 @@ from torch_port_common import (
     model_pair,
     to_torch,
 )
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture

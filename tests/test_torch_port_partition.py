@@ -23,6 +23,8 @@ import torch
 from graphcast_lite_tpu.graphs import partition as jpart
 from graphcast_lite_torch.graphs import partition as ppart
 from torch_port_common import graph_sets
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # parallel/sharded_model.MESH_NODE_WEIGHT of the JAX package.
 MESH_NODE_WEIGHT = 7.0

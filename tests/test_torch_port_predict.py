@@ -14,6 +14,8 @@ from graphcast_lite_torch.config import to_dict
 from graphcast_lite_torch.data.synthetic import generate_synthetic_dataset
 from graphcast_lite_torch.utils.params import from_flax_params
 from torch_port_common import N_FEAT, flax_numpy, small_configs
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 STATIC = [1]
 

@@ -22,6 +22,8 @@ import pytest
 import graphcast_lite_tpu.data.remote as jremote
 import graphcast_lite_torch.data.remote as premote
 from test_remote_etl import FlakySource, make_fake_cds, make_fake_wb2
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PACKAGES = (("port", premote), ("jax", jremote))
 

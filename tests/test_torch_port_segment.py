@@ -25,6 +25,8 @@ from graphcast_lite_tpu.ops.pallas_segment import (
 )
 from graphcast_lite_torch.graphs.structure import indptr_from_receivers
 from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _sorted_case(rng, e, r, f, recv=None, pad_recv=None):

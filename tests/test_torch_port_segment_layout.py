@@ -37,6 +37,8 @@ from graphcast_lite_tpu.ops.pallas_segment import build_schedule, \
     segment_sum_sorted
 from graphcast_lite_torch.graphs.structure import indptr_from_receivers
 from graphcast_lite_torch.ops import cuda_segment
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TILES = (4, 16, 64)  # TILE_ITEMS values the mirror is held at
 # NARROW_BYTES values the narrow mirror is held at (the kernel's is 8192).

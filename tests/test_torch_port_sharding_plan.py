@@ -29,6 +29,8 @@ from graphcast_lite_torch.parallel import sharded_model as psm
 from graphcast_lite_torch.parallel import sharding as psharding
 from test_torch_port_partition import _assert_fields_equal
 from torch_port_common import graph_sets
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CASES = [(s, part, halo) for s in (2, 4) for part in ("lat", "tiles", "auto")
          for halo in ("gather", "banded", "auto")]

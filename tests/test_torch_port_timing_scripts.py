@@ -11,6 +11,8 @@ import os
 import pytest
 
 from graphcast_lite_torch.ops import edge_mlp, edge_step, nvcc_build
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

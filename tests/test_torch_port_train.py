@@ -27,6 +27,8 @@ from torch_port_common import (
     model_pair,
     port_step,
 )
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

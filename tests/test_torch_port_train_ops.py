@@ -31,6 +31,8 @@ from torch_port_common import (
     to_torch,
 )
 from graphcast_lite_torch.utils.params import from_flax_params
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _csr(ids, rows):

@@ -38,6 +38,8 @@ from torch_port_common import (
     port_step,
     small_configs,
 )
+from torch_port_common import \
+    one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SWITCHES = {
     "edge_step": {"GCLT_EDGE_STEP": "1"},

@@ -7,7 +7,8 @@ processes (the ``spawn`` start method), each with one torch thread and a
 ``gloo`` process group over a file store in ``workdir``, runs
 ``fn(rank, world, payload)`` in each and returns the ranks' results (dicts
 of NumPy arrays and numbers), in rank order.  A rank that raises fails the
-spawn with its traceback; a spawn that outlives ``timeout`` is killed.
+spawn with its traceback; a spawn that outlives ``timeout`` is killed; no
+rank is left running when ``spawn`` returns or raises.
 
 The JAX references are computed by the test process itself (on the
 conftest's CPU devices) and the weights travel as the port's state dict.
@@ -68,12 +69,18 @@ def spawn(fn, world, workdir, payload, timeout=300.0):
                              nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks "
+                                   f"outlived {timeout} s")
+    finally:
+        # No rank outlives the spawn, whatever ended it: a rank left alive
+        # would keep the test worker from exiting.
+        for p in ctx.processes:
+            if p.is_alive():
                 p.kill()
-            raise TimeoutError(f"{fn.__name__} on {world} ranks outlived "
-                               f"{timeout} s")
+            p.join()
     out = []
     for r in range(world):
         with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
