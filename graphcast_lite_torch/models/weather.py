@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..config import DataConfig, GraphBlock, GraphLayerType, ModelConfig, \
     PipelineConfig
 from ..graphs.build import GraphSet
@@ -261,6 +262,15 @@ class WeatherModel(nn.Module):
                 processing_edge_mask: Optional[torch.Tensor] = None,
                 attention_threshold=0.0, prune: bool = False,
                 with_latents: bool = False):
+        """Inside a ``model`` span, each block inside its own
+        (``model.encoder``, ``model.processor``, ``model.decoder``;
+        ``tracing``)."""
+        with tracing.span("model"):
+            return self._forward(x_grid, graphs, processing_edge_mask,
+                                 attention_threshold, prune, with_latents)
+
+    def _forward(self, x_grid, graphs, processing_edge_mask,
+                 attention_threshold, prune, with_latents):
         n_grid = self.num_grid_nodes
         lead = x_grid.shape[:-2]  # () or (B,)
         if self.product_model is not None:
@@ -292,17 +302,20 @@ class WeatherModel(nn.Module):
             return checkpointed(module, module, *args) if remat \
                 else module(*args)
 
-        x, _ = block(self.encoder, x, graphs.encoding)
+        with tracing.span("model.encoder"):
+            x, _ = block(self.encoder, x, graphs.encoding)
         grid_latent = x[..., :n_grid, :]
         mesh_latent = x[..., n_grid:, :]
 
-        mesh_processed, new_mask = self.processor(
-            mesh_latent, graphs.processing, processing_edge_mask,
-            attention_threshold, prune,
-        )
+        with tracing.span("model.processor"):
+            mesh_processed, new_mask = self.processor(
+                mesh_latent, graphs.processing, processing_edge_mask,
+                attention_threshold, prune,
+            )
 
         combined = torch.cat([grid_latent, mesh_processed], dim=-2)
-        decoded, _ = block(self.decoder, combined, graphs.decoding)
+        with tracing.span("model.decoder"):
+            decoded, _ = block(self.decoder, combined, graphs.decoding)
         out = decoded[..., :n_grid, :]
         if with_latents:
             return out, new_mask, grid_latent, mesh_processed

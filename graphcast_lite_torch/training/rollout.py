@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..ops.fused_edge import training_trace
 from .loss import weighted_mse
 
@@ -173,7 +174,18 @@ def rollout_loss(
     mask_sync(mask') -> mask' replaces each pruning model call's new mask,
     outside the checkpointed step, so its backward's recompute never
     calls it.  Returns (loss, new_edge_mask).  Runs inside
-    ``training_trace()``, so the model takes its differentiable routes."""
+    ``training_trace()``, so the model takes its differentiable routes,
+    and inside a ``rollout`` span (``tracing``)."""
+    with tracing.span("rollout"):
+        return _rollout_loss(model_fn, window, targets, steps, spec,
+                             edge_mask, attention_threshold, prune,
+                             lat_weights, chan_mask, spatial_mask,
+                             extra_loss_fn, mask_sync)
+
+
+def _rollout_loss(model_fn, window, targets, steps, spec, edge_mask,
+                  attention_threshold, prune, lat_weights, chan_mask,
+                  spatial_mask, extra_loss_fn, mask_sync):
     if not (prune and mask_sync is not None):
         mask_sync = None
     if spec.direct_steps > 1:
@@ -237,7 +249,15 @@ def rollout_predict(
     """Pure AR inference: returns predictions [..., G, P, C].
 
     ``model_fn(inp [..., G, obs·C], edge_mask, thr, prune) -> (delta, mask')``.
+    Runs inside a ``rollout`` span (``tracing``).
     """
+    with tracing.span("rollout"):
+        return _rollout_predict(model_fn, window, steps, spec, edge_mask,
+                                attention_threshold, forcing)
+
+
+def _rollout_predict(model_fn, window, steps, spec, edge_mask,
+                     attention_threshold, forcing):
     if spec.direct_steps > 1:
         if steps > spec.direct_steps:
             raise ValueError(

@@ -76,6 +76,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from .. import tracing
 from ..build import config_direct_steps, resolve_device, resolve_dtype
 from ..config import ExperimentConfig, GraphLayerType
 from ..data.dataset import BatchIterator, ChunkedTimeseriesDataset, \
@@ -285,10 +286,13 @@ class TrainStep:
             prune: bool = False):
         """``__call__`` with the SparseGAT edge mask carried in and out:
         (loss, new mask or None); ``prune`` prunes at
-        ``attention_threshold``."""
-        loss, new_mask = self.backward(x, y, edge_mask, attention_threshold,
-                                       prune)
-        self.optimizer.step()
+        ``attention_threshold``.  Inside a ``train.step`` span, the
+        optimizer's step inside ``train.optimizer`` (``tracing``)."""
+        with tracing.span("train.step"):
+            loss, new_mask = self.backward(x, y, edge_mask,
+                                           attention_threshold, prune)
+            with tracing.span("train.optimizer"):
+                self.optimizer.step()
         return loss, new_mask
 
     def backward(self, x, y, edge_mask=None, attention_threshold=0.0,
@@ -296,17 +300,21 @@ class TrainStep:
         """``run`` up to the optimizer's step: the fp32 gradients on the
         masters' ``.grad`` (zeros where the loss does not reach, the
         processor's zeroed when it is frozen); returns (loss, new mask or
-        None).  ``mask_sync`` as ``_loss``'s."""
-        window, targets = self._batch(x, y)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, new_mask = self._loss(window, targets, edge_mask,
-                                    attention_threshold, prune, mask_sync)
-        loss.backward()
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.freeze_processor:
-            _zero_processor_grads(self.model)
+        None).  ``mask_sync`` as ``_loss``'s.  The batch to the loss runs
+        inside a ``train.forward`` span, the backward and the zero-filled
+        gradients inside ``train.backward`` (``tracing``)."""
+        with tracing.span("train.forward"):
+            window, targets = self._batch(x, y)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, new_mask = self._loss(window, targets, edge_mask,
+                                        attention_threshold, prune, mask_sync)
+        with tracing.span("train.backward"):
+            loss.backward()
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.freeze_processor:
+                _zero_processor_grads(self.model)
         return loss.detach(), new_mask
 
 
@@ -833,7 +841,9 @@ class Trainer:
         return results
 
     def _profiled_step(self, profile_dir, *args):
-        """``train_step(*args)`` under ``torch.profiler``; the trace goes to
+        """``train_step(*args)`` under ``torch.profiler``, with the
+        program's spans recording (``tracing``) so that the trace carries
+        their ``gclt::`` ranges; the trace goes to
         ``<profile_dir>/train_step_trace.json`` (``GCLT_PROFILE_DIR``)."""
         from torch.profiler import ProfilerActivity, profile
 
@@ -841,9 +851,16 @@ class Trainer:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(profile_dir, exist_ok=True)
-        with profile(activities=activities) as prof:
-            state, loss = self.train_step(*args)
-            float(loss)
+        owned = tracing.recorder() is None
+        if owned:
+            tracing.enable(cuda_events=False)
+        try:
+            with profile(activities=activities) as prof:
+                state, loss = self.train_step(*args)
+                float(loss)
+        finally:
+            if owned:
+                tracing.disable()
         path = os.path.join(profile_dir, "train_step_trace.json")
         prof.export_chrome_trace(path)
         print(f"[profiler] step trace -> {path}")

@@ -22,6 +22,7 @@ import pytest
 
 from graphcast_lite_tpu.training.trainer import Trainer as JaxTrainer
 from graphcast_lite_tpu.utils.logs import parse_training_log as jax_log
+from graphcast_lite_torch import tracing
 from graphcast_lite_torch.training.trainer import Trainer as PortTrainer
 from graphcast_lite_torch.utils.logs import parse_training_log as port_log
 from graphcast_lite_torch.utils.params import from_flax_params
@@ -121,7 +122,8 @@ def test_fit_matches_jax(tmp_path, monkeypatch, case):
 
 def test_profile_dir_traces_the_second_step(tmp_path, monkeypatch):
     """``GCLT_PROFILE_DIR`` writes a ``torch.profiler`` Chrome trace of the
-    first epoch's second step and leaves the losses as they are."""
+    first epoch's second step, with the program's ``gclt::`` span ranges,
+    and leaves the losses as they are."""
     (*_, pcfg, pmodel, pgraphs, (ptrain, pval, pmeta)) = fit_experiment(
         tmp_path, "conv_gcn", num_epochs=1)
     state0 = {k: v.clone() for k, v in pmodel.state_dict().items()}
@@ -143,3 +145,7 @@ def test_profile_dir_traces_the_second_step(tmp_path, monkeypatch):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    # The step's spans recorded while it was profiled (``tracing``).
+    assert {"gclt::train.step", "gclt::train.forward", "gclt::train.backward",
+            "gclt::train.optimizer", "gclt::model"} <= names
+    assert tracing.recorder() is None
