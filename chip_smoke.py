@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
-Builds the port's three hand-written CUDA kernels (nvcc, sm_90a, one nvcc
+Builds the port's four hand-written CUDA kernels (nvcc, sm_90a, one nvcc
 per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
 
 1. Holds each kernel against its plain PyTorch version on the card, in
@@ -40,13 +40,27 @@ per source, all at once) from ``graphcast_lite_torch/csrc/``, then:
    under a pruned mask), the product-graph GCN's aggregations (F = 64,
    33) and the backward's gather adjoints over the sender CSRs; the
    narrow rows also in PR 1's design, and two launches bitwise equal.
+1d. The reg-edge step kernel (``reg_edge.cu``, the default serve route's
+   processor edge side) against its plain version in bf16: the flagship
+   [4, 6] layout at B = 1, H = De = 256 and 128; the 64x32 [3, 5] layout at
+   B = 16 with the first step's shared v, a, c and folded weights and with
+   per-sample ones, and at B = 3, H = De = 128, relu; v' and the aggregate at
+   the fused kernels' bf16 tolerance, the statistics as the edge step's,
+   two launches bitwise; its time beside its bound, the plain version's
+   and the eager step's.  1e: its exact launches: 48 an AR-4 flagship bf16
+   request, 48 a 16-state 64x32 dispatch, 0 in fp32 and in a bf16 train
+   step; each bf16 forecast against its fp32 one.
 2. Serves the flagship forecast (``presets.interaction_net_512x256``: 19
    features, obs 2, AR 4, hidden 256, 12 InteractionNet steps, mesh [4, 6])
    in bf16 through the port's ``evaluate_model`` for 2 requests on a seeded
    synthetic 512x256 dataset with seeded random weights, on the default
    reg-block route, checks that every rollout launched the segment sum
-   exactly 8 times (2 encoder GCNConv aggregations x 4 AR steps), and holds
-   one request's bf16 rollout against the fp32 rollout of the same weights.
+   exactly 8 times (2 encoder GCNConv aggregations x 4 AR steps) and the
+   reg-edge kernel exactly 48 (12 processor steps x 4), and holds one
+   request's bf16 rollout against the fp32 rollout of the same weights.
+   The other phases that hold exact launch counts hold the reg-edge
+   kernel's too: 48 a bf16 DA request (9a), 0 on the COO and plain routes,
+   in fp32 and in every train step.
 2b. Serves one request on each of the three COO routes (``GCLT_REG_EDGE=0``;
    plus ``GCLT_EDGE_STEP=1`` or ``GCLT_MEGA_EDGE=1``), checks each route's
    exact launch counts per rollout, and holds its bf16 rollout against the
@@ -333,7 +347,8 @@ Prints the card's name and power limit, ``{"serve": ...}``,
 ``{"train": ...}``, ``{"baseline_64x32": ...}``, ``{"fit": ...}``,
 ``{"regional": ...}``, ``{"cnn": ...}``, ``{"assimilation": ...}``,
 ``{"offline": ...}``, ``{"sharded": ...}``, ``{"batched": ...}``,
-``{"data_parallel": ...}``, ``{"remat": ...}`` and ``{"kernels": [...]}``
+``{"data_parallel": ...}``, ``{"remat": ...}``, ``{"reg_edge": ...}`` and
+``{"kernels": [...]}``
 lines (the
 kernels' launches counted in the serve, the train steps, the fit, the
 demo's training, the regional head steps and phases 9 to 13; the segment
@@ -421,6 +436,8 @@ TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 4
 REQUESTS = 2
 AR_STEPS = 4
+# The flagship's processor steps: its reg-edge launches a bf16 forward.
+FLAGSHIP_STEPS = 12
 # The AR steps of the card-vs-CPU runs of phase 4, 5b and 7d: the CPU
 # half, at full depth, was most of those phases.
 CPU_AR_STEPS = 2
@@ -441,11 +458,14 @@ DEMO_K = 4
 # (48 = 12 processor steps x 4 AR steps; 8 = 2 encoder GCNConv x 4).
 COO_ROUTES = {
     "composed": ({"GCLT_REG_EDGE": "0"},
-                 {"segment_sum": 8 + 48, "edge_mlp": 0, "edge_step": 0}),
+                 {"segment_sum": 8 + 48, "edge_mlp": 0, "edge_step": 0,
+                  "reg_edge": 0}),
     "edge_step": ({"GCLT_REG_EDGE": "0", "GCLT_EDGE_STEP": "1"},
-                  {"segment_sum": 8, "edge_mlp": 0, "edge_step": 48}),
+                  {"segment_sum": 8, "edge_mlp": 0, "edge_step": 48,
+                   "reg_edge": 0}),
     "mega": ({"GCLT_REG_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
-             {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0}),
+             {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0,
+              "reg_edge": 0}),
 }
 _SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE",
              "GCLT_LAZY_EDGE", "GCLT_FUSED_EDGE", "GCLT_GCN_AGG",
@@ -455,10 +475,12 @@ _SWITCHES = ("GCLT_REG_EDGE", "GCLT_EDGE_STEP", "GCLT_MEGA_EDGE",
 # route its steps record.
 NONLAZY_ROUTES = {
     "composed": ({"GCLT_LAZY_EDGE": "0"},
-                 {"segment_sum": 8 + 48, "edge_mlp": 0, "edge_step": 0},
+                 {"segment_sum": 8 + 48, "edge_mlp": 0, "edge_step": 0,
+                  "reg_edge": 0},
                  "nonlazy"),
     "mega": ({"GCLT_LAZY_EDGE": "0", "GCLT_MEGA_EDGE": "1"},
-             {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0},
+             {"segment_sum": 8, "edge_mlp": 48, "edge_step": 0,
+              "reg_edge": 0},
              "nonlazy_mega"),
 }
 # The fp32 plain rollout against the fp32 lazy reg-block rollout of the
@@ -567,10 +589,11 @@ def _bound(nbytes: float, flops: float):
 
 
 def _kernel_modules():
-    from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step
+    from graphcast_lite_torch.ops import cuda_segment, edge_mlp, edge_step, \
+        reg_edge
 
     return {"segment_sum": cuda_segment, "edge_mlp": edge_mlp,
-            "edge_step": edge_step}
+            "edge_step": edge_step, "reg_edge": reg_edge}
 
 
 def _reset_launches():
@@ -1265,6 +1288,273 @@ def _tiling_cases(gen):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The reg-edge step kernel (csrc/reg_edge.cu): the default serve route's
+# processor edge side.
+
+def _reg_blocks(levels):
+    """(RegularBlocks on the card with a bf16 mask, receivers) of the
+    multimesh at ``levels``: the processing graph ``build_graph_set``
+    builds, without the grid."""
+    from graphcast_lite_torch.graphs.structure import build_graph
+    from graphcast_lite_torch.mesh.icosphere import (
+        build_hierarchy, edges_from_faces, merge_mesh_levels)
+
+    meshes = build_hierarchy(max(levels))
+    snd, rcv = edges_from_faces(merge_mesh_levels(meshes,
+                                                  list(levels)).faces)
+    n = meshes[-1].num_vertices
+    g = build_graph(snd, rcv, num_nodes=n,
+                    level_sizes=[10 * 4 ** int(lv) + 2
+                                 for lv in sorted(levels)])
+    return g.reg_blocks.to("cuda", torch.bfloat16), n
+
+
+def _reg_edge_case(gen, rb, n, hid, de, batch=None, shared=False,
+                   act="swish"):
+    """(static, inputs) of one step: xs and xr [B, n, H] per sample; v,
+    W1e, b1, a and c per sample, or (``shared``) the first step's one
+    for every sample; random, bf16 but a and c (fp32)."""
+    from graphcast_lite_torch.ops import reg_edge
+
+    lead = () if batch is None else (batch,)
+    own = () if shared else lead
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    t = dict(xs=randn(*lead, n, hid), xr=randn(*lead, n, hid),
+             v=randn(*own, rb.rows_padded, de),
+             w1e=randn(*own, de, hid, scale=de ** -0.5),
+             b1=randn(*own, hid, scale=0.1),
+             w2=randn(hid, de, scale=hid ** -0.5), b2=randn(de, scale=0.1))
+    t = {k: x.to(torch.bfloat16) for k, x in t.items()}
+    t["a"] = 1.0 + randn(*own, de, scale=0.1)
+    t["c"] = randn(*own, de, scale=0.1)
+    static = reg_edge.RegStatic(rb.block_recv, rb.block_k, n, act)
+    return static, t
+
+
+def _reg_edge_args(static, t, rb):
+    return (static, t["xs"], t["xr"], t["v"], rb.mask, rb.senders, t["w1e"],
+            t["b1"], t["w2"], t["b2"], t["a"], t["c"])
+
+
+def _check_reg_edge(label, static, t, rb):
+    """The kernel against its plain version: v' and the aggregate at
+    FUSED_BF16_TOL (the aggregate plus ORDER_RTOL of its terms'
+    magnitudes), the statistics within STATS_RTOL of theirs and the row
+    count exact, as the edge step's; two launches bitwise equal.  Returns
+    (max |err| of v' and agg, of the stats)."""
+    from graphcast_lite_torch.ops import reg_edge
+
+    args = _reg_edge_args(static, t, rb)
+    before = reg_edge.launches
+    v_new, agg, stats = reg_edge.reg_edge_step(*args)
+    if reg_edge.launches != before + 1:
+        raise AssertionError(f"reg_edge {label}: the kernel did not launch")
+    v_ref, agg_ref, stats_ref = reg_edge.reg_edge_step_reference(*args)
+    torch.cuda.synchronize()
+    w = rb.mask.float()[:, None]
+    a, c = t["a"][..., None, :], t["c"][..., None, :]
+    u_mag = (v_ref.float() - a * t["v"].float() - c).abs() * w
+    agg_mag = reg_edge._slice_sum_f32(static, u_mag)
+    vf = v_ref.float()
+    stats_mag = torch.stack([(vf.abs() * w).sum(dim=(-2, -1)),
+                             (vf.square() * w).sum(dim=(-2, -1)),
+                             w.sum() * torch.ones_like(vf[..., 0, 0])],
+                            dim=-1)
+    tol = FUSED_BF16_TOL
+    err = max(_close(f"reg_edge {label} v_new", v_new, v_ref, tol),
+              _close(f"reg_edge {label} agg", agg, agg_ref, tol,
+                     ORDER_RTOL * agg_mag))
+    stats_err = _close(f"reg_edge {label} stats", stats, stats_ref,
+                       dict(atol=0.0, rtol=0.0), STATS_RTOL * stats_mag)
+    if not torch.equal(stats[..., 2], stats_ref[..., 2]):
+        raise AssertionError(f"reg_edge {label}: row count {stats[..., 2]} "
+                             f"!= {stats_ref[..., 2]}")
+    share = max(_tol_share(v_new, v_ref, tol),
+                _tol_share(agg, agg_ref, tol, ORDER_RTOL * agg_mag))
+    again = reg_edge.reg_edge_step(*args)
+    if not all(torch.equal(x, y) for x, y in zip((v_new, agg, stats),
+                                                  again)):
+        raise AssertionError(f"reg_edge {label}: two launches differ")
+    _log(f"  reg_edge {label:<52s} max|err| {err:.3e} ({share:.3f} of the "
+         f"tolerance), stats {stats_err:.3e}; two launches bitwise equal")
+    return err, stats_err
+
+
+def _eager_reg_step(static, t, rb):
+    """The step as the port ran it before the kernel: ``reg_edge_tail``'s
+    plain forward on the node tables, then the residual and the statistics
+    in eager PyTorch (one sample or a batch)."""
+    from graphcast_lite_torch.ops import reg_edge
+
+    xs, xr, v = t["xs"], t["xr"], t["v"]
+    h = (xs.index_select(-2, rb.senders) + reg_edge._tile_expand(
+        static, xr, rb.rows_padded) + v @ t["w1e"] + t["b1"][..., None, :])
+    u = reg_edge._act_fn(static.activation)(h) @ t["w2"] + t["b2"]
+    agg = reg_edge._slice_sum(static, u * rb.mask[:, None])
+    dt = v.dtype
+    v_new = t["a"].to(dt)[..., None, :] * v + t["c"].to(dt)[..., None, :] + u
+    w = rb.mask.float()[:, None]
+    vf = v_new.float()
+    return v_new, agg, (vf * w).sum(dim=(-2, -1)), \
+        (vf.square() * w).sum(dim=(-2, -1))
+
+
+def phase_reg_edge_cases():
+    """1d: the reg-edge step kernel against its plain version on the card
+    at the shapes its callers give it, and its time beside its bound, the
+    plain version's and the eager step's the port ran before it."""
+    from graphcast_lite_torch.ops import nvcc_build, reg_edge
+
+    _log("phase 1d: reg-edge step kernel vs plain version (bf16), "
+         "flagship [4, 6] and 64x32 [3, 5] multimesh layouts")
+    lib = nvcc_build.load(reg_edge.SOURCE, reg_edge.SIGNATURES)
+    for width in reg_edge.WIDTHS:
+        _log(f"  reg_edge shared memory H = De = {width}: "
+             f"{lib.gclt_reg_edge_smem(width)} bytes")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = []
+    for levels, batch, shared, hid, de, act, label in (
+            ((4, 6), None, False, 256, 256, "swish", "flagship B=1"),
+            ((3, 5), 16, True, 256, 256, "swish",
+             "64x32 B=16 shared first step"),
+            ((3, 5), 16, False, 256, 256, "swish", "64x32 B=16 per sample"),
+            ((3, 5), 3, False, 128, 128, "relu", "64x32 B=3 H=De=128 relu"),
+            ((4, 6), None, False, 128, 128, "swish", "flagship B=1 H=De=128")):
+        rb, n = _reg_blocks(levels)
+        static, t = _reg_edge_case(gen, rb, n, hid, de, batch, shared, act)
+        label = f"{label} rows {rb.rows_padded} R {n}"
+        err, stats_err = _check_reg_edge(label, static, t, rb)
+        args = _reg_edge_args(static, t, rb)
+        b = batch or 1
+        total = sum(v * k for v, k in zip(rb.block_recv, rb.block_k))
+        nbytes = (2 * (t["v"].numel() + b * rb.rows_padded * de)
+                  + 2 * (t["xs"].numel() + t["xr"].numel())
+                  + 2 * b * n * de + 6 * rb.rows_padded)
+        flops = 4 * b * total * hid * de
+        bound_ms, what = _bound(nbytes, flops)
+        kernel_ms = _time_ms(lambda: reg_edge.reg_edge_step(*args))
+        plain_ms = _time_ms(lambda: reg_edge.reg_edge_step_reference(*args),
+                            iters=5, warmup=1)
+        eager_ms = _time_ms(lambda: _eager_reg_step(static, t, rb),
+                            iters=5, warmup=1)
+        _log(f"  reg_edge {label}: {kernel_ms:.4f} ms a launch, bound "
+             f"{bound_ms:.4f} ms ({what}, {bound_ms / kernel_ms:.3f}), "
+             f"plain {plain_ms:.4f} ms, eager step {eager_ms:.4f} ms")
+        rows.append(dict(case=label, batch=b, hid=hid, de=de,
+                         rows=rb.rows_padded, receivers=n, err=err,
+                         stats_err=stats_err, ms=kernel_ms,
+                         bound_ms=bound_ms, bound=what, plain_ms=plain_ms,
+                         eager_ms=eager_ms))
+        del t, args
+    return rows
+
+
+def _preset_model(preset, grid, seed=0):
+    """(fp32 model on the card, its graphs, config, metadata) of a preset
+    on a grid, weights from ``seed``, built without a dataset."""
+    from graphcast_lite_torch.build import build_weather_model
+    from graphcast_lite_torch.data.dataset import DatasetMetadata
+
+    cfg = preset()
+    lat, lon = grid()
+    meta = DatasetMetadata(
+        flattened=True, num_latitudes=lat.size, num_longitudes=lon.size,
+        num_features=cfg.data.num_features_used,
+        obs_window=cfg.data.obs_window_used, pred_window=AR_STEPS,
+        num_grid_nodes=lat.size * lon.size, coordinates=(lat, lon))
+    model, graphs, _ = build_weather_model(cfg, meta, device="cuda",
+                                           seed=seed)
+    return model, graphs, cfg, meta
+
+
+def _dispatch_launches(model, graphs, cfg, meta, samples, dtype, gen):
+    """(reg-edge launches, forecast) of one AR-4 dispatch of ``samples``
+    windows (None: one request) through ``rollout_predict`` on ``dtype``'s
+    serving copy."""
+    from graphcast_lite_torch.inference.predict import serving_copy
+    from graphcast_lite_torch.ops import reg_edge
+    from graphcast_lite_torch.training.rollout import RolloutSpec, \
+        rollout_predict
+
+    n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    spec = RolloutSpec(obs_window=obs, num_features=n_feat,
+                       use_residual=cfg.use_residual, remat=False,
+                       static_channels=tuple(cfg.static_channels),
+                       forcing_channels=tuple(cfg.forcing_channels))
+    lead = () if samples is None else (samples,)
+    window = torch.randn(lead + (meta.num_grid_nodes, obs, n_feat),
+                         generator=gen, device="cuda")
+    smodel, sgraphs = serving_copy(model, graphs, torch.device("cuda"), dtype)
+    before = reg_edge.launches
+    with torch.inference_mode():
+        pred = rollout_predict(
+            lambda inp, m, t, p: (smodel(inp, sgraphs)[0], None),
+            window.to(dtype), AR_STEPS, spec).float()
+    torch.cuda.synchronize()
+    return reg_edge.launches - before, pred.reshape(-1, AR_STEPS, n_feat)
+
+
+def phase_reg_edge_launches():
+    """1e: the reg-edge kernel's exact launches: 48 an AR-4 flagship bf16
+    request (12 steps x 4 forwards), 48 a 16-state 64x32 dispatch through
+    the batched model, none in fp32 and none in a bf16 train step
+    (autograd takes ``reg_edge_tail``); each bf16 forecast against its
+    fp32 one."""
+    from graphcast_lite_torch import presets
+    from graphcast_lite_torch.ops import reg_edge
+    from graphcast_lite_torch.training.rollout import RolloutSpec
+    from graphcast_lite_torch.training.trainer import make_train_step
+
+    _log("phase 1e: reg-edge kernel launches (flagship AR-4 request, "
+         "64x32 16-state dispatch, their fp32 forms, a 64x32 bf16 train "
+         "step)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out, rel = {}, {}
+    for name, preset, grid, samples in (
+            ("flagship_request", presets.interaction_net_512x256,
+             presets.wb2_512x256_grid, None),
+            ("k16_dispatch", presets.interaction_net_64x32,
+             presets.wb2_64x32_grid, 16)):
+        model, graphs, cfg, meta = _preset_model(preset, grid)
+        state = gen.get_state()
+        out[name], p16 = _dispatch_launches(model, graphs, cfg, meta,
+                                            samples, torch.bfloat16, gen)
+        gen.set_state(state)
+        out[name + "_fp32"], p32 = _dispatch_launches(
+            model, graphs, cfg, meta, samples, torch.float32, gen)
+        rel[name] = max(_rel_rms(p16, p32, f"reg-edge {name}",
+                                 ref="its fp32 forecast"))
+    cfg.tpu.compute_dtype = "bfloat16"
+    n_feat, obs = cfg.data.num_features_used, cfg.data.obs_window_used
+    spec = RolloutSpec(obs_window=obs, num_features=n_feat,
+                       use_residual=cfg.use_residual,
+                       remat=cfg.tpu.remat_rollout,
+                       static_channels=tuple(cfg.static_channels),
+                       forcing_channels=tuple(cfg.forcing_channels))
+    step = make_train_step(model, graphs, spec, cfg, device="cuda")
+    x = torch.randn((2, meta.num_grid_nodes, obs * n_feat), generator=gen,
+                    device="cuda")
+    y = torch.randn((2, meta.num_grid_nodes, AR_STEPS * n_feat),
+                    generator=gen, device="cuda")
+    before = reg_edge.launches
+    loss = step(x, y)
+    torch.cuda.synchronize()
+    out["train_step"] = reg_edge.launches - before
+    expected = {"flagship_request": 48, "flagship_request_fp32": 0,
+                "k16_dispatch": 48, "k16_dispatch_fp32": 0, "train_step": 0}
+    if out != expected or not torch.isfinite(loss):
+        raise AssertionError(f"reg_edge launches {out}, expected "
+                             f"{expected}; loss {loss}")
+    _log(f"  reg_edge launches {out} as expected; bf16 within "
+         + ", ".join(f"{k} {v:.4f}" for k, v in rel.items())
+         + " relative RMS of fp32")
+    return dict(launches=out, bf16_rel_rms=rel)
+
+
 def phase_serve(workdir):
     """The flagship bf16 AR-4 serve through the port's entry points, on the
     default (reg-block) route.  Returns what the later phases reuse."""
@@ -1334,7 +1624,8 @@ def phase_serve(workdir):
         raise AssertionError("non-finite predictions")
     if report.num_samples != REQUESTS or not np.isfinite(report.rmse):
         raise AssertionError(f"report {report.num_samples} {report.rmse}")
-    expected = {"segment_sum": 8 * REQUESTS, "edge_mlp": 0, "edge_step": 0}
+    expected = {"segment_sum": 8 * REQUESTS, "edge_mlp": 0, "edge_step": 0,
+                "reg_edge": FLAGSHIP_STEPS * AR_STEPS * REQUESTS}
     if counts != expected:
         raise AssertionError(f"launches {counts} for {REQUESTS} rollouts "
                              f"(expected {expected})")
@@ -1343,7 +1634,9 @@ def phase_serve(workdir):
          f"RMSE {report.rmse:.6f}, persistence {report.baseline_rmse:.6f}, "
          f"skill {report.skill * 100:.2f}% (random weights)")
     _log(f"  segment_sum launches: {launches} "
-         f"({launches // REQUESTS} per rollout)")
+         f"({launches // REQUESTS} per rollout); reg_edge launches: "
+         f"{counts['reg_edge']} ({counts['reg_edge'] // REQUESTS} per "
+         "rollout)")
     _log(f"  evaluate_model wall time per request (host clock, incl. data "
          f"loading and metrics): {wall_s / REQUESTS * 1e3:.1f} ms")
 
@@ -1367,6 +1660,7 @@ def phase_serve(workdir):
         "wall_ms_per_request": wall_s / REQUESTS * 1e3,
         "launches": launches,
         "launches_by_design": by_design,
+        "reg_edge_launches": counts["reg_edge"],
         "stage_ms": stages,
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -1831,7 +2125,7 @@ def phase_numerics():
         return out.cpu()
 
     routes = {"reg-block": ({}, {"segment_sum": 8, "edge_mlp": 0,
-                                 "edge_step": 0})}
+                                 "edge_step": 0, "reg_edge": 0})}
     routes.update(COO_ROUTES)
     for name, (env, per_ar4) in routes.items():
         # The routes' launches, stated per AR-4 rollout, every AR step alike.
@@ -2020,6 +2314,7 @@ def phase_train_numerics():
     by_csr = {label: n for label, (_, n) in parts.items()}
     expected = sum(by_csr.values())
     if counts != {"segment_sum": expected, "edge_mlp": 0, "edge_step": 0,
+                  "reg_edge": 0,
                   "by_csr": by_csr}:
         raise AssertionError(f"64x32 train step launches {counts}, expected "
                              f"{expected} segment sums ({by_csr})")
@@ -2092,7 +2387,7 @@ def phase_train(ctx):
     parts = _train_launches(model, step.graphs)
     by_csr = {label: n for label, (_, n) in parts.items()}
     expected = {"segment_sum": sum(by_csr.values()), "edge_mlp": 0,
-                "edge_step": 0, "by_csr": by_csr}
+                "edge_step": 0, "reg_edge": 0, "by_csr": by_csr}
     # By design: each CSR and shape's F in bf16 (the decoder's F = 19
     # gather adjoint narrow, the F = 256 sums balanced).
     expected_design = dict.fromkeys(
@@ -2286,14 +2581,14 @@ def _assert_fit_launches(rec, model, graphs):
         want = {label: n for label, (_, n) in parts.items()}
         if by_csr or got != want or st["launches"] != {
                 "segment_sum": sum(want.values()), "edge_mlp": 0,
-                "edge_step": 0}:
+                "edge_step": 0, "reg_edge": 0}:
             raise AssertionError(f"fit step {i} (AR {st['ar']}): launches "
                                  f"{st['launches']}, by CSR {got} + "
                                  f"unexpected {by_csr}; expected {want}")
         st["by_csr"] = got
     for ev in rec.evals:
         want = {"segment_sum": 2 * ev["samples"], "edge_mlp": 0,
-                "edge_step": 0}
+                "edge_step": 0, "reg_edge": 0}
         if ev["launches"] != want:
             raise AssertionError(f"evaluation launches {ev['launches']}, "
                                  f"expected {want}")
@@ -2764,7 +3059,7 @@ def phase_baseline_numerics(gs, graphs):
         err = (card["pred"] - cpu["pred"]).abs().max().item()
         torch.testing.assert_close(card["pred"], cpu["pred"], **E2E_TOL)
         want = {"segment_sum": card["expected"], "edge_mlp": 0,
-                "edge_step": 0}
+                "edge_step": 0, "reg_edge": 0}
         if card["counts"] != want:
             raise AssertionError(f"{name}: request launches "
                                  f"{card['counts']}, expected {want}")
@@ -3416,7 +3711,8 @@ def phase_fused_train(ctx):
                                                mega, gcn)
             by_csr = {label: n for label, (_, n) in parts.items()}
             expected = {"segment_sum": sum(by_csr.values()),
-                        "edge_mlp": n_mlp, "edge_step": 0, "by_csr": by_csr}
+                        "edge_mlp": n_mlp, "edge_step": 0, "reg_edge": 0,
+                        "by_csr": by_csr}
             losses, ms = [], []
             for i in range(FUSED_TRAIN_STEPS):
                 torch.cuda.synchronize()
@@ -4421,8 +4717,9 @@ def _host_spans(spans):
 def _da_request(exp, dtype, flags, per_rollout):
     """One ``cli.predict`` call of DA_REQUESTS AR-4 requests: (report, ms a
     request, host ms a request by span); raises unless every rollout
-    launched the segment sum exactly ``per_rollout`` times and the report
-    is finite."""
+    launched the segment sum exactly ``per_rollout`` times and the
+    reg-edge kernel once a processor step in bf16 (never in fp32), and the
+    report is finite."""
     from graphcast_lite_torch.cli import predict as predict_cli
 
     path = os.path.join(exp, f"report_{dtype}.json")
@@ -4434,7 +4731,9 @@ def _da_request(exp, dtype, flags, per_rollout):
                           "--dtype", dtype, "--report-json", path] + flags)
     counts = _launches()
     expected = {"segment_sum": per_rollout * DA_REQUESTS, "edge_mlp": 0,
-                "edge_step": 0}
+                "edge_step": 0,
+                "reg_edge": (FLAGSHIP_STEPS * AR_STEPS * DA_REQUESTS
+                             if dtype == "bf16" else 0)}
     if counts != expected:
         raise AssertionError(f"cli.predict {flags} {dtype}: launches "
                              f"{counts} (expected {expected})")
@@ -5135,7 +5434,7 @@ def phase_converted_serve(workdir, data_dir, ctx):
     cli_ms = (time.perf_counter() - t0) * 1e3
     counts = _launches()
     expected = {"segment_sum": 8 * OFFLINE_REQUESTS, "edge_mlp": 0,
-                "edge_step": 0}
+                "edge_step": 0, "reg_edge": 0}
     if counts != expected:
         raise AssertionError(f"cli.predict launches {counts} (expected "
                              f"{expected})")
@@ -5550,7 +5849,7 @@ def phase_sharded_one_rank(ctx, smi):
         torch.cuda.synchronize()
         by_csr = {label: n for label, (_, n) in parts.items()}
         expected = {"segment_sum": sum(by_csr.values()), "edge_mlp": n_mlp,
-                    "edge_step": 0, "by_csr": by_csr}
+                    "edge_step": 0, "reg_edge": 0, "by_csr": by_csr}
         counts = dict(_launches(), by_csr=_csr_launches(parts))
         if counts != expected:
             raise AssertionError(f"sharded step launches {counts}, "
@@ -6228,7 +6527,7 @@ def phase_sharded_batched(ctx, smi, mesh, one_rank):
         torch.cuda.synchronize()
         counts = _sharded_counts(parts)
         expected = {"segment_sum": sum(n for _, n in parts.values()),
-                    "edge_mlp": n_mlp, "edge_step": 0,
+                    "edge_mlp": n_mlp, "edge_step": 0, "reg_edge": 0,
                     "by_csr": {label: n for label, (_, n) in parts.items()}}
         if like is not None:
             expected.update(halo_exchanges=like["halo_exchanges"],
@@ -6872,6 +7171,7 @@ def phase_batched_train(ctx, x, y):
                         if (c["by_csr"] != want
                                 or c["edge_mlp"] != mlp * times
                                 or c["edge_step"] != 0
+                                or c["reg_edge"] != 0
                                 or c["segment_sum"] != sum(want.values())):
                             raise AssertionError(
                                 f"12b {name} {mode} step {i}: launches "
@@ -7025,7 +7325,7 @@ def phase_batched_serve(ctx, ds, meta):
                 for s in sizes:
                     want_calls[str(s)] = want_calls.get(str(s), 0) + SERVE_AR
             want = {"segment_sum": 2 * SERVE_AR * chunks, "edge_mlp": 0,
-                    "edge_step": 0}
+                    "edge_step": 0, "reg_edge": 0}
             if calls != want_calls or counts != want:
                 raise AssertionError(f"12c K={k}: model calls {calls} "
                                      f"(expected {want_calls}), launches "
@@ -7065,7 +7365,7 @@ def phase_batched_serve(ctx, ds, meta):
             calls, counts = rec.take(), _launches()
             kern = "edge_step" if name == "edge_step" else "edge_mlp"
             want = {"segment_sum": 2 * SERVE_AR, "edge_mlp": 0,
-                    "edge_step": 0}
+                    "edge_step": 0, "reg_edge": 0}
             want[kern] = 12 * SERVE_AR
             if counts != want or calls != {str(FUSED_SERVE_SAMPLES):
                                            SERVE_AR}:
@@ -7897,7 +8197,7 @@ def phase_remat(ctx, smi):
                 routes = {s.route for s in
                           model.processor.graph_layer.inet.steps}
                 want = {"segment_sum": sum(n for _, n in parts.values()),
-                        "edge_mlp": mlp, "edge_step": 0}
+                        "edge_mlp": mlp, "edge_step": 0, "reg_edge": 0}
                 if routes != {route} or launches != want:
                     raise AssertionError(
                         f"14a {name} {key}: routes {routes}, launches "
@@ -8046,6 +8346,8 @@ def main() -> int:
     gs64, graphs64 = _baseline_graphs()
     phase_new_shape_cases(graphs64)
     phase_fused_cases()
+    reg_edge_rows = phase_reg_edge_cases()
+    reg_edge_counts = phase_reg_edge_launches()
     with tempfile.TemporaryDirectory() as workdir:
         ctx, serve = phase_serve(workdir)
         serve["coo_routes"] = phase_coo_serve(ctx)
@@ -8249,6 +8551,24 @@ def main() -> int:
             launches_in_demo_train=fit["demo"]["launches"][name],
             library_note="no single PyTorch call computes this fused "
                          "function")))
+    # The reg-edge step: launches from phase 2's serve (and 1e, 5c, 6), times
+    # from 1d at the flagship B = 1 shape.  No Pallas kernel computes it: the
+    # JAX package leaves the step to XLA's fusion.
+    flag = reg_edge_rows[0]
+    kernels.append(("reg_edge", "reg_edge.cu", None, dict(
+        at_shape=flag["case"], ms=flag["ms"], bound_ms=flag["bound_ms"],
+        bound_by=flag["bound"],
+        fraction_of_bound=flag["bound_ms"] / flag["ms"],
+        plain_ms=flag["plain_ms"], eager_ms=flag["eager_ms"],
+        at_shapes=reg_edge_rows,
+        launches=serve["reg_edge_launches"],
+        launches_per_rollout=serve["reg_edge_launches"] // REQUESTS,
+        launches_in_phase_1e=reg_edge_counts["launches"],
+        launches_per_train_step=train["launches_per_step"]["reg_edge"],
+        launches_in_fit=fit["flagship"]["launches"]["reg_edge"],
+        launches_in_demo_train=fit["demo"]["launches"]["reg_edge"],
+        library_note="no single PyTorch call computes this fused "
+                     "function")))
     _log(json.dumps({"serve": serve}))
     _log(json.dumps({"train": train}))
     _log(json.dumps({"baseline_64x32": baseline}))
@@ -8261,11 +8581,16 @@ def main() -> int:
     _log(json.dumps({"batched": batched}))
     _log(json.dumps({"data_parallel": data_parallel}))
     _log(json.dumps({"remat": remat}))
+    _log(json.dumps({"reg_edge": {"cases": reg_edge_rows,
+                                  "launches": reg_edge_counts}}))
     _log(json.dumps({"kernels": [dict({
         "name": name,
         "route": "cuda",
         "source": f"graphcast_lite_torch/csrc/{src}",
-        "replaces": f"graphcast_lite_tpu/ops/{tpu}",
+        "replaces": (f"graphcast_lite_tpu/ops/{tpu}" if tpu else
+                     "no Pallas kernel (XLA fusion of graphcast_lite_tpu/"
+                     "ops/reg_edge.py: _fwd_impl, the residual and the "
+                     "statistics)"),
     }, **k) for name, src, tpu, k in kernels]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -32,7 +32,10 @@ The lazy-LN step takes the reference's routes, picked by its own switches
 with its defaults, read when the step is called:
 
 * ``GCLT_REG_EDGE`` (default on): the constant-degree RegularBlocks layout
-  where the graph has one and no runtime mask overrides the static one;
+  where the graph has one and no runtime mask overrides the static one
+  (there a bf16 step on the card that takes no gradient runs its whole
+  edge side in the reg-edge kernel, ``ops.reg_edge.reg_edge_step``;
+  training, fp32 and the CPU take ``reg_edge_tail``);
   otherwise, or with ``GCLT_REG_EDGE=0``, the receiver-sorted COO layout,
   where
 * ``GCLT_EDGE_STEP=1`` runs the whole edge side in the fused edge-step
@@ -72,7 +75,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graphs.structure import Graph
-from ..ops import edge_mlp, edge_step
+from ..ops import edge_mlp, edge_step, reg_edge
 from ..ops import segment as seg_ops
 from ..ops.fused_edge import edge_pipeline, in_training, use_fused_edge
 from ..ops.gcn_agg import gcn_aggregate, supports_gcn_aggregate
@@ -476,6 +479,20 @@ class InteractionNetLayer(nn.Module):
             static = RegStatic(block_recv=rb.block_recv, block_k=rb.block_k,
                                num_nodes=graph.num_receivers,
                                activation=self.activation)
+            if reg_edge.step_engages(x, v, hid, de, self.activation,
+                                     (k0, b0, k1, b1, a, c)):
+                # The whole edge side, the residual and the statistics in
+                # one kernel; the two node projections stay outside.
+                v_new, agg_sum, stats = reg_edge.reg_edge_step(
+                    static, x @ w1s, x @ w1r, v, rb.mask.to(x.dtype),
+                    rb.senders, w1e_eff, b1_eff, k1, b1,
+                    a.float().contiguous(), c.float().contiguous())
+                new_x = self._node_step(x, agg_sum, graph, edge_mask)
+                denom = torch.clamp(stats[..., 2] * de, min=1.0)
+                mu = stats[..., 0] / denom
+                var = torch.clamp(stats[..., 1] / denom - torch.square(mu),
+                                  min=0.0)
+                return (new_x, v_new) + self._affine(mu, var)
             u, agg_sum = reg_edge_tail(
                 static, x, v, rb.mask.to(x.dtype), rb.senders, rb.s_perm,
                 rb.s_indptr, w1s, w1r, w1e_eff, b1_row, k1, b1,
